@@ -1,0 +1,102 @@
+"""The port stands alone: no ``jax`` and nothing of ``repro`` is imported by
+``src/repro_torch`` or ``chip_smoke.py``, and its entry points refuse to run
+on the CPU unless the caller asks for it."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> list:
+    """Every module name an import statement of ``path`` names, at any
+    depth (function-local imports included)."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_source_imports_no_jax_and_no_repro(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_every_port_module_loads_neither_jax_nor_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__,\n"
+        "                               'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def _entry_points():
+    from repro_torch.core import (CloudService, DeviceClient, Knobs,
+                                  MappingServer, init_local_map, init_store)
+    from repro_torch.core.store import synthetic_store
+    from repro_torch.perception.embedder import OracleEmbedder
+    kn = Knobs(server_capacity=8, client_capacity=4,
+               max_object_points_server=8, max_object_points_client=4)
+    return {
+        "init_store": lambda: init_store(8, 4, 8),
+        "synthetic_store": lambda: synthetic_store(4, 8, 4, 8),
+        "init_local_map": lambda: init_local_map(kn, 4),
+        "MappingServer": lambda: MappingServer(
+            knobs=kn, embedder=OracleEmbedder(embed_dim=4)),
+        "DeviceClient": lambda: DeviceClient(knobs=kn, embed_dim=4),
+        "CloudService": lambda: CloudService(knobs=kn, store_ref=None),
+        "OracleEmbedder.embed_text": lambda: OracleEmbedder(
+            embed_dim=4).embed_text(0),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_default_to_cuda_and_raise_without_it(name,
+                                                           monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _entry_points()[name]()
+
+
+def test_explicit_cpu_device_runs():
+    from repro_torch.core import init_store
+    st = init_store(8, 4, 8, device="cpu")
+    assert st.ids.device.type == "cpu" and st.ids.dtype == torch.int32
+
+
+def test_chip_scripts_fail_without_a_gpu_and_outside_a_checkout(tmp_path):
+    """Without a card the smoke run exits non-zero and prints no result;
+    copied alone into an empty directory it exits non-zero as well."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run for real")
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", lone)
+    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (lone, tmp_path)):
+        r = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                           capture_output=True, text=True, timeout=300,
+                           env=dict(os.environ, PYTHONPATH=""))
+        assert r.returncode != 0, r.stdout
+        assert '"ok"' not in r.stdout
