@@ -7,10 +7,14 @@
    (one ``nvcc`` per source, in parallel) and prints the build time;
 2. holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at edge shapes (budget > cap, ragged tiling,
-   empty masks, k past the included count, all-equal scores, k = 1024):
-   ints exactly, floats within 1e-4 (lift_compact) and 1e-5
-   (query_topk_bias scores), and times kernel, plain version and, where
-   one PyTorch call computes the same function, that call;
+   empty masks, k past the included count, all-equal scores, k = 1024;
+   the captioner's prefill attention, the reference's attention test
+   shapes, a GQA case; nearest-neighbour distances at the reference's test
+   shapes, a chamfer, a centroid sweep and no valid neighbour): ints
+   exactly, floats within 1e-4 (lift_compact, nearest_dist), 1e-5
+   (query_topk_bias scores) and rtol = atol = 2e-5 / 2e-2 (flash_attention
+   in f32 / bf16), and times kernel, plain version and, where one PyTorch
+   call computes the same function, that call;
 3. drives the single-client loop at the paper's deployment size (Knobs()
    defaults, E = 512, 720x1280 keyframes, 40 keyframes of an 80-object
    scene): MappingServer.process_frame, CloudService.update_tick ->
@@ -25,7 +29,17 @@
    requires the same top-k as the CPU port, with the launch counters reset
    just before and read just after;
 6. replays the first 6 keyframes of step 3 on the CPU port and requires
-   the same store.
+   the same store;
+7. serves the full-width ``semanticxr-captioner-110m`` (12 layers, d 768,
+   12 / 4 heads, vocab 32000, bf16, seeded weights): 8 caption prompts of
+   1024 tokens, ``api.prefill`` then 32 greedy ``api.decode`` steps, three
+   times, with the launch counters reset just before and read just after
+   (12 flash_attention launches per prefill, none per decode step);
+8. replays step 7's weights in f32 at B = 1, S = 256 and 8 greedy steps on
+   the card and on the CPU port: the same tokens, logits within 1e-4.
+
+``nearest_dist`` has no caller on any system path: its phase drives its
+entry point, ``ops.nearest_dist``, at a chamfer and a centroid shape.
 
 It imports nothing of JAX or of the JAX package, catches no failure, and
 exits non-zero (printing no result) without a CUDA device or outside a
@@ -47,14 +61,25 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data-sheet peaks (at the 700 W limit): HBM3 bandwidth and
-# the fp32 rate outside the tensor cores (both kernels compute in fp32 FMA).
+# the fp32 rate outside the tensor cores (lift_compact, query_topk_bias and
+# nearest_dist compute in fp32 FMA), the dense bf16 tensor-core rate (the
+# captioner's flash_attention).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 LIFT_TOL = 1e-4          # metres: back-projection + pose in another order
 SCORE_TOL = 1e-5         # unit-vector dot products in another order
 CROSS_FRAMES = 6         # keyframes replayed on the CPU port (step 6)
+# flash_attention against its plain version (rtol = atol), the reference's
+# own tolerances: f32 in another summation order; bf16 p and outputs round
+# to 8 bits, so one rounding that lands the other way moves an output by a
+# bf16 ulp
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+ND_TOL = 1e-4            # nearest_dist: |a|^2 + |b|^2 - 2ab in another order
+LOGIT_TOL = 1e-4         # step 8: f32 logits, 12 layers in another order
 PROFILE_KEYFRAMES = 4    # keyframes timed by stage, then as many profiled
+PROFILE_DECODE = 8       # decode steps under the profiler (step 7)
 # ops whose CPU side waits for the card: each is a host sync in the loop
 SYNC_OPS = ("aten::item", "aten::_local_scalar_dense", "aten::nonzero",
             "cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -65,6 +90,13 @@ SYNC_OPS = ("aten::item", "aten::_local_scalar_dense", "aten::nonzero",
 DEPLOYMENT = dict(embed_dim=512, h=720, w=1280, n_frames=200,
                   keyframe_interval=5, n_objects=80)
 QUERY_STORE = dict(n=10_000, capacity=10_240, embed_dim=512, max_points=16)
+# the captioner's serving shape (step 7) and the f32 replay (step 8)
+SERVE = dict(batch=8, prompt=1024, new_tokens=32, reps=3)
+REPLAY = dict(batch=1, prompt=256, new_tokens=8)
+# nearest_dist: a detection's cloud against a map object's, both at
+# Knobs().max_object_points_server; every kept point of a keyframe's 32
+# detections against the 4096-slot store's centroids
+ND_PATH_SHAPES = ((2000, 2000, 3), (64000, 4096, 3))
 
 
 def check(cond, what: str) -> None:
@@ -261,6 +293,161 @@ def kernel_checks(torch, clock, dev):
     return lift_row, timed[(1, 4096)]
 
 
+def attn_inputs(torch, B, S, H, Kv, dh, dtype, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((B, S, h, dh), generator=g, device=dev).to(dtype)
+            for h in (H, Kv, Kv)]
+
+
+def attn_cost(q, k, causal, window, elt):
+    """(bytes, flops) of one attention call: q, k, v read and o written
+    once; 4 * dh flops for each (query, key) pair the masks keep."""
+    B, S, H, dh = q.shape
+    qp = np.arange(S)[:, None]
+    kp = np.arange(S)[None, :]
+    keep = np.ones((S, S), bool)
+    if causal:
+        keep &= kp <= qp
+    if window:
+        keep &= qp - kp < window
+    return ((2 * q.numel() + 2 * k.numel()) * elt,
+            4 * dh * B * H * int(keep.sum()))
+
+
+def attention_checks(torch, clock, dev):
+    from repro_torch.kernels import flash_attention as fa
+
+    def close(got, want, dtype):
+        tol = ATTN_TOL[str(dtype).split(".")[-1]]
+        err = (got.float() - want.float()).abs()
+        return float(err.max()), bool(
+            (err <= tol + tol * want.float().abs()).all())
+
+    # (B, S, H, Kv, dh, dtype, causal, window, softcap): the captioner's
+    # prefill; tests/test_kernels.py:75-81 and a non-causal ragged S, each
+    # in the reference's [H, S, dh] layout (strided views, as
+    # ops.flash_attention passes them); a GQA case with every option
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(8, 1024, 12, 4, 64, bf, True, 0, 0.0),
+             (8, 1024, 12, 4, 64, f32, True, 0, 0.0),
+             (1, 128, 2, 2, 64, f32, True, 0, 0.0),
+             (1, 256, 4, 4, 64, f32, True, 64, 0.0),
+             (1, 200, 2, 2, 128, f32, True, 0, 50.0),
+             (1, 128, 1, 1, 64, f32, False, 0, 0.0),
+             (1, 256, 2, 2, 64, bf, True, 0, 0.0),
+             (1, 200, 2, 2, 64, f32, False, 0, 0.0),
+             (1, 200, 2, 2, 64, bf, False, 0, 0.0),
+             (2, 333, 12, 4, 128, bf, True, 100, 30.0)]
+    row = None
+    for i, (B, S, H, Kv, dh, dt, causal, window, cap) in enumerate(cases):
+        if B == 1 and H == Kv:
+            hsd = attn_inputs(torch, 1, S, H, H, dh, dt, i, dev)
+            q, k, v = (t[0].transpose(0, 1).contiguous().transpose(0, 1)[None]
+                       for t in hsd)      # [1, S, H, dh] views of [H, S, dh]
+        else:
+            q, k, v = attn_inputs(torch, B, S, H, Kv, dh, dt, i, dev)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err, ok = close(got, want, dt)
+        tag = dict(B=B, S=S, H=H, Kv=Kv, dh=dh, dtype=str(dt), **kw)
+        check(ok and bool(torch.isfinite(got).all()),
+              f"flash_attention err {err} at {tag}")
+        emit("flash_attention_check", {**tag, "max_abs_err": err})
+        if i == 0:
+            nbytes, flops = attn_cost(q, k, causal, window, 2)
+            t_ops = flops / BF16_FLOP_PER_S * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            sdpa = [t.transpose(1, 2) for t in (q, k, v)]
+            row = {
+                "ms": clock.ms(lambda: fa.flash_attention_cuda(q, k, v,
+                                                               **kw)),
+                "plain_ms": clock.ms(lambda: fa.flash_attention_plain(
+                    q, k, v, **kw)),
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": clock.ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        *sdpa, is_causal=True, enable_gqa=True)),
+                "max_abs_err": err, "flops": flops, "bytes": nbytes,
+                "shape": f"B={B} S={S} H={H} Kv={Kv} dh={dh} bf16 causal"}
+            emit("flash_attention_time", row)
+    return row
+
+
+def nd_inputs(torch, M, N, D, seed, dev, frac=0.9):
+    """Points in a 10 m room (a), map points or centroids (b), a share
+    ``frac`` of b valid."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = (torch.rand((M, D), generator=g, device=dev) - 0.5) * 10
+    b = (torch.rand((N, D), generator=g, device=dev) - 0.5) * 10
+    return a, b, torch.rand((N,), generator=g, device=dev) < frac
+
+
+def nearest_checks(torch, clock, dev):
+    from repro_torch.kernels import pairwise as pw
+
+    cases = [((50, 70, 3), 0.9), ((256, 512, 3), 0.9), ((1000, 333, 3), 0.9),
+             ((128, 128, 8), 0.9), ((2000, 2000, 3), 0.9),
+             ((64000, 4096, 3), 0.8), ((300, 200, 3), 0.0)]
+    row = None
+    for i, ((M, N, D), frac) in enumerate(cases):
+        a, b, bv = nd_inputs(torch, M, N, D, i, dev, frac)
+        got = pw.nearest_dist_cuda(a, b, bv)
+        want = pw.nearest_dist_plain(a, b, bv)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(((got - want).abs() <= ND_TOL + ND_TOL * want.abs()).all()),
+              f"nearest_dist err {err} at {(M, N, D)}")
+        if frac == 0.0:
+            check(bool((got == pw.INF).all()), "no valid neighbour -> 1e30")
+        emit("nearest_dist_check", {"shape": [M, N, D], "valid_share": frac,
+                                    "max_abs_err": err})
+        if (M, N, D) == ND_PATH_SHAPES[1]:
+            # distances are computed for valid b rows only: count those
+            n_valid = int(bv.sum())
+            t_ops = M * n_valid * (2 * D + 3) / FP32_FLOP_PER_S * 1e3
+            t_bytes = 4 * (M * D + N * D + N + M) / HBM_BYTES_PER_S * 1e3
+            row = {
+                "ms": clock.ms(lambda: pw.nearest_dist_cuda(a, b, bv)),
+                "plain_ms": clock.ms(lambda: pw.nearest_dist_plain(a, b, bv)),
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": clock.ms(lambda: torch.cdist(a, b).masked_fill(
+                    ~bv[None], torch.inf).amin(1).square()),
+                "max_abs_err": err, "n_valid": n_valid,
+                "shape": f"M={M} N={N} D={D}"}
+            emit("nearest_dist_time", row)
+    return row
+
+
+def nearest_phase(torch, dev):
+    """The whole path of nearest_dist is its entry point: ops.nearest_dist
+    at the chamfer and centroid shapes, the chamfer held against the CPU
+    port, with the launch counters reset just before and read just after."""
+    from repro_torch.kernels import ops
+
+    inputs = [nd_inputs(torch, M, N, D, 100 + i, dev)
+              for i, (M, N, D) in enumerate(ND_PATH_SHAPES)]
+    ops.reset_launch_counts()
+    outs = [ops.nearest_dist(*x) for x in inputs]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = ops.nearest_dist(*(t.cpu() for t in inputs[0]))
+    err = float((outs[0].cpu() - want).abs().max())
+    check(err <= ND_TOL * (1 + float(want.abs().max())),
+          f"nearest_dist chamfer against the CPU port: err {err}")
+    check(all(bool(torch.isfinite(o).all()) for o in outs),
+          "nearest_dist outputs finite")
+    check(counts["nearest_dist"] == len(ND_PATH_SHAPES),
+          f"nearest_dist launched on its path: {counts}")
+    out = {"shapes": ND_PATH_SHAPES, "max_abs_err_vs_cpu": err,
+           "launches": counts}
+    emit("nearest_dist_phase", out)
+    return out
+
+
 # ------------------------------------------------------------------ step 3
 def main_path(torch, dev, knobs, *, embed_dim, h, w, n_frames,
               keyframe_interval, n_objects):
@@ -337,8 +524,8 @@ def main_path(torch, dev, knobs, *, embed_dim, h, w, n_frames,
           f"{len(mapped)}")
     check(lq_hit >= 0.9 * len(mapped), f"LQ top-1 accuracy {lq_hit}/"
           f"{len(mapped)}")
-    for name, n in counts.items():
-        check(n > 0, f"{name} launched on the main path")
+    for name in ("lift_compact", "query_topk_bias"):
+        check(counts[name] > 0, f"{name} launched on the main path")
     out = {"keyframes": n_keyframes,
            "ingest_ms_p50": float(np.percentile(ingest_ms, 50)),
            "ingest_ms_p95": float(np.percentile(ingest_ms, 95)),
@@ -365,7 +552,6 @@ def profile_phase(torch, dev, loop, *, embed_dim, h, w, n_frames,
     """Host ms per stage of PROFILE_KEYFRAMES keyframes (each stage ending
     in a synchronize), then a ``torch.profiler`` window over as many more.
     The keyframes revisit the start of step 3's stream."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import Query
@@ -410,6 +596,17 @@ def profile_phase(torch, dev, loop, *, embed_dim, h, w, n_frames,
             step(fr)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    out = {"keyframes": PROFILE_KEYFRAMES,
+           **profile_summary(prof, wall_ms)}
+    emit("profile", out)
+    return out
+
+
+def profile_summary(prof, wall_ms: float) -> dict:
+    """Device-busy share, host syncs and top kernels / CPU ops of a
+    ``torch.profiler`` window that lasted ``wall_ms`` on the host."""
+    from torch.autograd import DeviceType
+
     ev = prof.key_averages()
     # device-side events only: a CPU op's row also carries its kernels' time
     on_dev = [e for e in ev if e.device_type != DeviceType.CPU]
@@ -421,14 +618,26 @@ def profile_phase(torch, dev, loop, *, embed_dim, h, w, n_frames,
         return [{"name": e.key[:60], "calls": e.count, "ms": key(e) / 1e3}
                 for e in sorted(rows, key=key, reverse=True)[:10]]
 
-    out = {"keyframes": PROFILE_KEYFRAMES, "wall_ms": wall_ms,
-           "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
-           "host_syncs": {e.key: e.count for e in ev if e.key in SYNC_OPS},
-           "cpu_ops": sum(e.count for e in aten),
-           "top_kernels": top(on_dev, lambda e: e.self_device_time_total),
-           "top_cpu_ops": top(aten, lambda e: e.self_cpu_time_total)}
-    emit("profile", out)
-    return out
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "host_syncs": {e.key: e.count for e in ev if e.key in SYNC_OPS},
+            "cpu_ops": sum(e.count for e in aten),
+            "top_kernels": top(on_dev, lambda e: e.self_device_time_total),
+            "top_cpu_ops": top(aten, lambda e: e.self_cpu_time_total)}
+
+
+def profiled(torch, fn) -> dict:
+    """``profile_summary`` of one call of ``fn`` (ending in a synchronize)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return profile_summary(prof, wall_ms)
 
 
 # ------------------------------------------------------------------ step 5
@@ -498,6 +707,141 @@ def cross_device(torch, knobs, embed_dim, kept, snap, classes):
     return out
 
 
+# ------------------------------------------------------------------ step 7
+def serve_phase(torch, dev, cfg, *, batch, prompt, new_tokens, reps):
+    """The captioner's serving path: prefill, then greedy decode steps,
+    through model_api's entry points, ``reps`` times on the same caches."""
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import model_api
+    from repro_torch.models.lm import greedy_token
+
+    api = model_api(cfg)
+    t0 = time.perf_counter()
+    model = api.init(torch.Generator().manual_seed(0), device=dev)
+    init_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(next(batch_iterator(
+        batch, prompt, seed=0, vocab_size=cfg.vocab_size))["tokens"]).to(dev)
+    caches = api.init_cache(batch, prompt + new_tokens, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pre_ms, dec_ms, per_prefill, per_decode, generated = [], [], [], [], []
+
+    ops.reset_launch_counts()
+    for _ in range(reps):
+        n0 = ops.launch_counts()["flash_attention"]
+        t0 = time.perf_counter()
+        logits, caches = api.prefill(model, {"tokens": tokens}, caches)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+        n1 = ops.launch_counts()["flash_attention"]
+        per_prefill.append(n1 - n0)
+        check(bool(torch.isfinite(logits).all()), "prefill logits finite")
+        tok = greedy_token(logits)
+        gen = [tok]
+        for i in range(new_tokens):
+            t0 = time.perf_counter()
+            logits, caches = api.decode(model, tok, caches, prompt + i)
+            tok = greedy_token(logits)
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+            gen.append(tok)
+        per_decode.append(ops.launch_counts()["flash_attention"] - n1)
+        check(bool(torch.isfinite(logits).all()), "decode logits finite")
+        generated.append(torch.cat(gen, dim=1).cpu())
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    check(per_prefill == [cfg.n_layers] * reps,
+          f"{cfg.n_layers} flash_attention launches per prefill: "
+          f"{per_prefill}")
+    check(per_decode == [0] * reps, f"no flash_attention launch while "
+          f"decoding: {per_decode}")
+    check(all(torch.equal(g, generated[0]) for g in generated),
+          "the same greedy tokens from every repetition")
+    check(int(caches[0].length) == prompt + new_tokens, "cache length")
+    check(counts["flash_attention"] > 0,
+          "flash_attention launched on the serving path")
+    # where the time goes: one prefill, then PROFILE_DECODE decode steps,
+    # each under the profiler (after the checks: these launches are extra)
+    state = {}
+
+    def prefill_once():
+        state["logits"], state["caches"] = api.prefill(
+            model, {"tokens": tokens}, caches)
+
+    def decode_steps():
+        tok = greedy_token(state["logits"])
+        for i in range(PROFILE_DECODE):
+            logits, _ = api.decode(model, tok, state["caches"], prompt + i)
+            tok = greedy_token(logits)
+
+    prof = {"prefill": profiled(torch, prefill_once),
+            f"decode_{PROFILE_DECODE}_steps": profiled(torch, decode_steps)}
+    emit("serve_profile", prof)
+
+    dec = float(np.percentile(dec_ms, 50))
+    out = {"config": cfg.name, "batch": batch, "prompt": prompt,
+           "new_tokens": new_tokens, "reps": reps,
+           "params": sum(p.numel() for p in model.parameters()),
+           "weights_bytes": sum(p.numel() * p.element_size()
+                                for p in model.parameters()),
+           "kv_cache_bytes": sum(c.k.nbytes + c.v.nbytes for c in caches),
+           "init_s_host": init_s,
+           "prefill_ms": pre_ms, "prefill_ms_p50": float(np.median(pre_ms)),
+           "decode_ms_per_step_p50": dec,
+           "decode_ms_per_step_p95": float(np.percentile(dec_ms, 95)),
+           "generated_tokens_per_s": batch / dec * 1e3,
+           "max_memory_allocated_bytes": peak,
+           "flash_launches_per_prefill": per_prefill,
+           "launches": counts,
+           "first_tokens": generated[0][0, :8].tolist()}
+    emit("serve_phase", out)
+    return out
+
+
+# ------------------------------------------------------------------ step 8
+def replay_phase(torch, dev, cfg, *, batch, prompt, new_tokens):
+    """Step 7's weights in f32 (the same seeded draw, not rounded to bf16)
+    on the card and on the CPU port: greedy tokens equal, logits close."""
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.models.api import model_api
+    from repro_torch.models.lm import greedy_token
+
+    api = model_api(cfg.replace(dtype=torch.float32))
+    prompt_np = next(batch_iterator(batch, prompt, seed=1,
+                                    vocab_size=cfg.vocab_size))["tokens"]
+
+    def run(device):
+        model = api.init(torch.Generator().manual_seed(0), device=device)
+        caches = api.init_cache(batch, prompt + new_tokens, device=device)
+        logits, caches = api.prefill(
+            model, {"tokens": torch.from_numpy(prompt_np).to(device)}, caches)
+        toks, all_logits = [], [logits.cpu()]
+        tok = greedy_token(logits)
+        for i in range(new_tokens):
+            toks.append(tok.cpu())
+            logits, caches = api.decode(model, tok, caches, prompt + i)
+            all_logits.append(logits.cpu())
+            tok = greedy_token(logits)
+        toks.append(tok.cpu())
+        return torch.cat(toks, dim=1), torch.stack(all_logits)
+
+    t0 = time.perf_counter()
+    gtok, glog = run(dev)
+    ctok, clog = run("cpu")
+    err = float((glog - clog).abs().max())
+    check(torch.equal(gtok, ctok), f"greedy tokens card {gtok.tolist()} vs "
+          f"CPU {ctok.tolist()}")
+    check(err <= LOGIT_TOL, f"f32 logits card vs CPU err {err}")
+    out = {"batch": batch, "prompt": prompt, "new_tokens": new_tokens,
+           "tokens": gtok[0].tolist(), "max_abs_logit_err": err,
+           "max_abs_logit": float(clog.abs().max()),
+           "seconds_host": time.perf_counter() - t0}
+    emit("replay_phase", out)
+    return out
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -510,6 +854,7 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import get_config
     from repro_torch.core import Knobs
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
@@ -532,23 +877,42 @@ def main() -> int:
 
     clock = Clock(torch)
     lift_row, topk_row = kernel_checks(torch, clock, dev)
+    flash_row = attention_checks(torch, clock, dev)
+    nd_row = nearest_checks(torch, clock, dev)
+    nd_path = nearest_phase(torch, dev)
     knobs = Knobs()
     path, kept, snap, loop = main_path(torch, dev, knobs, **DEPLOYMENT)
     profile_phase(torch, dev, loop, **DEPLOYMENT)
     query_phase(torch, dev, **QUERY_STORE)
     cross_device(torch, knobs, DEPLOYMENT["embed_dim"], kept, snap,
                  loop.classes)
+    captioner = get_config("semanticxr-captioner-110m")
+    serve = serve_phase(torch, dev, captioner, **SERVE)
+    replay_phase(torch, dev, captioner, **REPLAY)
 
     launches = path["launches"]
     kernels = [
         {"name": "lift_compact", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lift_compact.cu",
          "replaces": "src/repro/kernels/lift_compact.py:229",
-         "launches": launches["lift_compact"], **lift_row},
+         "launches": launches["lift_compact"],
+         "launched_on": "step 3 main path", **lift_row},
         {"name": "query_topk_bias", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/query_topk.cu",
          "replaces": "src/repro/kernels/query_topk.py:121",
-         "launches": launches["query_topk_bias"], **topk_row},
+         "launches": launches["query_topk_bias"],
+         "launched_on": "step 3 main path", **topk_row},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:93",
+         "launches": serve["launches"]["flash_attention"],
+         "launched_on": "step 7 captioner serving path", **flash_row},
+        {"name": "nearest_dist", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/pairwise.cu",
+         "replaces": "src/repro/kernels/pairwise.py:59",
+         "launches": nd_path["launches"]["nearest_dist"],
+         "launched_on": "its own phase: ops.nearest_dist is its whole path "
+                        "(no system path calls it)", **nd_row},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,8 @@ import torch
 from repro_torch.core.local_map import LocalMap, UpdateBatch
 from repro_torch.core.store import ObjectStore
 from repro_torch.device import resolve_device
+from repro_torch.models import common as cm
+from repro_torch.models.lm import LM
 from repro_torch.perception.embedder import OracleEmbedder
 
 
@@ -68,3 +70,27 @@ def embedder_basis_matches(np_basis, *, seed: int = 7) -> bool:
     np_basis = np.asarray(np_basis)
     emb = OracleEmbedder(embed_dim=np_basis.shape[1], seed=seed)
     return bool(np.array_equal(np_basis, emb.basis_np))
+
+
+def lm_params_from_numpy(cfg: cm.ArchConfig, tree, *, device="cuda") -> LM:
+    """The reference's LM parameters (``repro.models.lm`` pytree, leaves as
+    numpy) as the port's ``LM`` in ``cfg.dtype`` on ``device``.
+
+    The reference stacks each period slot's body leaves as
+    ``[n_periods, ...]`` and keeps the dense prefix as a list; the port
+    keeps one tree per layer, prefix first, then period by period.  A tied
+    head stays tied: there is no ``lm_head`` and the head reads
+    ``embed.T``."""
+    def leaf(x):      # via f32: numpy has no bf16 that torch reads
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(cfg.dtype)
+
+    layers = [cm.map_tree(lambda _, x: leaf(x), p)
+              for p in tree.get("prefix", [])]
+    for i in range(cfg.n_periods):
+        for s in range(cfg.period):
+            layers.append(cm.map_tree(lambda _, x: leaf(np.asarray(x)[i]),
+                                      tree["body"][s]))
+    params = {k: leaf(tree[k]) for k in ("embed", "final_scale", "lm_head")
+              if k in tree}
+    params["layers"] = layers
+    return LM(cfg, params, device=device)

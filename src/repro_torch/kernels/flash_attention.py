@@ -1,0 +1,154 @@
+"""Blocked (flash) attention with an online softmax.
+
+Port of ``repro.kernels.flash_attention.flash_attention_pallas``, which is
+also the kernel form of the model's prefill attention
+(``repro.models.attention.blocked_attention``):
+``o = softmax(mask(softcap(q . k^T * dh^-0.5))) . v`` for q ``[B, S, H, dh]``
+and k, v ``[B, S, Kv, dh]``, query head h reading kv head ``h // (H / Kv)``
+(grouped-query attention).  Scores and the running (m, l, acc) state are
+f32, masked scores are ``NEG``, p is rounded to v's dtype before the PV
+product, and the output is ``acc / max(l, 1e-30)`` in q's dtype.
+
+Masks: causal ``kpos <= qpos``, window ``qpos - kpos < window``, and keys
+past S never count.  The TPU kernel pads S to its tile with zeros and,
+without the causal mask, lets those padded keys into the softmax; the port
+masks them, as ``ref.flash_attention_ref`` and ``blocked_attention`` do.
+
+Two implementations of the same function:
+
+  * ``flash_attention_cuda`` — the hand-written Hopper kernel
+    (``csrc/flash_attention.cu``): mma.sync for bf16, fp32 FMA for f32.
+  * ``flash_attention_plain`` — plain PyTorch with the kernel's tiling of
+    the online softmax (``BLOCK_K`` keys per step) and its rounding points.
+
+``kernels.ops.flash_attention`` (the reference's ``[H, S, dh]`` layout) and
+``kernels.ops.flash_attention_bshd`` (the model's layout) pick by device.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG = -1e30
+BLOCK_K = 64                 # keys per online-softmax step (kernel and plain)
+HEAD_DIMS = (64, 128)        # head widths the kernel is built for
+DTYPES = (torch.bfloat16, torch.float32)
+
+launches = 0                 # kernel launches made by flash_attention_cuda
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "flash_attention_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, ctypes.c_float, _P], _I),
+}
+
+
+def _shapes(q, k, v):
+    """(B, S, H, Kv, dh) of q [B, S, H, dh] and k, v [B, S, Kv, dh]."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k, v must be 4-D "
+                         "([B, S, H, dh] and [B, S, Kv, dh])")
+    B, S, H, dh = q.shape
+    Kv = k.shape[2]
+    if tuple(k.shape) != (B, S, Kv, dh) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must be [B, S, Kv, dh] for q "
+                         f"{tuple(q.shape)}")
+    if Kv < 1 or H % Kv:
+        raise ValueError(f"flash_attention: {H} query heads are not a "
+                         f"multiple of {Kv} kv heads")
+    return B, S, H, Kv, dh
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """q [B, S, H, dh]; k, v [B, S, Kv, dh] -> [B, S, H, dh] (q's dtype)."""
+    B, S, H, Kv, dh = _shapes(q, k, v)
+    G = H // Kv
+    scale = dh ** -0.5
+    qg = q.reshape(B, S, Kv, G, dh).float()
+    m = torch.full((B, Kv, G, S), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Kv, G, S, dh), dtype=torch.float32,
+                      device=q.device)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    for k0 in range(0, S, BLOCK_K):
+        kt, vt = k[:, k0:k0 + BLOCK_K], v[:, k0:k0 + BLOCK_K]
+        s = torch.einsum("bqkgd,btkd->bkgqt", qg, kt.float()) * scale
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        kpos = torch.arange(k0, k0 + kt.shape[1], device=q.device)[None, :]
+        mask = kpos < S
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window:
+            mask = mask & (qpos - kpos < window)
+        s = torch.where(mask, s, NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqt,btkd->bkgqd", p.to(v.dtype).float(), vt.float())
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, dh).to(q.dtype)
+
+
+def _check_layout(name: str, t: torch.Tensor, dev: torch.device,
+                  dtype: torch.dtype) -> None:
+    """The kernel reads ``t`` through its strides with 16-byte loads: the
+    head dim must be contiguous and every other stride and the base
+    address 16-byte aligned."""
+    if t.device != dev:
+        raise ValueError(f"flash_attention: {name} is on {t.device}, "
+                         f"expected {dev}")
+    if t.dtype != dtype:
+        raise ValueError(f"flash_attention: {name} dtype {t.dtype}, "
+                         f"expected {dtype}")
+    per16 = 16 // t.element_size()
+    if (t.stride(3) != 1 or any(s % per16 for s in t.stride()[:3])
+            or t.data_ptr() % 16):
+        raise ValueError(f"flash_attention: {name} strides {t.stride()} "
+                         "need a contiguous head dim and 16-byte aligned "
+                         "rows")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0,
+                         softcap: float = 0.0) -> torch.Tensor:
+    """The hand-written kernel (same contract as ``flash_attention_plain``):
+    q, k, v on one CUDA device, all bf16 or all f32, dh 64 or 128."""
+    global launches
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
+    B, S, H, Kv, dh = _shapes(q, k, v)
+    if q.dtype not in DTYPES or dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: unsupported dtype {q.dtype} or "
+                         f"head dim {dh} (kernel takes {DTYPES}, {HEAD_DIMS})")
+    if B * S * H * dh >= 2 ** 31 or int(window) < 0:
+        raise ValueError(f"flash_attention: unsupported B={B} S={S} H={H} "
+                         f"window={window}")
+    out = torch.empty((B, S, H, dh), dtype=q.dtype, device=dev)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        _check_layout(name, t, dev, q.dtype)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
+                                         for s in t.stride()[:3]))
+    lib = build.load("flash_attention", _SIGNATURES)
+    with torch.cuda.device(dev):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+            B, S, H, Kv, dh, int(q.dtype == torch.bfloat16), int(causal),
+            int(window), float(softcap),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    launches += 1
+    return out

@@ -11,7 +11,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lift_compact as _lc
+from repro_torch.kernels import pairwise as _pw
 from repro_torch.kernels import query_topk as _qt
 
 
@@ -37,11 +39,45 @@ def lift_compact(depth: torch.Tensor, masks: torch.Tensor,
     return _lc.lift_compact_cuda(depth, masks, intrinsics, pose, **kw)
 
 
+def nearest_dist(a: torch.Tensor, b: torch.Tensor,
+                 b_valid: torch.Tensor) -> torch.Tensor:
+    """a [M, D]; b [N, D]; b_valid [N] bool -> [M] min squared distance
+    from each row of a to a valid row of b (1e30 where none is valid)."""
+    if a.device.type == "cpu":
+        return _pw.nearest_dist_plain(a, b, b_valid)
+    return _pw.nearest_dist_cuda(a, b, b_valid)
+
+
+def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0,
+                         softcap: float = 0.0) -> torch.Tensor:
+    """Grouped-query attention in the model's layout: q [B, S, H, dh],
+    k, v [B, S, Kv, dh] (any strides with a contiguous head dim) ->
+    [B, S, H, dh]; query head h reads kv head h // (H / Kv)."""
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        return _fa.flash_attention_plain(q, k, v, **kw)
+    return _fa.flash_attention_cuda(q, k, v, **kw)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """The reference's layout: q, k, v [H, S, dh] -> [H, S, dh] (one batch
+    slice, one kv head per query head)."""
+    out = flash_attention_bshd(*(t.transpose(0, 1)[None] for t in (q, k, v)),
+                               causal=causal, window=window, softcap=softcap)
+    return out[0].transpose(0, 1).contiguous()
+
+
 def launch_counts() -> dict:
     """{kernel name: CUDA launches since the last reset}."""
-    return {"lift_compact": _lc.launches, "query_topk_bias": _qt.launches}
+    return {"lift_compact": _lc.launches, "query_topk_bias": _qt.launches,
+            "flash_attention": _fa.launches, "nearest_dist": _pw.launches}
 
 
 def reset_launch_counts() -> None:
     _lc.launches = 0
     _qt.launches = 0
+    _fa.launches = 0
+    _pw.launches = 0

@@ -1,0 +1,58 @@
+"""Uniform model API over the port's decoder-only LMs.
+
+Port of ``repro.models.api`` for decoder-only models:
+    api = model_api(cfg)
+    api.param_specs() / api.init(generator, device=...)  -> LM
+    api.prefill(params, batch, caches)          -> (logits [B, V], caches)
+    api.decode(params, tokens, caches, pos)     -> (logits [B, V], caches)
+    api.init_cache(batch, max_len, device=...)  -> [KVCache] per layer
+``init`` and ``init_cache`` run on the card unless ``device="cpu"`` is
+passed.  The encoder-decoder family and the training loss are not ported.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import common as cm
+from repro_torch.models import lm as lm_mod
+
+
+@dataclass(frozen=True)
+class ModelAPI:
+    cfg: cm.ArchConfig
+    param_specs: Callable[[], Any]
+    init: Callable[..., lm_mod.LM]
+    prefill: Callable[..., Any]
+    decode: Callable[..., Any]
+    init_cache: Callable[..., Any]
+
+
+def model_api(cfg: cm.ArchConfig) -> ModelAPI:
+    if cfg.encdec:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
+                                  f"{cm.NOT_PORTED}")
+
+    def _init(generator: torch.Generator | None = None, *,
+              device="cuda") -> lm_mod.LM:
+        """Seeded parameters (``generator``, default seed 0 on the CPU) as
+        an ``LM`` on ``device``."""
+        dev = resolve_device(device)
+        gen = generator if generator is not None else \
+            torch.Generator().manual_seed(0)
+        return lm_mod.LM(cfg, lm_mod.init_lm_params(cfg, gen), device=dev)
+
+    return ModelAPI(
+        cfg=cfg,
+        param_specs=lambda: lm_mod.lm_param_specs(cfg),
+        init=_init,
+        prefill=lambda params, batch, caches: lm_mod.prefill(
+            params, batch["tokens"], cfg, caches),
+        decode=lambda params, tokens, caches, pos: lm_mod.decode_step(
+            params, tokens, cfg, caches, pos=pos),
+        init_cache=lambda batch, max_len, *, device="cuda":
+            lm_mod.init_lm_cache(cfg, batch, max_len, device=device),
+    )

@@ -1,0 +1,239 @@
+"""Shared building blocks of the port's language model.
+
+Port of the parts of ``repro.models.common`` that the dense-attention
+decoder path reads: the architecture config, the numerics (``rms_norm``,
+``softcap``, ``act_fn``, rotary embeddings) and parameter initialisation by
+naming rule.  Parameters are nested dicts (lists for the layer stack) of
+tensors; ``ParamTree`` registers such a tree on an ``nn.Module``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# Mixer kinds understood by blocks.py.
+MIXER_FULL = "attn_full"          # dense causal attention
+MIXER_SWA = "attn_swa"            # sliding-window causal attention
+MIXER_GLOBAL = "attn_global"      # gemma2 "global" layer (full, with softcap)
+MIXER_MLA = "mla"                 # DeepSeek multi-head latent attention
+MIXER_MAMBA = "mamba"             # Mamba-1 selective SSM
+MIXER_RWKV6 = "rwkv6"             # RWKV-6 "Finch" time mixing
+
+MLP_DENSE = "dense"
+MLP_MOE = "moe"
+
+NOT_PORTED = "not ported yet: ROADMAP.md section 2 item 7 lists it"
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    """The fields of ``repro.models.common.ArchConfig`` that the decoder
+    path reads.  ``dtype`` is a ``torch.dtype``.  The family sub-configs
+    (MLA, Mamba, RWKV, MoE), the encoder-decoder and frontend fields and
+    the JAX execution knobs (scan, remat, sharding, the jnp attention's
+    q-chunk) are not ported."""
+
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 0                       # 0 => d_model // n_heads
+
+    # layer pattern: mixers[i % len(mixers)] / mlps[i % len(mlps)] after the
+    # dense prefix of ``n_dense_prefix`` layers
+    mixers: tuple = (MIXER_FULL,)
+    mlps: tuple = (MLP_DENSE,)
+    n_dense_prefix: int = 0
+    d_ff_dense_prefix: int = 0            # 0 => d_ff
+
+    # attention knobs
+    sliding_window: int = 4096
+    rope_theta: float = 10000.0
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    qk_norm: bool = False
+
+    encdec: bool = False
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-6
+    act: str = "silu"                     # mlp activation ("silu"|"gelu")
+    dtype: Any = torch.bfloat16
+    kv_cache_dtype: str = "bf16"          # "bf16" (the model dtype) only
+
+    def __post_init__(self):
+        if self.d_head == 0:
+            object.__setattr__(self, "d_head",
+                               self.d_model // max(self.n_heads, 1))
+
+    @property
+    def period(self) -> int:
+        return int(np.lcm(len(self.mixers), len(self.mlps)))
+
+    @property
+    def n_body_layers(self) -> int:
+        return self.n_layers - self.n_dense_prefix
+
+    @property
+    def n_periods(self) -> int:
+        assert self.n_body_layers % self.period == 0, (
+            f"{self.name}: body layers {self.n_body_layers} not divisible by "
+            f"period {self.period}")
+        return self.n_body_layers // self.period
+
+    def block_kinds(self, slot: int) -> tuple[str, str]:
+        """(mixer, mlp) for period slot ``slot``."""
+        return (self.mixers[slot % len(self.mixers)],
+                self.mlps[slot % len(self.mlps)])
+
+    def layer_kinds(self) -> list[tuple[str, str]]:
+        """(mixer, mlp) of every layer in order: the dense prefix, then the
+        body's periods."""
+        prefix = [(self.mixers[0], MLP_DENSE)] * self.n_dense_prefix
+        return prefix + [self.block_kinds(s) for _ in range(self.n_periods)
+                         for s in range(self.period)]
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Numerics
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return torch.tanh(x / cap) * cap
+
+
+def act_fn(name: str):
+    """``jax.nn.gelu`` defaults to the tanh approximation, and so does this."""
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu,
+            "relu2": lambda x: F.relu(x).square()}[name]
+
+
+def rope_freqs(d: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, d, 2, dtype=np.float64) / d))
+
+
+_ROPE_FREQS: dict = {}
+
+
+def _rope_freqs_on(d: int, theta: float, device: torch.device):
+    """``rope_freqs`` as f32 on ``device``, copied there once: a copy from
+    host memory on every call would make the host wait for the card."""
+    key = (d, float(theta), device)
+    if key not in _ROPE_FREQS:
+        _ROPE_FREQS[key] = torch.as_tensor(rope_freqs(d, theta),
+                                           dtype=torch.float32).to(device)
+    return _ROPE_FREQS[key]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., seq, heads, d]; positions: broadcastable to [..., seq].
+    Half-split rotation (not interleaved), in f32, cast back."""
+    d = x.shape[-1]
+    freqs = _rope_freqs_on(d, theta, x.device)
+    angles = positions.float()[..., None] * freqs                 # [..., S, d/2]
+    cos = torch.cos(angles)[..., None, :]                         # [..., S, 1, d/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+class Spec(NamedTuple):
+    shape: tuple
+    dtype: torch.dtype
+
+
+def spec(shape, dtype) -> Spec:
+    return Spec(tuple(int(s) for s in shape), dtype)
+
+
+def _leaf_init(gen: torch.Generator, path: str, shape, dtype):
+    """Init rule by naming convention: *scale -> zeros (rms uses 1+scale),
+    *bias -> zeros, embeddings & matmuls -> truncated normal / sqrt(fan_in).
+    Drawn in f32 on the generator's device, then cast."""
+    if path.endswith("scale") or path.endswith("bias"):
+        return torch.zeros(shape, dtype=dtype, device=gen.device)
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (w / math.sqrt(max(fan_in, 1))).to(dtype)
+
+
+def _leaves(tree, prefix=""):
+    """(path, leaf) in sorted-key order, list entries by index."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, list):
+        for i, t in enumerate(tree):
+            yield from _leaves(t, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def map_tree(fn, tree, prefix=""):
+    """``fn(path, leaf)`` over a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree(fn, v, f"{prefix}{i}/") for i, v in enumerate(tree)]
+    return fn(prefix[:-1], tree)
+
+
+def init_from_specs(gen: torch.Generator, specs) -> Any:
+    """specs: tree of ``Spec``; returns a tree of tensors, each leaf drawn
+    from ``gen`` in sorted path order (numbers differ from JAX's)."""
+    values = {p: _leaf_init(gen, p, s.shape, s.dtype)
+              for p, s in _leaves(specs)}
+    return map_tree(lambda p, _: values[p], specs)
+
+
+class ParamTree(nn.Module):
+    """A tree of dicts (and lists) of tensors as an ``nn.Module``: dict keys
+    become submodules or frozen parameters, lists ``nn.ModuleList``s, and
+    ``tree["key"]`` reads an entry, so the model's functions take either
+    this or a plain dict."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            elif isinstance(v, list):
+                self.add_module(k, nn.ModuleList(ParamTree(t) for t in v))
+            else:
+                self.register_parameter(k, nn.Parameter(v,
+                                                        requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules

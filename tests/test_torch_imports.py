@@ -56,7 +56,9 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
 def _entry_points():
     from repro_torch.core import (CloudService, DeviceClient, Knobs,
                                   MappingServer, init_local_map, init_store)
+    from repro_torch.configs.base import get_config
     from repro_torch.core.store import synthetic_store
+    from repro_torch.models.api import model_api
     from repro_torch.perception.embedder import OracleEmbedder
     kn = Knobs(server_capacity=8, client_capacity=4,
                max_object_points_server=8, max_object_points_client=4)
@@ -70,6 +72,8 @@ def _entry_points():
         "CloudService": lambda: CloudService(knobs=kn, store_ref=None),
         "OracleEmbedder.embed_text": lambda: OracleEmbedder(
             embed_dim=4).embed_text(0),
+        "model_api.init": lambda: model_api(get_config(
+            "semanticxr-captioner-110m-smoke")).init(),
     }
 
 

@@ -7,20 +7,31 @@ reference: ``lift_compact`` against ``lift_compact_xla`` and the Pallas
 kernel in interpret mode (ints exact, floats rtol/atol 1e-4), and
 ``query_topk_bias`` against the Pallas kernel in interpret mode and
 ``ref.query_topk_bias_ref`` (scores 1e-5, slots exact), ties and k >
-valid count included.
+valid count included.  ``flash_attention`` against the Pallas kernel in
+interpret mode (f32 2e-5, bf16 2e-2: the reference's own tolerances) and,
+where the Pallas kernel lets zero-padded keys into a non-causal softmax,
+against ``ref.flash_attention_ref``; ``nearest_dist`` against the Pallas
+kernel in interpret mode (1e-4), 1e30 for a row with no valid neighbour.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import flash_attention as jfa
 from repro.kernels import lift_compact as jlc
+from repro.kernels import pairwise as jpw
 from repro.kernels import query_topk as jqt
 from repro.kernels import ref as jref
 
 from repro_torch.kernels import build, ops
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import lift_compact as tlc
+from repro_torch.kernels import pairwise as tpw
 from repro_torch.kernels import query_topk as tqt
+
+NO_LAUNCHES = {"lift_compact": 0, "query_topk_bias": 0, "flash_attention": 0,
+               "nearest_dist": 0}
 
 LIFT_SHAPES = [   # d, h, w, stride, budget, cap, block_t (tests/test_kernels)
     (4, 24, 32, 1, 64, 4096, 256),
@@ -142,7 +153,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     got = ops.lift_compact(*args, stride=2, budget=8, lift_cap=64)
     want = tlc.lift_compact_plain(*args, stride=2, budget=8, lift_cap=64)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert ops.launch_counts() == {"lift_compact": 0, "query_topk_bias": 0}
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -152,7 +163,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     args = [torch.from_numpy(a) for a in _lift_inputs(2, 8, 8, 0)]
     with pytest.raises(ValueError, match="CUDA"):
         tlc.lift_compact_cuda(*args, budget=4)
-    assert ops.launch_counts() == {"lift_compact": 0, "query_topk_bias": 0}
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_kernel_library_is_keyed_by_source_and_lives_in_build_dir():
@@ -177,3 +188,152 @@ def test_kernel_argument_check_refuses_what_the_kernel_does_not_take(bad,
     with pytest.raises(ValueError, match=match):
         build.check_arg("k", "x", bad, (torch.float32,), (4, 3),
                         torch.device("cpu"))
+
+
+# ---------------------------------------------------------- flash_attention
+def _attn_inputs(shapes, dtype, seed):
+    """numpy f32 arrays of the given shapes, rounded to ``dtype``'s grid."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.normal(size=sh).astype(np.float32) for sh in shapes]
+    if dtype == "bf16":
+        arrs = [torch.from_numpy(a).bfloat16().float().numpy() for a in arrs]
+    return arrs
+
+
+def _to(a, dtype, lib):
+    if lib == "jax":
+        return jnp.asarray(a, jnp.bfloat16 if dtype == "bf16" else
+                           jnp.float32)
+    return torch.from_numpy(a).to(torch.bfloat16 if dtype == "bf16" else
+                                  torch.float32)
+
+
+ATTN_TOL = {"f32": 2e-5, "bf16": 2e-2}
+
+
+@pytest.mark.parametrize("h,s,dh,causal,window,softcap,dtype", [
+    (2, 128, 64, True, 0, 0.0, "f32"),        # tests/test_kernels.py:75-81
+    (4, 256, 64, True, 64, 0.0, "f32"),
+    (2, 200, 128, True, 0, 50.0, "f32"),
+    (1, 128, 64, False, 0, 0.0, "f32"),
+    (2, 256, 64, True, 0, 0.0, "bf16"),
+    (2, 200, 64, True, 0, 0.0, "bf16"),      # ragged S in bf16
+])
+def test_flash_attention_plain_matches_pallas(h, s, dh, causal, window,
+                                              softcap, dtype):
+    q, k, v = _attn_inputs([(h, s, dh)] * 3, dtype, s + h)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = ops.flash_attention(*(_to(a, dtype, "torch") for a in (q, k, v)),
+                              **kw)
+    want = jfa.flash_attention_pallas(*(_to(a, dtype, "jax")
+                                        for a in (q, k, v)),
+                                      interpret=True, **kw)
+    assert got.shape == (h, s, dh)
+    assert got.dtype == (torch.bfloat16 if dtype == "bf16" else
+                         torch.float32)
+    tol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_attention_non_causal_ragged_masks_padded_keys():
+    """Non-causal at S = 200 (not a multiple of the Pallas tile of 128):
+    the Pallas kernel lets its 56 zero-padded keys into the softmax, the
+    port masks them as ``ref.flash_attention_ref`` does."""
+    q, k, v = _attn_inputs([(2, 200, 64)] * 3, "f32", 7)
+    got = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal=False).numpy()
+    jargs = [jnp.asarray(a) for a in (q, k, v)]
+    want = np.asarray(jref.flash_attention_ref(*jargs, causal=False))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    pallas = np.asarray(jfa.flash_attention_pallas(*jargs, causal=False,
+                                                   interpret=True))
+    assert np.abs(pallas - want).max() > 1e-2     # the reference's fault
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_gqa_reads_kv_head_h_over_g(dtype):
+    """q [B, S, H, dh] against k, v [B, S, Kv, dh]: query head h reads kv
+    head h // (H / Kv), as the Pallas kernel does on repeated k, v."""
+    B, S, H, Kv, dh = 2, 96, 6, 2, 64
+    q, k, v = _attn_inputs([(B, S, H, dh), (B, S, Kv, dh), (B, S, Kv, dh)],
+                           dtype, 3)
+    got = ops.flash_attention_bshd(*(_to(a, dtype, "torch")
+                                     for a in (q, k, v)), window=40)
+    assert got.shape == (B, S, H, dh)
+    rep = [np.repeat(a, H // Kv, axis=2) for a in (k, v)]
+    for b in range(B):
+        want = jfa.flash_attention_pallas(
+            *(_to(a[b].transpose(1, 0, 2), dtype, "jax")
+              for a in (q, *rep)), window=40, interpret=True)
+        np.testing.assert_allclose(
+            got[b].float().numpy().transpose(1, 0, 2),
+            np.asarray(want, np.float32), rtol=ATTN_TOL[dtype],
+            atol=ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(k=torch.zeros(1, 64, 3, 64)), "multiple"),
+    (dict(k=torch.zeros(1, 32, 2, 64)), "must be"),
+    (dict(q=torch.zeros(64, 4, 64)), "4-D"),
+])
+def test_flash_attention_refuses_mismatched_shapes(bad, match):
+    args = dict(q=torch.zeros(1, 64, 4, 64), k=torch.zeros(1, 64, 2, 64),
+                v=torch.zeros(1, 64, 2, 64))
+    args.update(bad)
+    if "k" in bad:
+        args["v"] = args["k"]
+    with pytest.raises(ValueError, match=match):
+        tfa.flash_attention_plain(**args)
+
+
+# ------------------------------------------------------------- nearest_dist
+def _nd_inputs(m, n, d, seed, frac=0.9):
+    rng = np.random.default_rng(seed)
+    a = (2 * rng.normal(size=(m, d))).astype(np.float32)
+    b = (2 * rng.normal(size=(n, d))).astype(np.float32)
+    return a, b, rng.random(n) < frac
+
+
+def _nd_pallas(a, b, bv):
+    """The Pallas kernel in interpret mode, D padded to 8 as
+    ``repro.kernels.ops.nearest_dist`` pads it."""
+    pad = ((0, 0), (0, (-a.shape[1]) % 8))
+    return np.asarray(jpw.nearest_dist_pallas(
+        jnp.asarray(np.pad(a, pad)), jnp.asarray(np.pad(b, pad)),
+        jnp.asarray(bv), interpret=True))
+
+
+@pytest.mark.parametrize("m,n,d", [(50, 70, 3), (256, 512, 3), (1000, 333, 3),
+                                   (128, 128, 8)])
+def test_nearest_dist_plain_matches_pallas(m, n, d):
+    a, b, bv = _nd_inputs(m, n, d, m * n)
+    got = ops.nearest_dist(*(torch.from_numpy(x) for x in (a, b, bv)))
+    assert got.dtype == torch.float32 and got.shape == (m,)
+    np.testing.assert_allclose(got.numpy(), _nd_pallas(a, b, bv),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_nearest_dist_no_valid_neighbour_is_1e30():
+    """A row with no valid b gets the Pallas kernel's 1e30, where
+    ``ref.nearest_dist_ref`` gives inf."""
+    a, b, _ = _nd_inputs(40, 30, 3, 5)
+    bv = np.zeros(30, bool)
+    got = ops.nearest_dist(*(torch.from_numpy(x) for x in (a, b, bv)))
+    assert np.all(got.numpy() == np.float32(tpw.INF))
+    np.testing.assert_array_equal(got.numpy(), _nd_pallas(a, b, bv))
+    assert np.all(np.isinf(np.asarray(jref.nearest_dist_ref(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(bv)))))
+
+
+def test_new_cuda_wrappers_refuse_cpu_tensors():
+    q = torch.zeros(1, 64, 2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_cuda(q, q, q)
+    a, b, bv = (torch.from_numpy(x) for x in _nd_inputs(4, 4, 3, 0))
+    with pytest.raises(ValueError, match="CUDA"):
+        tpw.nearest_dist_cuda(a, b, bv)
+    got = ops.flash_attention(q[0].transpose(0, 1), q[0].transpose(0, 1),
+                              q[0].transpose(0, 1))
+    assert got.shape == (2, 64, 64) and ops.launch_counts() == NO_LAUNCHES
