@@ -5,16 +5,21 @@
 
 1. builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, in parallel) and prints the build time;
-2. holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at edge shapes (budget > cap, ragged tiling,
-   empty masks, k past the included count, all-equal scores, k = 1024;
-   the captioner's prefill attention, the reference's attention test
-   shapes, a GQA case; nearest-neighbour distances at the reference's test
-   shapes, a chamfer, a centroid sweep and no valid neighbour): ints
-   exactly, floats within 1e-4 (lift_compact, nearest_dist), 1e-5
-   (query_topk_bias scores) and rtol = atol = 2e-5 / 2e-2 (flash_attention
-   in f32 / bf16), and times kernel, plain version and, where one PyTorch
-   call computes the same function, that call;
+2. prints each kernel's registers, shared memory and spills from ptxas
+   (``kernel_resources``), then holds each kernel against its plain
+   PyTorch version on the card, at the main path's shapes and at edge
+   shapes (budget > cap, ragged tiling, empty masks; k past the included
+   count, all-equal scores, k = 1024, N below one 32-row block, the
+   cluster index's k = 1024 at the batched shape; the captioner's prefill
+   attention, the reference's attention test shapes, a GQA case, and the
+   edges of the bf16 kernel's 128-row tiles: S = 17, S = 1025, MQA,
+   window 1, non-causal dh = 128 at S = 2048; nearest-neighbour
+   distances at the reference's test shapes, a chamfer, a centroid sweep
+   and no valid neighbour): ints exactly, floats within 1e-4
+   (lift_compact, nearest_dist), 1e-5 (query_topk_bias scores) and rtol =
+   atol = 2e-5 / 2e-2 (flash_attention in f32 / bf16), and times kernel,
+   plain version and, where one PyTorch call computes the same function,
+   that call (with TFLOP/s for flash_attention);
 3. drives the single-client loop at the paper's deployment size (Knobs()
    defaults, E = 512, 720x1280 keyframes, 40 keyframes of an 80-object
    scene): MappingServer.process_frame, CloudService.update_tick ->
@@ -34,7 +39,9 @@
    12 / 4 heads, vocab 32000, bf16, seeded weights): 8 caption prompts of
    1024 tokens, ``api.prefill`` then 32 greedy ``api.decode`` steps, three
    times, with the launch counters reset just before and read just after
-   (12 flash_attention launches per prefill, none per decode step);
+   (12 flash_attention launches per prefill, none per decode step), and
+   reads the share of one prefill's device time that flash_attention
+   takes from ``torch.profiler``;
 8. replays step 7's weights in f32 at B = 1, S = 256 and 8 greedy steps on
    the card and on the CPU port: the same tokens, logits within 1e-4.
 
@@ -178,21 +185,31 @@ def lift_inputs(torch, d, h, w, stride, seed, dev):
     return [torch.from_numpy(a).to(dev) for a in (depth, masks, intr, pose)]
 
 
-def topk_inputs(torch, Q, N, E, seed, dev, *, frac=0.8, tie=False):
+def topk_inputs(torch, Q, N, E, seed, dev, *, frac=0.8, tie=False,
+                grid=False):
     """Unit-norm queries and rows (as the embedder makes them), a finite
-    bias in [0, 0.2) on a ``frac`` share of the slots and NEG elsewhere."""
+    bias in [0, 0.2) on a ``frac`` share of the slots and NEG elsewhere.
+    ``grid``: every value a multiple of 1/16 (bias of 1/256), so each score
+    is exact in f32 under any summation order and equal scores are exact
+    ties: the kernel's rank order must then equal the plain version's at
+    any k, where at k = 1024 of unit-norm rows two scores closer than the
+    rounding of either summation order (about 1e-7) may legitimately swap."""
     rng = np.random.default_rng(seed)
     if tie:      # every included slot scores exactly E / 8
         qs = np.full((Q, E), 0.5, np.float32)
         emb = np.full((N, E), 0.25, np.float32)
+    elif grid:
+        qs = (rng.integers(-8, 9, size=(Q, E)) / 16).astype(np.float32)
+        emb = (rng.integers(-8, 9, size=(N, E)) / 16).astype(np.float32)
     else:
         qs = rng.normal(size=(Q, E)).astype(np.float32)
         qs /= np.linalg.norm(qs, axis=1, keepdims=True)
         emb = rng.normal(size=(N, E)).astype(np.float32)
         emb /= np.linalg.norm(emb, axis=1, keepdims=True)
     inc = rng.random((Q, N)) < frac
-    bias = np.where(inc, 0.0 if tie else 0.2 * rng.random((Q, N)),
-                    -1e30).astype(np.float32)
+    finite = (0.0 if tie else rng.integers(0, 52, size=(Q, N)) / 256 if grid
+              else 0.2 * rng.random((Q, N)))
+    bias = np.where(inc, finite, -1e30).astype(np.float32)
     return [torch.from_numpy(a).to(dev) for a in (qs, emb, bias)]
 
 
@@ -254,12 +271,16 @@ def kernel_checks(torch, clock, dev):
     # phase (Q = 16, N = 10240 slots) at E = 512, k = 5, the SQ shape
     # being the one the kernel record reports; then k past the
     # included count, all-equal scores, k = 1024, a ragged N, more queries
-    # than one block holds, and an E that takes the scalar-load path
+    # than one block holds, an E that takes the scalar-load path, N below
+    # one 32-row block, and the cluster index's k = 1024 at the batched
+    # shape (on exact-grid values, see topk_inputs)
     topk_cases = [((16, 10240, 512, 5), {}), ((1, 4096, 512, 5), {}),
                   ((1, 512, 512, 5), {}), ((2, 700, 64, 40), {"frac": 0.03}),
                   ((4, 700, 64, 20), {"tie": True}),
                   ((2, 3000, 64, 1024), {}), ((3, 1000, 96, 100), {}),
-                  ((37, 2000, 128, 9), {}), ((2, 900, 50, 7), {})]
+                  ((37, 2000, 128, 9), {}), ((2, 900, 50, 7), {}),
+                  ((2, 20, 64, 7), {}), ((1, 31, 512, 5), {}),
+                  ((16, 10240, 512, 1024), {"grid": True})]
     timed = {}
     for (Q, N, E, k), kind in topk_cases:
         args = topk_inputs(torch, Q, N, E, Q * N + E + k, dev, **kind)
@@ -277,7 +298,7 @@ def kernel_checks(torch, clock, dev):
                   "ties go to the lower slot")
         emit("query_topk_bias_check", {"shape": [Q, N, E, k], **kind,
                                        "max_abs_err": err})
-        if E == 512:
+        if E == 512 and k == 5 and N >= 512:
             qs, emb, bias = args
             kernel = lambda: qt.query_topk_bias_cuda(qs, emb, bias, k)  # noqa
             b_ms, b_by = bound(*topk_cost(Q, N, E, k))
@@ -337,7 +358,14 @@ def attention_checks(torch, clock, dev):
              (1, 256, 2, 2, 64, bf, True, 0, 0.0),
              (1, 200, 2, 2, 64, f32, False, 0, 0.0),
              (1, 200, 2, 2, 64, bf, False, 0, 0.0),
-             (2, 333, 12, 4, 128, bf, True, 100, 30.0)]
+             (2, 333, 12, 4, 128, bf, True, 100, 30.0),
+             # edges of the bf16 kernel's 128 x 128 tiling: S below one
+             # tile, one row past a tile, MQA, window 1, non-causal dh 128
+             (2, 17, 12, 4, 64, bf, True, 0, 0.0),
+             (1, 1025, 12, 4, 64, bf, True, 0, 0.0),
+             (2, 1024, 12, 1, 64, bf, True, 0, 0.0),
+             (1, 300, 4, 4, 64, bf, True, 1, 0.0),
+             (1, 2048, 4, 2, 128, bf, False, 0, 0.0)]
     row = None
     for i, (B, S, H, Kv, dh, dt, causal, window, cap) in enumerate(cases):
         if B == 1 and H == Kv:
@@ -372,6 +400,8 @@ def attention_checks(torch, clock, dev):
                         *sdpa, is_causal=True, enable_gqa=True)),
                 "max_abs_err": err, "flops": flops, "bytes": nbytes,
                 "shape": f"B={B} S={S} H={H} Kv={Kv} dh={dh} bf16 causal"}
+            row["tflops"] = flops / row["ms"] / 1e9
+            row["library_tflops"] = flops / row["library_ms"] / 1e9
             emit("flash_attention_time", row)
     return row
 
@@ -778,6 +808,11 @@ def serve_phase(torch, dev, cfg, *, batch, prompt, new_tokens, reps):
 
     prof = {"prefill": profiled(torch, prefill_once),
             f"decode_{PROFILE_DECODE}_steps": profiled(torch, decode_steps)}
+    pre = prof["prefill"]
+    flash_ms = sum(r["ms"] for r in pre["top_kernels"] if "flash" in r["name"])
+    check(flash_ms > 0, "flash_attention among the prefill's top kernels")
+    prof["prefill_flash_device_ms"] = flash_ms
+    prof["prefill_flash_share_of_device"] = flash_ms / pre["device_busy_ms"]
     emit("serve_profile", prof)
 
     dec = float(np.percentile(dec_ms, 50))
@@ -842,6 +877,69 @@ def replay_phase(torch, dev, cfg, *, batch, prompt, new_tokens):
     return out
 
 
+# ---------------------------------------------------------------- build
+def kernel_resources(build) -> dict:
+    """{source: {kernel: registers, static shared memory, spills}} from
+    ptxas's ``-v`` report in each build log (dynamic shared memory is set
+    at launch and not in it)."""
+    import re
+
+    out = {}
+    for src in build.SOURCES:
+        rows, name = {}, None
+        for ln in build.build_log(src).splitlines():
+            m = re.search(r"entry function '(\w+)'", ln)
+            if m:
+                name = demangle(m.group(1))
+                rows[name] = {}
+                continue
+            if name is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+            if m:
+                rows[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                rows[name]["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", ln)
+                rows[name]["static_smem_bytes"] = int(m.group(1)) if m else 0
+        out[src] = rows
+    return out
+
+
+def demangle(sym: str) -> str:
+    """``..._18flash_wgmma_kernelILi64ELi3EEEv...`` -> ``flash_wgmma_kernel
+    <64,3>``: the kernel's name and its integer or type template args."""
+    import re
+
+    for m in re.finditer(r"_kernel", sym):
+        end = m.end()
+        starts = [a for a in range(end - 1, 0, -1)
+                  if sym[:a].endswith(str(end - a))]
+        if not starts:
+            continue
+        name, at = sym[starts[0]:end], end
+        if sym[at:at + 1] != "I":
+            return name
+        args, at = [], at + 1
+        while at < len(sym) and sym[at] != "E":
+            lit = re.match(r"L[a-z](\d+)E", sym[at:])    # Li64E, Lb1E
+            ident = re.match(r"(\d+)", sym[at:])
+            if lit:
+                args.append(lit.group(1))
+                at += lit.end()
+            elif ident:
+                k = int(ident.group(1))
+                args.append(sym[at + ident.end():at + ident.end() + k])
+                at += ident.end() + k
+            else:
+                args.append({"f": "float", "i": "int"}.get(sym[at], sym[at]))
+                at += 1
+        return f"{name}<{','.join(args)}>"
+    return sym
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -869,11 +967,8 @@ def main() -> int:
                       "device": torch.cuda.get_device_name(0)})
     t0 = time.perf_counter()
     build.build_all()
-    emit("build", {"seconds": time.perf_counter() - t0, "ptxas": {
-        n: [ln.strip() for ln in build.build_log(n).splitlines()
-            if "registers" in ln
-            or ("spill" in ln and " 0 bytes spill" not in ln)]
-        for n in build.SOURCES}})
+    emit("build", {"seconds": time.perf_counter() - t0})
+    emit("kernel_resources", kernel_resources(build))
 
     clock = Clock(torch)
     lift_row, topk_row = kernel_checks(torch, clock, dev)

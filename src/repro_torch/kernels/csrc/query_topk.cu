@@ -1,4 +1,4 @@
-// Fused query score + predicate bias + top-k for Hopper.
+// Fused query score + predicate bias + top-k for Hopper, in one launch.
 //
 // Replaces: src/repro/kernels/query_topk.py :: query_topk_bias_pallas
 // (kernel body _bias_kernel, block fold _merge_topk).
@@ -12,30 +12,36 @@
 //
 // Design.  The TPU kernel streams the table through VMEM in sequential
 // grid steps and keeps the running top-k in its output refs.  Hopper
-// blocks run in parallel, so the work splits in two launches:
-//   score_kernel: each block takes kRows table rows and a tile of up to
-//     kMaxQ queries held in shared memory.  Each warp computes its rows'
-//     dot products with plain fp32 FMA (no TF32, no library matmul),
-//     reading the row as float4 where E allows, kUnroll loads in flight
-//     per lane; it applies the bias rule, and the block sorts each
-//     query's kRows candidates by (score desc, slot asc) with a bitonic
-//     network in shared memory; the best min(k, kRows) go out as that
-//     block's list.
-//   merge_kernel: one block per query k-way merges the per-block sorted
-//     lists under the same order (k rounds of a block-wide arg-best over
-//     the list heads), padding with NEG / -1 once no candidate is left.
+// blocks run in parallel, so each block takes kRows = 32 table rows (so
+// that N = 4096 gives 128 blocks and N = 10,240 gives 320: the card is
+// filled even by one query) and a tile of up to kMaxQ queries held in
+// shared memory:
+//   scores: each warp owns kRows / 8 = 4 rows and issues the float4
+//     loads of all four (4 per row and lane for one query, 2 for a query
+//     tile, whose 64 accumulators a lane must also hold: at about 128
+//     registers two blocks fit on an SM) before its FMAs; plain fp32 FMA
+//     (no TF32, no library matmul), the query tile read from shared memory
+//     once per load; the bias tile is staged by one coalesced pass and the
+//     bias rule applied per score;
+//   block top-L: a block holds 32 candidates per query, one per lane of a
+//     warp, so a warp-level bitonic sort by shuffles orders them by
+//     (score desc, slot asc) and the best L = min(k, 32) go to scratch;
+//   merge: every block then takes a ticket (atomicAdd on a counter, after
+//     a __threadfence()); the last min(Q, 32) blocks to do so wait until
+//     every block has (they are resident, so the rest can still be
+//     scheduled beside them) and merge the per-block sorted lists, one
+//     warp per query, the queries dealt over those blocks: a tournament
+//     over the list heads (warp arg-best by shuffles), the owner of the
+//     winning list advancing it, padding with NEG / -1 once the best head
+//     is excluded.  Where they fit, a query's lists are first copied into
+//     shared memory, so a round of the tournament waits on no global load.
+//     The last merger resets the counters for the next launch.
 //
-// What bounds it on this card: the table read.  At N = 10,000 and E = 512
-// it is 20.5 MB, about 6 us at 3.35 TB/s, against 2*Q*N*E flops (0.16
-// GFLOP at Q = 16, about 2.4 us at 67 TFLOP/s fp32).  The design reads the
-// table once per query tile (once for Q <= 16) with coalesced warp loads.
-// Latency, not bandwidth, is what this design has to fight at these
-// sizes: with one 4-byte load outstanding per lane, and one dependent
-// bias load per (query, row), the sweep took the same 0.11 ms on an H100
-// at N = 512 and at N = 4096 (both one wave of blocks).  Hence float4
-// row loads, kUnroll of them issued before their FMAs, and the bias tile
-// staged in shared memory by one coalesced pass.  Tensor cores, TMA and a
-// fused merge are later work.
+// What bounds it on this card: the table read.  At N = 10,240 and E = 512
+// it is 21 MB, about 6.3 us at 3.35 TB/s, against 2*Q*N*E flops (0.17
+// GFLOP at Q = 16, about 2.5 us at 67 TFLOP/s fp32).  At one query (SQ,
+// N = 4096, 8.4 MB, 2.5 us) latency decides: one launch, loads in flight
+// on every SM, and a merge of 128 short lists by one warp.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -43,12 +49,12 @@
 
 namespace {
 
-constexpr int kRows = 64;          // table rows per block (power of two)
-constexpr int kUnroll = 4;         // row loads in flight per lane
+constexpr int kRows = 32;          // table rows per block = one warp of lanes
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kRowsPerWarp = kRows / kWarps;
 constexpr int kMaxQ = 16;          // queries per block (register accumulators)
-constexpr int kMergeThreads = 256;
+constexpr int kMaxMergers = 32;    // blocks that merge (one query per warp)
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -70,137 +76,50 @@ __device__ __forceinline__ float fma_dot(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-// T = float4 when E % 4 == 0 and the table is 16-byte aligned, else float
-template <typename T>
-__global__ void score_kernel(const float* __restrict__ qs,
-                             const float* __restrict__ emb,
-                             const float* __restrict__ bias, int Q, int N,
-                             int E, int qtile, int L, int nchunks,
-                             float* __restrict__ cand_s,
-                             int* __restrict__ cand_i) {
-  extern __shared__ float4 smem4[];                    // 16-byte aligned
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* sq = smem;                                    // [qtile, E]
-  float* ss = sq + qtile * E;                          // [qtile, kRows]
-  int* si = reinterpret_cast<int*>(ss + qtile * kRows);  // [qtile, kRows]
-
-  const int chunk = blockIdx.x;
-  const int q0 = blockIdx.y * qtile;
-  const int nq = min(qtile, Q - q0);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
-  for (int j = threadIdx.x; j < nq * E; j += kThreads)
-    sq[j] = qs[static_cast<size_t>(q0) * E + j];
-  // the block's bias tile in one coalesced pass, staged where the scores
-  // will go: ss[q, r] = bias[q0 + q, chunk * kRows + r]
-  for (int j = threadIdx.x; j < nq * kRows; j += kThreads) {
-    const int n = chunk * kRows + j % kRows;
-    ss[j] = n < N ? bias[static_cast<size_t>(q0 + j / kRows) * N + n] : kNeg;
-  }
-  __syncthreads();
-
-  constexpr int V = sizeof(T) / sizeof(float);
-  const int ev = E / V;                                // T elements per row
-  const T* sqv = reinterpret_cast<const T*>(sq);
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int n = chunk * kRows + r;
-    float acc[kMaxQ];
+// sort one (score, slot) per lane across the warp, best in lane 0
+__device__ __forceinline__ void warp_sort(float& s, int& i, int lane) {
 #pragma unroll
-    for (int q = 0; q < kMaxQ; ++q) acc[q] = 0.f;
-    if (n < N) {
-      const T* row =
-          reinterpret_cast<const T*>(emb + static_cast<size_t>(n) * E);
-      for (int e0 = lane; e0 < ev; e0 += 32 * kUnroll) {
-        T x[kUnroll];
+  for (int size = 2; size <= 32; size <<= 1) {
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u)    // issue every load first
-          if (e0 + 32 * u < ev) x[u] = row[e0 + 32 * u];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int e = e0 + 32 * u;
-          if (e < ev) {
-#pragma unroll
-            for (int q = 0; q < kMaxQ; ++q)
-              if (q < nq) acc[q] = fma_dot(x[u], sqv[q * ev + e], acc[q]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kMaxQ; ++q) {
-      if (q >= nq) break;                              // warp-uniform
-      float x = acc[q];
-      for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-      if (lane == 0) {             // only this warp touches row r
-        const float b = ss[q * kRows + r];
-        const bool inc = n < N && b > kNeg * 0.5f;
-        ss[q * kRows + r] = inc ? x + b : -CUDART_INF_F;
-        si[q * kRows + r] = inc ? n : -1;
-      }
-    }
-  }
-  __syncthreads();
-
-  // bitonic sort of each query's kRows candidates, best first
-  for (int size = 2; size <= kRows; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < nq * (kRows / 2); t += kThreads) {
-        const int q = t / (kRows / 2), p = t % (kRows / 2);
-        const int i = 2 * stride * (p / stride) + (p % stride);
-        const int j = i + stride;
-        float* s = ss + q * kRows;
-        int* id = si + q * kRows;
-        const bool up = (i & size) == 0;
-        const bool swap = up ? better(s[j], id[j], s[i], id[i])
-                             : better(s[i], id[i], s[j], id[j]);
-        if (swap) {
-          const float ts = s[i];
-          s[i] = s[j];
-          s[j] = ts;
-          const int ti = id[i];
-          id[i] = id[j];
-          id[j] = ti;
-        }
+      const float os = __shfl_xor_sync(kFull, s, stride);
+      const int oi = __shfl_xor_sync(kFull, i, stride);
+      const bool lower = (lane & stride) == 0;
+      const bool best_first = (lane & size) == 0 || size == 32;
+      // the pair's (lower, upper) values and whether upper ranks first
+      const bool upper_wins = lower ? better(os, oi, s, i)
+                                    : better(s, i, os, oi);
+      // best_first: the lower lane keeps the better one
+      if (upper_wins == best_first) {
+        s = os;
+        i = oi;
       }
-      __syncthreads();
     }
-  }
-
-  for (int t = threadIdx.x; t < nq * L; t += kThreads) {
-    const int q = t / L, j = t % L;
-    const int id = si[q * kRows + j];
-    const size_t o = (static_cast<size_t>(q0 + q) * nchunks + chunk) * L + j;
-    cand_s[o] = id >= 0 ? ss[q * kRows + j] : kNeg;
-    cand_i[o] = id;
   }
 }
 
-__global__ void merge_kernel(const float* __restrict__ cand_s,
-                             const int* __restrict__ cand_i, int nchunks,
-                             int L, int k, int* __restrict__ heads,
-                             float* __restrict__ out_s,
-                             int* __restrict__ out_i) {
-  const int q = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* cs = cand_s + static_cast<size_t>(q) * nchunks * L;
-  const int* ci = cand_i + static_cast<size_t>(q) * nchunks * L;
-  int* hd = heads + static_cast<size_t>(q) * nchunks;  // owner-thread only
-
-  __shared__ float ws[kMergeThreads / 32];
-  __shared__ int wi[kMergeThreads / 32], wl[kMergeThreads / 32];
-  __shared__ int s_list;
-
-  // each thread owns lists c = tid (mod threads) and tracks its best head
+// Merge one query's nchunks sorted lists of L candidates into its top k,
+// one warp: a tournament over the list heads (warp arg-best by shuffles);
+// lane c % 32 owns list c, keeps its best head and, when that head wins,
+// advances the list and rescans its lists.  kStaged: cs / ci / hd lie in
+// shared memory (copied there first), else cs / ci are the global lists
+// (read past L1, they were written by other blocks) and hd is scratch.
+template <bool kStaged>
+__device__ void merge_query(const float* cs, const int* ci, int* hd,
+                            int nchunks, int L, int k, float* out_s,
+                            int* out_i, int lane) {
+  auto ld_s = [](const float* p) { return kStaged ? *p : __ldcg(p); };
+  auto ld_i = [](const int* p) { return kStaged ? *p : __ldcg(p); };
   float bs = 0.f;
   int bi = -1, bl = -1;
-  for (int c = threadIdx.x; c < nchunks; c += kMergeThreads) {
+  for (int c = lane; c < nchunks; c += 32) {
     hd[c] = 0;
-    const float s = cs[c * L];
-    const int i = ci[c * L];
+    const float s = ld_s(cs + c * L);
+    const int i = ld_i(ci + c * L);
     if (better(s, i, bs, bi)) { bs = s; bi = i; bl = c; }
   }
-
-  for (int r = 0; r < k; ++r) {
+  int r = 0;
+  for (; r < k; ++r) {
     float s = bs;
     int i = bi, l = bl;
     for (int o = 16; o > 0; o >>= 1) {
@@ -209,41 +128,222 @@ __global__ void merge_kernel(const float* __restrict__ cand_s,
       const int l2 = __shfl_xor_sync(kFull, l, o);
       if (better(s2, i2, s, i)) { s = s2; i = i2; l = l2; }
     }
-    if (lane == 0) { ws[warp] = s; wi[warp] = i; wl[warp] = l; }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int w = 1; w < kMergeThreads / 32; ++w)
-        if (better(ws[w], wi[w], s, i)) { s = ws[w]; i = wi[w]; l = wl[w]; }
-      out_s[static_cast<size_t>(q) * k + r] = i >= 0 ? s : kNeg;
-      out_i[static_cast<size_t>(q) * k + r] = i;
-      s_list = i >= 0 ? l : -1;
+    if (i < 0) break;                            // only excluded slots left
+    if (lane == 0) {
+      out_s[r] = s;
+      out_i[r] = i;
     }
-    __syncthreads();
-    const int won = s_list;
-    if (won >= 0 && won % kMergeThreads == static_cast<int>(threadIdx.x)) {
-      // the owner pops the winning head and rescans its lists
-      hd[won] += 1;
+    if (l % 32 == lane) {          // the owner pops the head, rescans
+      hd[l] += 1;
       bs = 0.f; bi = -1; bl = -1;
-      for (int c = threadIdx.x; c < nchunks; c += kMergeThreads) {
+      for (int c = lane; c < nchunks; c += 32) {
         const int h = hd[c];
         if (h >= L) continue;
-        const float s2 = cs[c * L + h];
-        const int i2 = ci[c * L + h];
+        const float s2 = ld_s(cs + c * L + h);
+        const int i2 = ld_i(ci + c * L + h);
         if (better(s2, i2, bs, bi)) { bs = s2; bi = i2; bl = c; }
       }
     }
-    __syncthreads();
+  }
+  for (int j = r + lane; j < k; j += 32) {
+    out_s[j] = kNeg;
+    out_i[j] = -1;
   }
 }
 
-// The score kernel's launch plan: the one place that knows its shared-memory
+// T = float4 when E % 4 == 0 and the table and the queries are 16-byte
+// aligned, else float.
+// kQ: register accumulators per row (1 for a single query, else kMaxQ);
+// kU: loads in flight per row and lane (fewer at kQ = kMaxQ, so that two
+// blocks fit on an SM).  kStaged: the merge copies each query's lists into
+// shared memory first (when they fit).
+template <typename T, int kQ, int kU, bool kStaged>
+__global__ void __launch_bounds__(kThreads, 2)
+    topk_kernel(const float* __restrict__ qs, const float* __restrict__ emb,
+                const float* __restrict__ bias, int Q, int N, int E, int k,
+                int qtile, int L, int nchunks, int mergers,
+                float* __restrict__ cand_s, int* __restrict__ cand_i,
+                int* __restrict__ heads, unsigned* __restrict__ ticket,
+                float* __restrict__ out_s, int* __restrict__ out_i) {
+  extern __shared__ float4 smem4[];                    // 16-byte aligned
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* sq = smem;                                    // [qtile, E]
+  float* ss = sq + qtile * E;                          // [qtile, kRows]
+  int* si = reinterpret_cast<int*>(ss + qtile * kRows);  // [qtile, kRows]
+  __shared__ int s_rank;
+
+  const int chunk = blockIdx.x;
+  const int q0 = blockIdx.y * qtile;
+  const int nq = min(qtile, Q - q0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  constexpr int V = sizeof(T) / sizeof(float);
+  const int ev = E / V;                                // T elements per row
+  {  // the query tile, every load of a thread issued before its stores
+    const T* src = reinterpret_cast<const T*>(qs) + static_cast<size_t>(q0) *
+                                                        ev;
+    T* dst = reinterpret_cast<T*>(sq);
+    for (int j0 = threadIdx.x; j0 < nq * ev; j0 += 8 * kThreads) {
+      T x[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (j0 + u * kThreads < nq * ev) x[u] = __ldg(src + j0 + u * kThreads);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (j0 + u * kThreads < nq * ev) dst[j0 + u * kThreads] = x[u];
+    }
+  }
+  // the block's bias tile in one coalesced pass, staged where the scores
+  // will go: ss[q, r] = bias[q0 + q, chunk * kRows + r]
+  for (int j = threadIdx.x; j < nq * kRows; j += kThreads) {
+    const int n = chunk * kRows + j % kRows;
+    ss[j] = n < N ? bias[static_cast<size_t>(q0 + j / kRows) * N + n] : kNeg;
+  }
+  __syncthreads();
+
+  // ---------------------------------------------------------- scores
+  const T* sqv = reinterpret_cast<const T*>(sq);
+  const int r0 = warp * kRowsPerWarp;
+  const T* rows[kRowsPerWarp];
+  bool live[kRowsPerWarp];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int n = chunk * kRows + r0 + r;
+    live[r] = n < N;
+    rows[r] = reinterpret_cast<const T*>(emb + static_cast<size_t>(
+                                                   live[r] ? n : 0) * E);
+  }
+  float acc[kRowsPerWarp][kQ];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r)
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) acc[r][q] = 0.f;
+  // lane l sums elements l, l + 32, l + 64, ... of each row in order
+  for (int e0 = lane; e0 < ev; e0 += 32 * kU) {
+    T x[kRowsPerWarp][kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u)               // issue every load first
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r)
+        if (live[r] && e0 + 32 * u < ev) x[r][u] = __ldg(rows[r] + e0 + 32 * u);
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int e = e0 + 32 * u;
+      if (e < ev) {
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) {
+          if (q < nq) {
+            const T qv = sqv[q * ev + e];
+#pragma unroll
+            for (int r = 0; r < kRowsPerWarp; ++r)
+              if (live[r]) acc[r][q] = fma_dot(x[r][u], qv, acc[r][q]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int row = r0 + r, n = chunk * kRows + row;
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      if (q >= nq) break;                              // warp-uniform
+      float x = acc[r][q];
+      for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+      if (lane == 0) {             // only this warp touches this row
+        const float b = ss[q * kRows + row];
+        const bool inc = live[r] && b > kNeg * 0.5f;
+        ss[q * kRows + row] = inc ? x + b : -CUDART_INF_F;
+        si[q * kRows + row] = inc ? n : -1;
+      }
+    }
+  }
+  __syncthreads();
+
+  // ------------------------------------ block top-L: one warp per query
+  for (int q = warp; q < nq; q += kWarps) {
+    float s = ss[q * kRows + lane];
+    int i = si[q * kRows + lane];
+    warp_sort(s, i, lane);
+    if (lane < L) {
+      const size_t o = (static_cast<size_t>(q0 + q) * nchunks + chunk) * L +
+                       lane;
+      cand_s[o] = i >= 0 ? s : kNeg;
+      cand_i[o] = i;
+    }
+  }
+
+  // ------------------------------- the last `mergers` blocks merge
+  __threadfence();                 // this block's lists before its ticket
+  __syncthreads();
+  const unsigned total = gridDim.x * gridDim.y;
+  if (threadIdx.x == 0)
+    s_rank = static_cast<int>(total - 1 - atomicAdd(ticket, 1u));
+  __syncthreads();
+  const int rank = s_rank;         // 0 for the last block to finish
+  if (rank >= mergers) return;
+  if (threadIdx.x == 0)            // every other block has its lists out
+    while (*reinterpret_cast<volatile unsigned*>(ticket) < total)
+      __nanosleep(64);
+  __syncthreads();
+  __threadfence();
+
+  const int per = nchunks * L;     // candidates of one query
+  // merger `rank` takes queries rank, rank + mergers, ...: one per warp
+  for (int q = rank + mergers * warp; q < Q; q += mergers * kWarps) {
+    const float* gs = cand_s + static_cast<size_t>(q) * per;
+    const int* gi = cand_i + static_cast<size_t>(q) * per;
+    float* os = out_s + static_cast<size_t>(q) * k;
+    int* oi = out_i + static_cast<size_t>(q) * k;
+    if constexpr (kStaged) {
+      // this warp's region after the score tiles are done with: lists, then
+      // list heads
+      float* ms = smem + static_cast<size_t>(warp) * (2 * per + nchunks);
+      int* mi = reinterpret_cast<int*>(ms + per);
+      int* mh = mi + per;
+      for (int j0 = lane; j0 < per; j0 += 32 * 16) {   // 16 loads in flight
+        float xs[16];
+        int xi[16];
+#pragma unroll
+        for (int u = 0; u < 16; ++u)
+          if (j0 + 32 * u < per) {
+            xs[u] = __ldcg(gs + j0 + 32 * u);
+            xi[u] = __ldcg(gi + j0 + 32 * u);
+          }
+#pragma unroll
+        for (int u = 0; u < 16; ++u)
+          if (j0 + 32 * u < per) {
+            ms[j0 + 32 * u] = xs[u];
+            mi[j0 + 32 * u] = xi[u];
+          }
+      }
+      __syncwarp();
+      merge_query<true>(ms, mi, mh, nchunks, L, k, os, oi, lane);
+      __syncwarp();                // the region is reused for the next query
+    } else {
+      merge_query<false>(gs, gi, heads + static_cast<size_t>(q) * nchunks,
+                         nchunks, L, k, os, oi, lane);
+    }
+  }
+  // the last merger to finish zeroes both counters for the next launch
+  __syncthreads();
+  if (threadIdx.x == 0 && atomicAdd(ticket + 1, 1u) == mergers - 1) {
+    ticket[0] = 0;
+    ticket[1] = 0;
+  }
+}
+
+// The kernel's launch plan: the one place that knows its shared-memory
 // layout (qtile queries of E floats, then a [qtile, kRows] score tile and a
-// [qtile, kRows] slot tile) and the merge's scratch shape.
+// [qtile, kRows] slot tile; in the merging block, one region of
+// 2 * nchunks * L + nchunks words per warp) and the merge's scratch shape.
 struct Plan {
   int nchunks;     // table-row blocks: ceil(N / kRows)
   int L;           // candidates each block keeps per query: min(k, kRows)
   int qtile;       // queries that share one table read (<= kMaxQ)
-  int smem_bytes;  // the score kernel's dynamic shared memory
+  int mergers;     // blocks that merge, each a share of the queries
+  bool staged;     // the merge runs from shared memory
+  int smem_bytes;  // dynamic shared memory
 };
 
 // 0, or -1 when one query's row does not fit in the current device's
@@ -255,22 +355,70 @@ int make_plan(int Q, int N, int E, int k, Plan* p) {
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  optin -= 64;                                         // static s_last
   const long long row_bytes =
       (static_cast<long long>(E) + 2 * kRows) * sizeof(float);
   const long long fit = optin / row_bytes;
   const int qmax = Q < kMaxQ ? Q : kMaxQ;
   p->qtile = fit < qmax ? static_cast<int>(fit) : qmax;
   if (p->qtile < 1) return -1;
-  p->smem_bytes = static_cast<int>(p->qtile * row_bytes);
   p->nchunks = (N + kRows - 1) / kRows;
   p->L = k < kRows ? k : kRows;
+  const long long total = static_cast<long long>(p->nchunks) *
+                          ((Q + p->qtile - 1) / p->qtile);
+  p->mergers = static_cast<int>(Q < kMaxMergers ? Q : kMaxMergers);
+  if (p->mergers > total) p->mergers = static_cast<int>(total);
+  const int per_merger = (Q + p->mergers - 1) / p->mergers;
+  const long long score = p->qtile * row_bytes;
+  const long long merge =
+      static_cast<long long>(per_merger < kWarps ? per_merger : kWarps) *
+      (2LL * p->nchunks * p->L + p->nchunks) * sizeof(float);
+  // staging keeps two blocks on an SM: at most half the opt-in memory
+  p->staged = merge <= optin / 2 || merge <= score;
+  p->smem_bytes = static_cast<int>(p->staged && merge > score ? merge
+                                                              : score);
   return 0;
+}
+
+template <typename T, int kQ, int kU, bool kStaged>
+int launch(const Plan& p, dim3 grid, cudaStream_t s, const float* qs,
+           const float* emb, const float* bias, int Q, int N, int E, int k,
+           float* cand_s, int* cand_i, int* heads, unsigned* ticket,
+           float* out_s, int* out_i) {
+  auto kernel = &topk_kernel<T, kQ, kU, kStaged>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
+  if (err == cudaSuccess)          // all of the SM's shared memory: 2 blocks
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kThreads, p.smem_bytes, s>>>(
+      qs, emb, bias, Q, N, E, k, p.qtile, p.L, p.nchunks, p.mergers, cand_s,
+      cand_i, heads, ticket, out_s, out_i);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kStaged>
+int launch_q(const Plan& p, dim3 grid, cudaStream_t s, const float* qs,
+             const float* emb, const float* bias, int Q, int N, int E, int k,
+             float* cand_s, int* cand_i, int* heads, unsigned* ticket,
+             float* out_s, int* out_i) {
+  return p.qtile == 1
+             ? launch<T, 1, 4, kStaged>(p, grid, s, qs, emb, bias, Q, N, E, k,
+                                        cand_s, cand_i, heads, ticket, out_s,
+                                        out_i)
+             : launch<T, kMaxQ, 2, kStaged>(p, grid, s, qs, emb, bias, Q, N,
+                                            E, k, cand_s, cand_i, heads,
+                                            ticket, out_s, out_i);
 }
 
 }  // namespace
 
 // Scratch the caller allocates for query_topk_bias_launch: cand_s / cand_i
-// [Q, nchunks, L] and heads [Q, nchunks].  Returns make_plan's code.
+// [Q, nchunks, L] and heads [Q, nchunks], plus two counter words that are
+// zero before the first launch (the kernel leaves them at zero).
+// Returns make_plan's code.
 extern "C" int query_topk_bias_scratch(int Q, int N, int E, int k,
                                        int* nchunks, int* L) {
   Plan p;
@@ -284,31 +432,32 @@ extern "C" int query_topk_bias_scratch(int Q, int N, int E, int k,
 
 // qs [Q, E], emb [N, E], bias [Q, N] f32; scratch as
 // query_topk_bias_scratch reports it.  Outputs: out_s [Q, k] f32, out_i
-// [Q, k] i32.  Returns make_plan's code, else cudaGetLastError() after the
-// launches (0 = launched).
+// [Q, k] i32.  One launch.  Returns make_plan's code, else
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int query_topk_bias_launch(const float* qs, const float* emb,
                                       const float* bias, int Q, int N, int E,
                                       int k, float* cand_s, int* cand_i,
-                                      int* heads, float* out_s, int* out_i,
+                                      int* heads, unsigned* ticket,
+                                      float* out_s, int* out_i,
                                       void* stream) {
   Plan p;
   const int plan_err = make_plan(Q, N, E, k, &p);
   if (plan_err != 0) return plan_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(p.nchunks, (Q + p.qtile - 1) / p.qtile);
-  const bool vec4 = E % 4 == 0 && reinterpret_cast<uintptr_t>(emb) % 16 == 0;
-  void (*kernel)(const float*, const float*, const float*, int, int, int,
-                 int, int, int, float*, int*) =
-      vec4 ? &score_kernel<float4> : &score_kernel<float>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, p.smem_bytes, s>>>(qs, emb, bias, Q, N, E,
-                                              p.qtile, p.L, p.nchunks,
-                                              cand_s, cand_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  merge_kernel<<<Q, kMergeThreads, 0, s>>>(cand_s, cand_i, p.nchunks, p.L,
-                                           k, heads, out_s, out_i);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec4 = E % 4 == 0 && reinterpret_cast<uintptr_t>(emb) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(qs) % 16 == 0;
+  if (vec4)
+    return p.staged ? launch_q<float4, true>(p, grid, s, qs, emb, bias, Q, N,
+                                             E, k, cand_s, cand_i, heads,
+                                             ticket, out_s, out_i)
+                    : launch_q<float4, false>(p, grid, s, qs, emb, bias, Q, N,
+                                              E, k, cand_s, cand_i, heads,
+                                              ticket, out_s, out_i);
+  return p.staged ? launch_q<float, true>(p, grid, s, qs, emb, bias, Q, N, E,
+                                          k, cand_s, cand_i, heads, ticket,
+                                          out_s, out_i)
+                  : launch_q<float, false>(p, grid, s, qs, emb, bias, Q, N, E,
+                                           k, cand_s, cand_i, heads, ticket,
+                                           out_s, out_i);
 }

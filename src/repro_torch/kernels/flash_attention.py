@@ -17,7 +17,8 @@ masks them, as ``ref.flash_attention_ref`` and ``blocked_attention`` do.
 Two implementations of the same function:
 
   * ``flash_attention_cuda`` — the hand-written Hopper kernel
-    (``csrc/flash_attention.cu``): mma.sync for bf16, fp32 FMA for f32.
+    (``csrc/flash_attention.cu``): for bf16, warp-specialised wgmma fed by
+    a TMA ring (tensor maps laid out by ``tma_layout``); for f32, fp32 FMA.
   * ``flash_attention_plain`` — plain PyTorch with the kernel's tiling of
     the online softmax (``BLOCK_K`` keys per step) and its rounding points.
 
@@ -33,7 +34,9 @@ import torch
 from repro_torch.kernels import build
 
 NEG = -1e30
-BLOCK_K = 64                 # keys per online-softmax step (kernel and plain)
+BLOCK_K = 128                # keys per online-softmax step (kernel, plain)
+TILE = 128                   # the bf16 kernel's query and key tile
+PANEL = 64                   # bf16 columns of one 128-byte TMA box row
 HEAD_DIMS = (64, 128)        # head widths the kernel is built for
 DTYPES = (torch.bfloat16, torch.float32)
 
@@ -42,8 +45,8 @@ launches = 0                 # kernel launches made by flash_attention_cuda
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "flash_attention_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _I, _I, ctypes.c_float, _P], _I),
+    "flash_attention_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _I, ctypes.c_float, _P], _I),
 }
 
 
@@ -119,6 +122,46 @@ def _check_layout(name: str, t: torch.Tensor, dev: torch.device,
                          "rows")
 
 
+def tma_layout(t: torch.Tensor):
+    """The 4-D TMA tensor map of a bf16 ``[B, S, heads, dh]`` operand, as
+    ``csrc/flash_attention.cu`` encodes it: dims innermost first
+    ``(dh, S, heads, B)``, the byte strides of S, heads and B, and the box,
+    one 128-row by 64-column panel (128 bytes, the swizzle's span).  TMA
+    needs a contiguous head dim and 16-byte aligned strides and base;
+    anything else raises ``ValueError``."""
+    if t.dim() != 4:
+        raise ValueError(f"tma_layout: {tuple(t.shape)} is not 4-D")
+    B, S, heads, dh = t.shape
+    es = t.element_size()
+    strides = tuple(t.stride(i) * es for i in (1, 2, 0))
+    if (t.stride(3) != 1 or dh % PANEL or any(s % 16 or s >= 2 ** 40
+                                               for s in strides)
+            or t.data_ptr() % 16):
+        raise ValueError(f"tma_layout: strides {t.stride()} (element size "
+                         f"{es}) need a contiguous head dim of a multiple of "
+                         f"{PANEL} and 16-byte aligned rows")
+    return (dh, S, heads, B), strides, (PANEL, TILE, 1, 1)
+
+
+def tile_schedule(B: int, S: int, H: int, n_blocks: int):
+    """The bf16 kernel's work split (``block_tile`` and ``snake_tile`` in
+    ``csrc/flash_attention.cu``): tiles of ``TILE`` query rows
+    numbered heaviest first (every (b, h) of the last query tile, then of
+    the one before, ...), dealt to ``n_blocks`` persistent blocks back and
+    forth.  Returns each block's (query tile, b, h) in the order it runs
+    them."""
+    n_q = -(-S // TILE)
+    n_tiles = n_q * B * H
+    out = [[] for _ in range(n_blocks)]
+    for r in range(-(-n_tiles // n_blocks)):
+        for blk in range(n_blocks):
+            i = r * n_blocks + (n_blocks - 1 - blk if r % 2 else blk)
+            if i < n_tiles:
+                out[blk].append((n_q - 1 - i // (B * H), (i % (B * H)) // H,
+                                 i % H))
+    return out
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0) -> torch.Tensor:
@@ -140,13 +183,22 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_layout(name, t, dev, q.dtype)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
                                          for s in t.stride()[:3]))
+    tma = None
+    if q.dtype == torch.bfloat16:
+        tma = (ctypes.c_longlong * 33)(*(x for t in (q, k, v)
+                                         for part in tma_layout(t)
+                                         for x in part))
     lib = build.load("flash_attention", _SIGNATURES)
     with torch.cuda.device(dev):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-            B, S, H, Kv, dh, int(q.dtype == torch.bfloat16), int(causal),
+            tma, B, S, H, Kv, dh, int(q.dtype == torch.bfloat16), int(causal),
             int(window), float(softcap),
             torch.cuda.current_stream(dev).cuda_stream)
+    if err in (-2, -3):
+        raise RuntimeError("flash_attention: cuTensorMapEncodeTiled "
+                           + ("refused a tensor map" if err == -2 else
+                              "is not available from the CUDA driver"))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

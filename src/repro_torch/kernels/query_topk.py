@@ -12,7 +12,8 @@ embedding is one call of this function.
 Two implementations of the same function:
 
   * ``query_topk_bias_cuda`` — the hand-written Hopper kernel
-    (``csrc/query_topk.cu``).
+    (``csrc/query_topk.cu``): one launch per call, scores and per-block
+    top-k in every block, the merge in the last blocks to finish.
   * ``query_topk_bias_plain`` — plain PyTorch: the reference's
     ``ref.query_topk_bias_ref`` with the kernel's tie order and padding,
     via a stable sort (``torch.topk`` promises no tie order on CUDA).
@@ -31,6 +32,9 @@ NEG = -1e30
 MAX_K = 1024          # the cluster index's largest kernel k
 
 launches = 0          # kernel launches made by query_topk_bias_cuda
+# two zeroed counters per (device, stream): the kernel's last blocks take
+# the merge and set them back to 0, so calls on one stream share them
+_tickets: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,7 +42,7 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "query_topk_bias_scratch": ([_I, _I, _I, _I, _IP, _IP], _I),
     "query_topk_bias_launch": ([_P, _P, _P, _I, _I, _I, _I,
-                                _P, _P, _P, _P, _P, _P], _I),
+                                _P, _P, _P, _P, _P, _P, _P], _I),
 }
 
 
@@ -102,11 +106,15 @@ def query_topk_bias_cuda(qs: torch.Tensor, embeds: torch.Tensor,
         heads = torch.empty(scratch[:2], dtype=torch.int32, device=dev)
         vals = torch.empty((Q, k), dtype=torch.float32, device=dev)
         idx = torch.empty((Q, k), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ticket = _tickets.get((dev.index, stream))
+        if ticket is None:
+            ticket = _tickets[(dev.index, stream)] = torch.zeros(
+                2, dtype=torch.int32, device=dev)
         err = lib.query_topk_bias_launch(
             qs.data_ptr(), embeds.data_ptr(), bias.data_ptr(), Q, N, E, int(k),
             cand_s.data_ptr(), cand_i.data_ptr(), heads.data_ptr(),
-            vals.data_ptr(), idx.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            ticket.data_ptr(), vals.data_ptr(), idx.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"query_topk_bias kernel launch failed: CUDA "
                            f"error {err}")

@@ -10,7 +10,9 @@ kernel in interpret mode (ints exact, floats rtol/atol 1e-4), and
 valid count included.  ``flash_attention`` against the Pallas kernel in
 interpret mode (f32 2e-5, bf16 2e-2: the reference's own tolerances) and,
 where the Pallas kernel lets zero-padded keys into a non-causal softmax,
-against ``ref.flash_attention_ref``; ``nearest_dist`` against the Pallas
+against ``ref.flash_attention_ref``; the bf16 kernel's host-side pieces
+(its TMA tensor-map layout and its persistent tile schedule) on their
+own; ``nearest_dist`` against the Pallas
 kernel in interpret mode (1e-4), 1e30 for a row with no valid neighbour.
 """
 import jax.numpy as jnp
@@ -286,6 +288,65 @@ def test_flash_attention_refuses_mismatched_shapes(bad, match):
         args["v"] = args["k"]
     with pytest.raises(ValueError, match=match):
         tfa.flash_attention_plain(**args)
+
+
+def _hsd_view(h, s, dh):
+    """[1, S, H, dh] view of a contiguous [H, S, dh] tensor, as
+    ``ops.flash_attention`` passes the reference's layout on."""
+    return torch.zeros(h, s, dh, dtype=torch.bfloat16).transpose(0, 1)[None]
+
+
+@pytest.mark.parametrize("t,dims,strides", [
+    # the model's contiguous [B, S, H, dh] (the captioner's prefill q)
+    (torch.zeros(8, 1024, 12, 64, dtype=torch.bfloat16), (64, 1024, 12, 8),
+     (1536, 128, 1572864)),
+    # k at dh 128 with GQA
+    (torch.zeros(2, 333, 4, 128, dtype=torch.bfloat16), (128, 333, 4, 2),
+     (1024, 256, 340992)),
+    # the reference's [H, S, dh] seen as [1, S, H, dh]
+    # (a size-1 batch dim keeps the stride PyTorch gives it)
+    (_hsd_view(4, 200, 64), (64, 200, 4, 1), (128, 25600, 25600)),
+])
+def test_flash_tma_layout_reads_the_strides(t, dims, strides):
+    """dims innermost first (dh, S, heads, B), byte strides of S, heads
+    and B, and a box of one 64-column panel by 128 rows."""
+    assert tfa.tma_layout(t) == (dims, strides, (64, 128, 1, 1))
+
+
+@pytest.mark.parametrize("t", [
+    torch.zeros(1, 64, 2, 68, dtype=torch.bfloat16)[..., :64],  # row 136 B
+    torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16)[..., ::2],  # dh strided
+    torch.zeros(1, 64, 3, 64, dtype=torch.bfloat16)[:, :, :, 4:36],  # dh 32
+    torch.zeros(1 * 64 * 2 * 64 + 4, dtype=torch.bfloat16)[4:].view(
+        1, 64, 2, 64),                                            # base + 8 B
+])
+def test_flash_tma_layout_refuses_what_tma_cannot_read(t):
+    with pytest.raises(ValueError, match="tma_layout"):
+        tfa.tma_layout(t)
+
+
+@pytest.mark.parametrize("B,S,H,n_blocks", [
+    (8, 1024, 12, 132),     # the captioner's prefill on an H100
+    (2, 333, 12, 132),      # fewer tiles than blocks
+    (1, 1025, 12, 7),       # one row past a tile, many rounds
+    (3, 17, 1, 2),
+])
+def test_flash_tile_schedule_runs_every_tile_once_heaviest_first(B, S, H,
+                                                                 n_blocks):
+    """The bf16 kernel's persistent blocks together run every (query tile,
+    b, h) exactly once; each block takes its tiles heaviest (latest query
+    tile) first, and the blocks' causal work differs by at most one
+    query tile's worth."""
+    sched = tfa.tile_schedule(B, S, H, n_blocks)
+    n_q = -(-S // tfa.TILE)
+    tiles = [t for blk in sched for t in blk]
+    assert sorted(tiles) == sorted((qt, b, h) for qt in range(n_q)
+                                   for b in range(B) for h in range(H))
+    for blk in sched:
+        assert [t[0] for t in blk] == sorted((t[0] for t in blk),
+                                             reverse=True)
+    work = [sum(t[0] + 1 for t in blk) for blk in sched]
+    assert max(work) - min(work) <= n_q
 
 
 # ------------------------------------------------------------- nearest_dist
