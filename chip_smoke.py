@@ -8,18 +8,23 @@
 2. prints each kernel's registers, shared memory and spills from ptxas
    (``kernel_resources``), then holds each kernel against its plain
    PyTorch version on the card, at the main path's shapes and at edge
-   shapes (budget > cap, ragged tiling, empty masks; k past the included
-   count, all-equal scores, k = 1024, N below one 32-row block, the
-   cluster index's k = 1024 at the batched shape; the captioner's prefill
-   attention, the reference's attention test shapes, a GQA case, and the
-   edges of the bf16 kernel's 128-row tiles: S = 17, S = 1025, MQA,
-   window 1, non-causal dh = 128 at S = 2048; nearest-neighbour
-   distances at the reference's test shapes, a chamfer, a centroid sweep
-   and no valid neighbour): ints exactly, floats within 1e-4
-   (lift_compact, nearest_dist), 1e-5 (query_topk_bias scores) and rtol =
-   atol = 2e-5 / 2e-2 (flash_attention in f32 / bf16), and times kernel,
-   plain version and, where one PyTorch call computes the same function,
-   that call (with TFLOP/s for flash_attention);
+   shapes (budget > cap, ragged tiling, empty masks, one detection,
+   H*W = 1961, 720x1280 at stride 1, every mask empty; k past the
+   included count, all-equal scores, k = 1024, N below one 32-row block,
+   the cluster index's k = 1024 at the batched shape; the captioner's
+   prefill attention, the reference's attention test shapes, a GQA case,
+   and the edges of the bf16 kernel's 128-row tiles: S = 17, S = 1025,
+   MQA, window 1, non-causal dh = 128 at S = 2048; nearest-neighbour
+   distances at the reference's test shapes, a chamfer, a centroid sweep,
+   no valid neighbour, N past one staged tile, a stretch of invalid b
+   longer than a share, D = 8 and 5, M no multiple of a block's rows):
+   ints exactly, floats within 1e-4 (lift_compact, nearest_dist), 1e-5
+   (query_topk_bias scores) and rtol = atol = 2e-5 / 2e-2
+   (flash_attention in f32 / bf16); requires one launch per
+   lift_compact call and the same bits from two calls of lift_compact
+   and nearest_dist; and times kernel, plain version and, where one
+   PyTorch call computes the same function, that call (with TFLOP/s for
+   flash_attention; nearest_dist at the centroid and the chamfer shape);
 3. drives the single-client loop at the paper's deployment size (Knobs()
    defaults, E = 512, 720x1280 keyframes, 40 keyframes of an 80-object
    scene): MappingServer.process_frame, CloudService.update_tick ->
@@ -29,7 +34,8 @@
 4. profiles the loop: the server, cloud and client of step 3 take more
    keyframes, each followed by an update tick, the device-side ingest, an
    SQ and an LQ; half of them timed by stage on the host clock, half
-   under ``torch.profiler`` (device-busy share, host syncs, top kernels);
+   under ``torch.profiler`` (device-busy share, host syncs, top kernels;
+   one lift kernel on the card for each lift_compact call);
 5. runs 16 batched full_mix-style queries over a 10,000-object store and
    requires the same top-k as the CPU port, with the launch counters reset
    just before and read just after;
@@ -167,15 +173,19 @@ class Clock:
 
 
 # ------------------------------------------------------------ step 2 inputs
-def lift_inputs(torch, d, h, w, stride, seed, dev):
+def lift_inputs(torch, d, h, w, stride, seed, dev, empty="one"):
     """Depth with 25 % holes, D masks of mixed density (some objects under
-    the point budget, some past the lift cap), one empty mask."""
+    the point budget, some past the lift cap); ``empty``: one empty mask
+    (the middle one), ``none`` or ``all``."""
     rng = np.random.default_rng(seed)
     depth = np.where(rng.random((h, w)) > 0.25,
                      rng.uniform(0.4, 6.0, (h, w)), 0.0).astype(np.float32)
     dens = rng.uniform(0.002, 0.6, size=(d, 1, 1))
     masks = rng.random((d, h, w)) < dens
-    masks[d // 2] = False
+    if empty == "one":
+        masks[d // 2] = False
+    elif empty == "all":
+        masks[:] = False
     intr = np.array([0.9 * w * stride, 0.9 * w * stride, w * stride / 2,
                      h * stride / 2], np.float32)
     q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
@@ -231,30 +241,56 @@ def bound(nbytes, flops):
 
 
 # ------------------------------------------------------------------ step 2
+def same_bits(torch, xs, ys) -> bool:
+    """Every tensor of ``xs`` equal to its partner in ``ys`` bit for bit."""
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    return all(torch.equal(bits(x), bits(y)) for x, y in zip(xs, ys))
+
+
 def kernel_checks(torch, clock, dev):
     from repro_torch.kernels import lift_compact as lc
     from repro_torch.kernels import query_topk as qt
 
     # lift_compact: main path (32 detections at 144x256, stride 5, budget
-    # 2000, cap 4096) and the edge shapes of tests/test_kernels.py
-    lift_cases = [(32, 144, 256, 5, 2000, 4096), (4, 24, 32, 1, 64, 4096),
-                  (8, 48, 64, 5, 512, 4096), (3, 20, 26, 2, 16, 32),
-                  (6, 30, 40, 3, 100, 80)]
-    for case in lift_cases:
+    # 2000, cap 4096), the edge shapes of tests/test_kernels.py, and the
+    # edges of the cluster kernel's split (lift_compact.work_split): one
+    # detection (8 blocks on one object), H*W = 1961 (no multiple of 16,
+    # so no block share divides it and most masks start unaligned for the
+    # 16-byte loads), 720x1280 at stride 1 (8 blocks of 15 register
+    # chunks each), and every mask empty
+    lift_cases = [((32, 144, 256, 5, 2000, 4096), "one"),
+                  ((4, 24, 32, 1, 64, 4096), "one"),
+                  ((8, 48, 64, 5, 512, 4096), "one"),
+                  ((3, 20, 26, 2, 16, 32), "one"),
+                  ((6, 30, 40, 3, 100, 80), "one"),
+                  ((1, 144, 256, 5, 2000, 4096), "none"),
+                  ((5, 37, 53, 3, 300, 4096), "one"),
+                  ((4, 720, 1280, 1, 2000, 4096), "one"),
+                  ((6, 144, 256, 5, 2000, 4096), "all")]
+    for case, empty in lift_cases:
         d, h, w, stride, budget, cap = case
-        args = lift_inputs(torch, d, h, w, stride, sum(case), dev)
+        args = lift_inputs(torch, d, h, w, stride, sum(case), dev, empty)
         kw = dict(stride=stride, budget=budget, lift_cap=cap)
+        n0 = lc.launches
         got = lc.lift_compact_cuda(*args, **kw)
+        check(lc.launches == n0 + 1, "lift_compact: one launch per call")
         want = lc.lift_compact_plain(*args, **kw)
         torch.cuda.synchronize()
         check(torch.equal(got[1], want[1]), f"lift_compact n at {case}")
         err = max(float((g - x).abs().max()) for g, x in
                   zip(got, want) if g.is_floating_point())
         check(err <= LIFT_TOL, f"lift_compact err {err} at {case}")
-        check(int(got[1][d // 2]) == 0 and not got[0][d // 2].any(),
-              f"lift_compact empty mask at {case}")
-        emit("lift_compact_check", {"shape": case, "max_abs_err": err})
-        if case == lift_cases[0]:
+        for k in {"all": range(d), "one": [d // 2], "none": []}[empty]:
+            check(int(got[1][k]) == 0 and not got[0][k].any()
+                  and not got[2][k].any() and not got[3][k].any(),
+                  f"lift_compact empty mask at {case}")
+        emit("lift_compact_check", {"shape": case, "empty": empty,
+                                    "max_abs_err": err})
+        if case == lift_cases[0][0]:
+            again = lc.lift_compact_cuda(*args, **kw)
+            check(same_bits(torch, got, again),
+                  "lift_compact: two calls give the same bits")
             kernel = lambda: lc.lift_compact_cuda(*args, **kw)  # noqa
             b_ms, b_by = bound(lift_bytes(d, h, w, budget), 0)
             lift_row = {
@@ -406,24 +442,49 @@ def attention_checks(torch, clock, dev):
     return row
 
 
-def nd_inputs(torch, M, N, D, seed, dev, frac=0.9):
+def nd_inputs(torch, M, N, D, seed, dev, frac=0.9, hole=None):
     """Points in a 10 m room (a), map points or centroids (b), a share
-    ``frac`` of b valid."""
+    ``frac`` of b valid, none of the rows in ``hole`` = (lo, hi)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     a = (torch.rand((M, D), generator=g, device=dev) - 0.5) * 10
     b = (torch.rand((N, D), generator=g, device=dev) - 0.5) * 10
-    return a, b, torch.rand((N,), generator=g, device=dev) < frac
+    bv = torch.rand((N,), generator=g, device=dev) < frac
+    if hole is not None:
+        bv[hole[0]:hole[1]] = False
+    return a, b, bv
+
+
+def nd_cost(M, N, D, n_valid):
+    """(bytes, fp32 flops) of one nearest_dist call.  The least work is D
+    multiply-adds and one min for each (row, valid b row) pair, 2D + 1
+    flops: the kernel folds |b|^2 into the first FMA and adds |a|^2 once a
+    row, so counting the reference's 2D + 3 would put the kernel's own
+    work above its bound."""
+    return 4 * (M * D + N * D + M) + N, M * n_valid * (2 * D + 1)
 
 
 def nearest_checks(torch, clock, dev):
     from repro_torch.kernels import pairwise as pw
 
-    cases = [((50, 70, 3), 0.9), ((256, 512, 3), 0.9), ((1000, 333, 3), 0.9),
-             ((128, 128, 8), 0.9), ((2000, 2000, 3), 0.9),
-             ((64000, 4096, 3), 0.8), ((300, 200, 3), 0.0)]
-    row = None
-    for i, ((M, N, D), frac) in enumerate(cases):
-        a, b, bv = nd_inputs(torch, M, N, D, i, dev, frac)
+    # the reference's test shapes, the two path shapes, no valid
+    # neighbour; then the edges of the kernel's tiling (pairwise.nd_split:
+    # 1024 rows of a a block, or 256 where M < 16384; b cut among a
+    # cluster's blocks and staged 2048 rows (D <= 3) or 512 rows (D <= 8)
+    # at a time): N that is no multiple of a tile with shares past one
+    # tile, a stretch of invalid b rows longer than a share (a block whose
+    # whole share is invalid), D = 8 and D = 5 (the padded 8-lane kernel),
+    # M no multiple of a block's rows, and one row against one point
+    cases = [((50, 70, 3), 0.9, None), ((256, 512, 3), 0.9, None),
+             ((1000, 333, 3), 0.9, None), ((128, 128, 8), 0.9, None),
+             ((2000, 2000, 3), 0.9, None), ((64000, 4096, 3), 0.8, None),
+             ((300, 200, 3), 0.0, None),
+             ((20000, 17000, 3), 0.9, None),
+             ((20000, 17000, 3), 0.9, (4000, 9000)),
+             ((20000, 17000, 8), 0.9, (4000, 9000)),
+             ((513, 2049, 5), 0.9, None), ((1, 1, 3), 1.0, None)]
+    rows = {}
+    for i, ((M, N, D), frac, hole) in enumerate(cases):
+        a, b, bv = nd_inputs(torch, M, N, D, i, dev, frac, hole)
         got = pw.nearest_dist_cuda(a, b, bv)
         want = pw.nearest_dist_plain(a, b, bv)
         torch.cuda.synchronize()
@@ -433,23 +494,22 @@ def nearest_checks(torch, clock, dev):
         if frac == 0.0:
             check(bool((got == pw.INF).all()), "no valid neighbour -> 1e30")
         emit("nearest_dist_check", {"shape": [M, N, D], "valid_share": frac,
-                                    "max_abs_err": err})
-        if (M, N, D) == ND_PATH_SHAPES[1]:
-            # distances are computed for valid b rows only: count those
+                                    "invalid_rows": hole, "max_abs_err": err})
+        if (M, N, D) in ND_PATH_SHAPES and (M, N, D) not in rows:
+            check(same_bits(torch, [got], [pw.nearest_dist_cuda(a, b, bv)]),
+                  f"nearest_dist: two calls give the same bits at {(M, N)}")
             n_valid = int(bv.sum())
-            t_ops = M * n_valid * (2 * D + 3) / FP32_FLOP_PER_S * 1e3
-            t_bytes = 4 * (M * D + N * D + N + M) / HBM_BYTES_PER_S * 1e3
-            row = {
+            b_ms, b_by = bound(*nd_cost(M, N, D, n_valid))
+            rows[(M, N, D)] = {
                 "ms": clock.ms(lambda: pw.nearest_dist_cuda(a, b, bv)),
                 "plain_ms": clock.ms(lambda: pw.nearest_dist_plain(a, b, bv)),
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": clock.ms(lambda: torch.cdist(a, b).masked_fill(
                     ~bv[None], torch.inf).amin(1).square()),
                 "max_abs_err": err, "n_valid": n_valid,
                 "shape": f"M={M} N={N} D={D}"}
-            emit("nearest_dist_time", row)
-    return row
+            emit("nearest_dist_time", rows[(M, N, D)])
+    return {**rows[ND_PATH_SHAPES[1]], "chamfer": rows[ND_PATH_SHAPES[0]]}
 
 
 def nearest_phase(torch, dev):
@@ -586,6 +646,7 @@ def profile_phase(torch, dev, loop, *, embed_dim, h, w, n_frames,
 
     from repro_torch.core import Query
     from repro_torch.data.scenes import scene_stream
+    from repro_torch.kernels import ops
 
     srv, cloud, client = loop.srv, loop.cloud, loop.client
     D = srv.knobs.max_detections_per_frame
@@ -619,6 +680,7 @@ def profile_phase(torch, dev, loop, *, embed_dim, h, w, n_frames,
     emit("stages", stages)
 
     torch.cuda.synchronize()
+    n0 = ops.launch_counts()["lift_compact"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -626,8 +688,14 @@ def profile_phase(torch, dev, loop, *, embed_dim, h, w, n_frames,
             step(fr)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    out = {"keyframes": PROFILE_KEYFRAMES,
-           **profile_summary(prof, wall_ms)}
+    # one lift kernel on the card for each lift_compact call
+    lift_calls = ops.launch_counts()["lift_compact"] - n0
+    lift_kernels = sum(e.count for e in prof.key_averages()
+                       if "lift_cluster_kernel" in e.key)
+    check(lift_calls > 0 and lift_kernels == lift_calls,
+          f"{lift_kernels} lift kernels for {lift_calls} lift_compact calls")
+    out = {"keyframes": PROFILE_KEYFRAMES, "lift_compact_calls": lift_calls,
+           "lift_kernels": lift_kernels, **profile_summary(prof, wall_ms)}
     emit("profile", out)
     return out
 
@@ -971,6 +1039,9 @@ def main() -> int:
     emit("kernel_resources", kernel_resources(build))
 
     clock = Clock(torch)
+    # the floor of a kernel time on this clock: a one-element fill
+    one = torch.empty(1, device=dev)
+    emit("clock", {"empty_kernel_ms": clock.ms(lambda: one.fill_(0.0))})
     lift_row, topk_row = kernel_checks(torch, clock, dev)
     flash_row = attention_checks(torch, clock, dev)
     nd_row = nearest_checks(torch, clock, dev)

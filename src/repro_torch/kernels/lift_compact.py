@@ -12,7 +12,8 @@ Two implementations of the same function:
 
   * ``lift_compact_cuda`` — the hand-written Hopper kernel
     (``csrc/lift_compact.cu``; it replaces the TPU kernel
-    ``repro/kernels/lift_compact.py::lift_compact_pallas``).
+    ``repro/kernels/lift_compact.py::lift_compact_pallas``): one launch,
+    one thread-block cluster per object, cut by ``work_split``.
   * ``lift_compact_plain`` — plain PyTorch, a port of the reference's
     ``lift_compact_xla`` (cumsum, then a searchsorted from rank to pixel,
     then a gather), which is what ``repro.kernels.ops.lift_compact`` runs
@@ -23,6 +24,7 @@ Two implementations of the same function:
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -31,15 +33,43 @@ from repro_torch.kernels import build
 BIG = 1e9
 Z_EPS = 1e-4          # matches the reference's valid-depth floor
 
+PIX = 16              # pixels a thread holds per chunk: one 16-byte load
+MAX_THREADS = 512     # threads per block (csrc/lift_compact.cu kMaxThreads)
+MAX_CLUSTER = 8       # blocks per object: the portable cluster size
+H100_SMS = 132
+
 launches = 0          # kernel launches made by lift_compact_cuda
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "lift_compact_tile_pixels": ([], _I),
-    "lift_compact_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _P, _P, _P, _P, _P, _P, _P, _P], _I),
+    "lift_compact_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P, _P, _P, _P, _P, _P], _I),
 }
+
+
+class Split(NamedTuple):
+    cluster: int      # blocks per object (one thread-block cluster)
+    share: int        # pixels per block, a multiple of PIX
+    threads: int      # threads per block
+    ranges: tuple     # each block's [begin, end) pixel range, in rank order
+
+
+def work_split(h: int, w: int, d: int, sms: int = H100_SMS) -> Split:
+    """How the kernel cuts one object's H*W pixels among the blocks of its
+    cluster.  Enough blocks that one chunk of MAX_THREADS * PIX pixels
+    holds a block's share where it can (then the masks are read once),
+    and at least two blocks an SM in all where MAX_CLUSTER allows; no more
+    than one block per 512 pixels.  A share past one chunk is walked in
+    chunks by the kernel."""
+    hw = h * w
+    c = max(-(-hw // (MAX_THREADS * PIX)), -(-2 * sms // max(d, 1)))
+    c = max(1, min(c, MAX_CLUSTER, -(-hw // (32 * PIX))))
+    share = -(-(-(-hw // c)) // PIX) * PIX
+    threads = min(MAX_THREADS, -(-share // (32 * PIX)) * 32)
+    ranges = tuple((min(r * share, hw), min((r + 1) * share, hw))
+                   for r in range(c))
+    return Split(c, share, threads, ranges)
 
 
 def lift_compact_plain(depth: torch.Tensor, masks: torch.Tensor,
@@ -111,12 +141,8 @@ def lift_compact_cuda(depth: torch.Tensor, masks: torch.Tensor,
             and H * W < 2 ** 31 and 0 < H * W and D < 65536):
         raise ValueError(f"lift_compact: unsupported sizes D={D} HW={H * W} "
                          f"budget={budget} lift_cap={lift_cap}")
-    lib = build.load("lift_compact", _SIGNATURES)
-    ntiles = -(-(H * W) // lib.lift_compact_tile_pixels())
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    counts = torch.empty((D, ntiles), **i32)
-    partials = torch.empty((D, ntiles, 9), **f32)
     points = torch.empty((D, budget, 3), **f32)
     n_out = torch.empty((D,), **i32)
     cent = torch.empty((D, 3), **f32)
@@ -124,11 +150,14 @@ def lift_compact_cuda(depth: torch.Tensor, masks: torch.Tensor,
     bmax = torch.empty((D, 3), **f32)
     if D == 0:
         return points, n_out, cent, bmin, bmax
+    lib = build.load("lift_compact", _SIGNATURES)
+    split = work_split(H, W, D, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.lift_compact_launch(
         depth.data_ptr(), masks.data_ptr(), intrinsics.data_ptr(),
         pose.data_ptr(), D, H, W, int(stride), int(budget), int(lift_cap),
-        counts.data_ptr(), partials.data_ptr(), points.data_ptr(),
+        split.cluster, split.share, split.threads, points.data_ptr(),
         n_out.data_ptr(), cent.data_ptr(), bmin.data_ptr(), bmax.data_ptr(),
         stream)
     if err != 0:

@@ -14,6 +14,10 @@ against ``ref.flash_attention_ref``; the bf16 kernel's host-side pieces
 (its TMA tensor-map layout and its persistent tile schedule) on their
 own; ``nearest_dist`` against the Pallas
 kernel in interpret mode (1e-4), 1e30 for a row with no valid neighbour.
+The host-side pieces of the ``lift_compact`` and ``nearest_dist`` cluster
+kernels: their work splits, numpy models of the lift kernel's ranking and
+kept-slot walk (held against the plain version's cumsum and slot rule),
+and the nearest kernel's reordered expansion in f32 (within 1e-4).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -398,3 +402,193 @@ def test_new_cuda_wrappers_refuse_cpu_tensors():
     got = ops.flash_attention(q[0].transpose(0, 1), q[0].transpose(0, 1),
                               q[0].transpose(0, 1))
     assert got.shape == (2, 64, 64) and ops.launch_counts() == NO_LAUNCHES
+
+
+# ------------------------------------- the CUDA kernels' host-side pieces
+@pytest.mark.parametrize("h,w", [(1, 1), (20, 26), (31, 33), (144, 256),
+                                 (720, 1280)])
+@pytest.mark.parametrize("d", [1, 4, 32])
+def test_lift_work_split_tiles_the_pixels_in_order(h, w, d):
+    """The blocks of one object's cluster cover [0, H*W) in rank order, with
+    no gap and no overlap; at most 8 blocks, shares of whole 16-pixel
+    loads, warps of threads; at the main path's 144x256 with 32
+    detections each block's share fits one register chunk."""
+    sp = tlc.work_split(h, w, d)
+    assert 1 <= sp.cluster <= tlc.MAX_CLUSTER == 8
+    assert len(sp.ranges) == sp.cluster and sp.share % tlc.PIX == 0
+    assert sp.threads % 32 == 0 and 32 <= sp.threads <= tlc.MAX_THREADS
+    ends = [0] + [e for _, e in sp.ranges]
+    assert [b for b, _ in sp.ranges] == ends[:-1] and ends[-1] == h * w
+    assert all(b <= e and e - b <= sp.share for b, e in sp.ranges)
+    if (h, w, d) == (144, 256, 32):
+        assert sp.share <= sp.threads * tlc.PIX
+
+
+def _kept_slots(rho0, c, nl, budget):
+    """csrc/lift_compact.cu's walk over the output slots whose ranks fall
+    in [rho0, rho0 + c): [(slot, rank)], the first slot from one division,
+    the next ranks by stepping nl / budget with its remainder."""
+    if c == 0 or rho0 >= nl:
+        return []
+    if nl > budget:
+        i = (rho0 * budget + nl - 1) // nl
+        r, rem = divmod(i * nl, budget)
+        step_q, step_r = divmod(nl, budget)
+    else:
+        i, r, rem, step_q, step_r = rho0, rho0, 0, 1, 0
+    out = []
+    while r < min(rho0 + c, nl) and i < budget:
+        out.append((i, r))
+        i, r, rem = i + 1, r + step_q, rem + step_r
+        if rem >= budget:
+            r, rem = r + 1, rem - budget
+    return out
+
+
+def _lift_emulated(depth, masks, intr, pose, *, stride, budget, lift_cap):
+    """numpy model of csrc/lift_compact.cu: per-block counts over
+    ``work_split`` -> exclusive scan across the cluster -> chunks of
+    ``threads * PIX`` pixels -> exclusive scan of per-thread counts ->
+    bit order inside a thread; then each thread's walk over its kept slots
+    and the back-projection in f32.  Returns (ranks [D, HW] (-1 where
+    invalid), n_out, points)."""
+    D, H, W = masks.shape
+    HW = H * W
+    sp = tlc.work_split(H, W, D)
+    v = masks.reshape(D, HW) & (depth.reshape(HW) > tlc.Z_EPS)[None]
+    counts = np.array([[v[d, b:e].sum() for b, e in sp.ranges]
+                       for d in range(D)])
+    bases = np.cumsum(counts, axis=1) - counts          # cluster scan
+    n = np.minimum(counts.sum(axis=1), lift_cap)
+    n_out = np.minimum(n, budget)
+    ranks = np.full((D, HW), -1, np.int64)
+    pts = np.zeros((D, budget, 3), np.float32)
+    fx, fy, cx, cy = intr
+    chunk = sp.threads * tlc.PIX
+    for d in range(D):
+        for (b, e), base in zip(sp.ranges, bases[d]):
+            for c0 in range(b, e, chunk):
+                flags = np.zeros(chunk, bool)
+                flags[:min(chunk, e - c0)] = v[d, c0:min(c0 + chunk, e)]
+                per_thread = flags.reshape(sp.threads, tlc.PIX)
+                cnt = per_thread.sum(axis=1)
+                thread_base = base + np.cumsum(cnt) - cnt
+                bit_rank = np.cumsum(per_thread, axis=1) - per_thread
+                r = (thread_base[:, None] + bit_rank).reshape(-1)
+                idx = np.nonzero(flags)[0]
+                ranks[d, c0 + idx] = r[idx]
+                base += cnt.sum()
+                for t in np.nonzero(cnt)[0]:
+                    pix = c0 + t * tlc.PIX + np.nonzero(per_thread[t])[0]
+                    for slot, rank in _kept_slots(int(thread_base[t]),
+                                                  int(cnt[t]), int(n[d]),
+                                                  budget):
+                        p = pix[rank - thread_base[t]]
+                        z = depth.reshape(HW)[p]
+                        xf = np.float32((p % W + 0.5) * stride)
+                        yf = np.float32((p // W + 0.5) * stride)
+                        cam = np.array([(xf - cx) / fx * z,
+                                        (yf - cy) / fy * z, z], np.float32)
+                        pts[d, slot] = pose[:3, :3] @ cam + pose[:3, 3]
+    return ranks, n_out.astype(np.int32), pts
+
+
+def test_lift_kept_slot_walk_equals_the_slot_rule():
+    """Stepping r(i) = floor(i * n / budget) from the first slot keeps
+    exactly the ranks the reference's slot rule keeps (slot = ceil(r *
+    budget / n), kept iff it maps back to r), for every rank window."""
+    for nl, budget in [(4096, 2000), (80, 100), (32, 16), (4096, 16),
+                       (2001, 2000), (7, 7), (1, 5)]:
+        want = {}
+        for rho in range(nl):
+            if nl > budget:
+                slot = -(-rho * budget // nl)
+                if slot * nl // budget == rho and slot < budget:
+                    want[slot] = rho
+            elif rho < budget:
+                want[rho] = rho
+        got = {}
+        for rho0 in range(0, nl + 20, 13):
+            got.update(_kept_slots(rho0, 13, nl, budget))
+        assert got == want
+
+
+@pytest.mark.parametrize("d,h,w,stride,budget,cap,block_t", LIFT_SHAPES)
+def test_lift_cluster_ranking_matches_the_plain_cumsum(d, h, w, stride,
+                                                       budget, cap, block_t):
+    """The kernel's ranking (block counts, cluster scan, in-block scan)
+    gives every valid pixel the rank of the plain version's cumsum, and
+    the slot rule on those ranks gives its points and counts."""
+    depth, masks, intr, pose = _lift_inputs(d, h, w, d * h + w)
+    kw = dict(stride=stride, budget=budget, lift_cap=cap)
+    ranks, n_out, pts = _lift_emulated(depth, masks, intr, pose, **kw)
+    v = masks.reshape(d, -1) & (depth.reshape(-1) > tlc.Z_EPS)[None]
+    want_ranks = np.where(v, np.cumsum(v, axis=1) - 1, -1)
+    np.testing.assert_array_equal(ranks, want_ranks)
+    want = tlc.lift_compact_plain(*(torch.from_numpy(x) for x in
+                                    (depth, masks, intr, pose)), **kw)
+    np.testing.assert_array_equal(n_out, want[1].numpy())
+    np.testing.assert_allclose(pts, want[0].numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("M,N", [(64000, 4096), (2000, 2000), (50, 70),
+                                 (513, 2049), (20000, 17000), (1, 1)])
+def test_nearest_dist_split_covers_b_in_order(M, N):
+    """The blocks of one row block's cluster take [0, N) in rank order
+    with no gap and no overlap; at the path's M = 64000 and the chamfer's
+    M = 2000 the blocks spread over the card, at most one an SM."""
+    rows, split, share, ranges = tpw.nd_split(M, N)
+    assert rows in (1, 4) and 1 <= split <= tpw.MAX_SPLIT == 8
+    assert len(ranges) == split
+    ends = [0] + [e for _, e in ranges]
+    assert [b for b, _ in ranges] == ends[:-1] and ends[-1] == N
+    assert all(e - b <= share for b, e in ranges)
+    blocks = -(-M // (tpw.THREADS * rows)) * split
+    if M >= 2000:
+        assert 64 <= blocks <= 132
+
+
+def _nd_reordered(a, b, bv):
+    """csrc/pairwise.cu's arithmetic in f32: |a|^2 + min_j of
+    fma(-2a_z, b_z, fma(-2a_y, b_y, fma(-2a_x, b_x, |b_j|^2))).  Each fused
+    multiply-add is taken exactly in f64 (a product of two f32 is exact
+    there) and rounded to f32, which can differ from one rounding in the
+    last bit, far inside the tolerance."""
+    f32 = np.float32
+
+    def sq(x):
+        s = np.zeros(x.shape[0], f32)
+        for k in range(x.shape[1]):
+            s = (s + (x[:, k] * x[:, k]).astype(f32)).astype(f32)
+        return s
+
+    a2, b2 = sq(a), sq(b)
+    t = np.broadcast_to(b2[None, :], (a.shape[0], b.shape[0])).astype(f32)
+    for k in range(a.shape[1]):
+        t = (t.astype(np.float64) + (-2 * a[:, k:k + 1]).astype(np.float64)
+             * b[None, :, k].astype(np.float64)).astype(f32)
+    best = np.where(bv[None, :], t, np.inf).min(axis=1)
+    return np.where(np.isinf(best), f32(tpw.INF), (a2 + best).astype(f32))
+
+
+@pytest.mark.parametrize("case", ["self", "radius5", "room"])
+def test_nearest_dist_reordered_expansion_within_tolerance(case):
+    """The kernel's order of the expansion stays within ND_TOL (1e-4
+    absolute + relative, chip_smoke.py) of the plain version's, where a
+    row of a equals a valid b row (every term cancels) and for points 5 m
+    from the origin."""
+    rng = np.random.default_rng({"self": 0, "radius5": 1, "room": 2}[case])
+    b = ((rng.random((600, 3)) - 0.5) * 10).astype(np.float32)
+    bv = rng.random(600) < 0.9
+    if case == "room":
+        a = ((rng.random((400, 3)) - 0.5) * 10).astype(np.float32)
+    else:
+        if case == "radius5":
+            b = (5 * b / np.linalg.norm(b, axis=1, keepdims=True)).astype(
+                np.float32)
+        a = b[np.nonzero(bv)[0][:400]].copy()        # a row = a valid b row
+    got = _nd_reordered(a, b, bv)
+    want = tpw.nearest_dist_plain(*(torch.from_numpy(x) for x in
+                                    (a, b, bv))).numpy()
+    tol = 1e-4 + 1e-4 * np.abs(want)
+    assert np.all(np.abs(got - want) <= tol), np.abs(got - want).max()
