@@ -49,15 +49,41 @@
    reads the share of one prefill's device time that flash_attention
    takes from ``torch.profiler``;
 8. replays step 7's weights in f32 at B = 1, S = 256 and 8 greedy steps on
-   the card and on the CPU port: the same tokens, logits within 1e-4.
+   the card and on the CPU port: the same tokens, logits within 1e-4;
+9. builds the query engine benchmark's store (1,000,000 clustered objects,
+   E = 256) and its ClusterIndex, and runs the full_mix query two-stage:
+   equal to the flat sweep (oids and slots exactly, scores within 1e-5) and
+   to a numpy oracle (rtol 5e-5, atol 1e-5, modulo ties); query_topk_bias
+   launched by stage 1 and by stage 2 (counters reset just before, read
+   just after); two-stage and flat ms, the stage split, a
+   ``torch.profiler`` window over 5 queries of each (``index_profile``),
+   escalations, candidate fraction, peak memory; the kernel against its plain version
+   and timed at the index path's shapes (stage 1 at m = 64 and at the
+   largest m, stage 2, the 1M flat sweep); then a churn (20,000
+   tombstones, 15,000 moves) after which the incremental summaries equal a
+   rebuild bit for bit; and at 100,000 objects the same build and query on
+   the card and on the CPU port (member tables and exact fields equal,
+   float fields within rtol = atol = 1e-6, equal results);
+10. serves 64 full_mix requests over step 9's store and index through
+    BatchScheduler(batch_size=16) and make_query_step_fn, blocking and
+    not: every result equal to the same request run alone; requests/s,
+    step ms;
+11. runs the four Fig. 3 mapping arms (B, B+P, B+P+SD instrumented, B+P+SD
+    fused) at the mapping benchmark's configuration (E = 256, 30 objects,
+    8 keyframes of 240x320) on the card and on the CPU port with the same
+    host-drawn noise: equal stores (ints exactly, floats within 1e-4),
+    top-1 class accuracy >= 0.9, one lift_compact launch per mapped
+    keyframe in the SD arms and none in B / B+P; per-stage walls beside the
+    reference's CPU-container gate figures (printed, not required).
 
 ``nearest_dist`` has no caller on any system path: its phase drives its
 entry point, ``ops.nearest_dist``, at a chamfer and a centroid shape.
 
 It imports nothing of JAX or of the JAX package, catches no failure, and
 exits non-zero (printing no result) without a CUDA device or outside a
-checkout of the repository.  The line before the last is the per-kernel
-JSON record; the last is ``{"ok": true, "device": {...}}``.
+checkout of the repository.  ``phase_seconds`` gives each step's host
+seconds.  The line before the last is the per-kernel JSON record; the last
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -93,6 +119,7 @@ ND_TOL = 1e-4            # nearest_dist: |a|^2 + |b|^2 - 2ab in another order
 LOGIT_TOL = 1e-4         # step 8: f32 logits, 12 layers in another order
 PROFILE_KEYFRAMES = 4    # keyframes timed by stage, then as many profiled
 PROFILE_DECODE = 8       # decode steps under the profiler (step 7)
+PROFILE_QUERIES = 5      # full_mix queries under the profiler (step 9)
 # ops whose CPU side waits for the card: each is a host sync in the loop
 SYNC_OPS = ("aten::item", "aten::_local_scalar_dense", "aten::nonzero",
             "cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -110,6 +137,33 @@ REPLAY = dict(batch=1, prompt=256, new_tokens=8)
 # Knobs().max_object_points_server; every kept point of a keyframe's 32
 # detections against the 4096-slot store's centroids
 ND_PATH_SHAPES = ((2000, 2000, 3), (64000, 4096, 3))
+# step 9: the query engine's configuration (benchmarks/query_engine.py): a
+# clustered store of 1,000,000 objects at E = 256, its hotspot count, and
+# the full_mix spec; a churn of 20,000 tombstones and 15,000 moves; the
+# card against the CPU port at 100,000 objects
+INDEX = dict(n=1_000_000, embed_dim=256, max_points=16, room=80.0, reps=20,
+             tombstones=20_000, moves=15_000, cross_n=100_000)
+FULL_MIX = dict(radius=4.0, prox_weight=0.2, labels=tuple(range(10)),
+                min_points=4, min_obs=1, zones=(0, 1, 2, 3),
+                grid=(-40.0, -40.0, 40.0, 2, 2), k=10)
+SUMM_TOL = 1e-6          # cluster summaries' float fields, card vs CPU:
+#                          rtol = atol (centroids reach 40 m, where one
+#                          f32 ulp is 3.8e-6)
+ORACLE_TOL = dict(rtol=5e-5, atol=1e-5)   # the benchmark's _oracle_parity
+# step 10: 64 full_mix requests in scheduler batches of 16
+SERVING = dict(requests=64, batch_size=16)
+# step 11: benchmarks/mapping_latency.py's four arms at default_knobs()
+# (benchmarks/common.py), B and B+P with uncapped geometry, and the
+# reference's CPU-container gate figures (BENCH_gate.md, printed beside)
+ARMS = dict(embed_dim=256, n_objects=30, n_frames=40, keyframe_interval=5,
+            h=240, w=320)
+ARM_MODES = (("B", "baseline", False), ("B+P", "parallel", False),
+             ("B+P+SD", "semanticxr", True),
+             ("B+P+SD (fused)", "semanticxr", False))
+ARM_KNOBS = dict(server_capacity=256, client_capacity=128,
+                 max_object_points_server=512, max_object_points_client=128,
+                 max_detections_per_frame=16, min_obs_before_sync=1)
+REFERENCE_GATE = {"n_mapped": 31, "mAcc": 100.0}
 
 
 def check(cond, what: str) -> None:
@@ -945,6 +999,449 @@ def replay_phase(torch, dev, cfg, *, batch, prompt, new_tokens):
     return out
 
 
+
+# ------------------------------------------------------------------ step 9
+def full_mix(torch, st, qi):
+    """The query engine benchmark's full_mix spec, asked as object ``qi``."""
+    from repro_torch.core.query import Query
+    f = FULL_MIX
+    return Query(embed=st.embed[qi],
+                 near=(st.centroid[qi], torch.tensor(f["radius"])),
+                 prox_weight=torch.tensor(f["prox_weight"]),
+                 labels=f["labels"],
+                 min_points=torch.tensor(f["min_points"], dtype=torch.int32),
+                 min_obs=torch.tensor(f["min_obs"], dtype=torch.int32),
+                 zones=f["zones"], grid=f["grid"], k=f["k"])
+
+
+def np_oracle_full_mix(st, qi):
+    """numpy flat sweep of full_mix (benchmarks/query_engine.py's
+    ``_np_oracle_full_mix``): f32 scores, stable argsort.  -> top-k scores."""
+    f = FULL_MIX
+    host = {c: getattr(st, c).cpu().numpy() for c in
+            ("active", "embed", "centroid", "label", "n_points", "obs_count")}
+    qe, center = host["embed"][qi], host["centroid"][qi]
+    sim = host["embed"] @ qe
+    d = np.linalg.norm(host["centroid"] - center, axis=1)
+    ok = (host["active"] & (d <= f["radius"])
+          & np.isin(host["label"], np.asarray(f["labels"]))
+          & (host["n_points"] >= f["min_points"])
+          & (host["obs_count"] >= f["min_obs"]))
+    score = np.where(ok, sim + np.float32(f["prox_weight"])
+                     / (np.float32(1.0) + d), -np.inf).astype(np.float32)
+    return score[np.argsort(-score, kind="stable")[:f["k"]]]
+
+
+def oracle_parity(scores, oracle) -> bool:
+    """The k scores equal the oracle's modulo tie order and f32 summation
+    order (the benchmark's ``_oracle_parity``)."""
+    s = np.sort(scores.cpu().numpy())[::-1]
+    o = np.sort(oracle)[::-1]
+    fin = np.isfinite(o)
+    return bool(np.array_equal(fin, np.isfinite(s))
+                and np.allclose(s[fin], o[fin], **ORACLE_TOL))
+
+
+def same_topk(torch, a, b) -> float:
+    """Checks equal oids and slots; returns the largest score difference
+    (padded ranks, -inf in both, count as equal)."""
+    check(torch.equal(a.oids.cpu(), b.oids.cpu()), "oids equal")
+    check(torch.equal(a.slots.cpu(), b.slots.cpu()), "slots equal")
+    sa, sb = a.scores.cpu(), b.scores.cpu()
+    fin = torch.isfinite(sb)
+    check(torch.equal(torch.isfinite(sa), fin), "padded ranks equal")
+    return float((sa[fin] - sb[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def clustered(n, dev, *, embed_dim, max_points, room, **_):
+    from repro_torch.core.store import clustered_synthetic_store
+    return clustered_synthetic_store(n, n, embed_dim, max_points, seed=0,
+                                     room=room,
+                                     n_hotspots=max(128, n // 2_000),
+                                     device=dev)
+
+
+def query_object(st) -> int:
+    """The benchmark's query: the middle of the objects with label < 10."""
+    lab_ok = np.nonzero(st.label.cpu().numpy() < 10)[0]
+    return int(lab_ok[len(lab_ok) // 2])
+
+
+def host_ms(torch, fn, reps):
+    """Host-clock ms of ``reps`` calls, each ending in a synchronize."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def captured_topk_calls(ops, fn) -> list:
+    """(qs, embeds, bias, k) of every ops.query_topk_bias call ``fn``
+    makes (these launches are extra: outside any counted window)."""
+    calls, real = [], ops.query_topk_bias
+
+    def spy(qs, embeds, bias, k):
+        calls.append((qs.clone(), embeds, bias.clone(), k))
+        return real(qs, embeds, bias, k)
+    ops.query_topk_bias = spy
+    try:
+        fn()
+    finally:
+        ops.query_topk_bias = real
+    return calls
+
+
+def topk_time(torch, clock, qs, emb, bias, k, where):
+    """The kernel against its plain version on one captured input, timed
+    with the plain version, ``torch.topk`` of the same scores and the byte
+    bound."""
+    from repro_torch.kernels import query_topk as qt
+
+    gv, gi = qt.query_topk_bias_cuda(qs, emb, bias, k)
+    wv, wi = qt.query_topk_bias_plain(qs, emb, bias, k)
+    torch.cuda.synchronize()
+    Q, E = qs.shape
+    N = emb.shape[0]
+    tag = f"{where}: Q={Q} N={N} E={E} k={k}"
+    check(torch.equal(gi, wi), f"query_topk_bias slots at {tag}")
+    err = float((gv - wv).abs().max())
+    check(err <= SCORE_TOL, f"query_topk_bias err {err} at {tag}")
+    b_ms, b_by = bound(*topk_cost(Q, N, E, k))
+    row = {"shape": tag, "max_abs_err": err,
+           "included": int((bias > -5e29).sum()),
+           "ms": clock.ms(lambda: qt.query_topk_bias_cuda(qs, emb, bias, k)),
+           "plain_ms": clock.ms(
+               lambda: qt.query_topk_bias_plain(qs, emb, bias, k)),
+           "library_ms": clock.ms(lambda: torch.topk(qs @ emb.T + bias, k)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit("query_topk_bias_index_time", row)
+    return row
+
+
+def stage_split(torch, search, fn, reps) -> dict:
+    """Mean host ms a query of stage 1 (with the cells' host read), stage 2
+    and the host work between (slab assembly, certificate): the stages
+    wrapped in synchronizes for this window only."""
+    acc = {"stage1": 0.0, "stage2": 0.0}
+    real = {"stage1": search._stage1, "stage2": search._stage2}
+
+    def timed(name):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*a, **kw)
+            torch.cuda.synchronize()
+            acc[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+    search._stage1, search._stage2 = timed("stage1"), timed("stage2")
+    try:
+        total = sum(host_ms(torch, fn, reps))
+    finally:
+        search._stage1, search._stage2 = real["stage1"], real["stage2"]
+    out = {k: v / reps for k, v in acc.items()}
+    out["host_between"] = total / reps - out["stage1"] - out["stage2"]
+    return out
+
+
+def index_phase(torch, dev, clock, *, n, reps, tombstones, moves, cross_n,
+                **cfg):
+    """The cluster index's certified two-stage query at the query engine's
+    configuration, against the flat sweep and a numpy oracle; churn;
+    the card against the CPU port at ``cross_n`` objects."""
+    from repro_torch.core.query import execute_query
+    from repro_torch.core.store import remove_objects
+    from repro_torch.index import ClusterIndex, rebuilt, search
+    from repro_torch.index.cluster import ClusterSummaries
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = clustered(n, dev, **cfg)
+    torch.cuda.synchronize()
+    store_s = time.perf_counter() - t0
+    qi = query_object(st)
+    spec = full_mix(torch, st, qi)
+    t0 = time.perf_counter()
+    idx = ClusterIndex.for_target(st)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(idx.engaged(), "the index engages at this size")
+
+    # the counted run: one two-stage query; stage 1 alone launches once
+    search.reset_metrics()
+    ops.reset_launch_counts()
+    two = execute_query(st, spec, index=idx)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    rounds = 1 + search.metrics()["query_index_escalations_total"]
+    check(counts["query_topk_bias"] == 2 * rounds,
+          f"query_topk_bias launched by stage 1 and stage 2 in each of "
+          f"{rounds} rounds: {counts}")
+    ops.reset_launch_counts()
+    search._stage1(spec, idx.summaries, m=min(search._C0, idx.grid.n_cells),
+                   has_obs=True, has_seen=True)
+    torch.cuda.synchronize()
+    check(ops.launch_counts()["query_topk_bias"] == 1,
+          "stage 1 is one query_topk_bias launch")
+    metrics = search.metrics()
+
+    flat = execute_query(st, spec)
+    err = same_topk(torch, two, flat)
+    check(err <= SCORE_TOL, f"two-stage scores against flat: err {err}")
+    oracle = np_oracle_full_mix(st, qi)
+    check(oracle_parity(two.scores, oracle), "two-stage = numpy oracle")
+    check(oracle_parity(flat.scores, oracle), "flat = numpy oracle")
+    check(int(two.oids[0]) == qi + 1, "the query's own object ranks first")
+
+    two_ms = host_ms(torch, lambda: execute_query(st, spec, index=idx), reps)
+    flat_ms = host_ms(torch, lambda: execute_query(st, spec), reps)
+    split = stage_split(torch, search,
+                        lambda: execute_query(st, spec, index=idx), reps)
+    emit("index_profile", {
+        f"{name}_{PROFILE_QUERIES}_queries": profiled(torch, lambda: [
+            execute_query(st, spec, index=i) for _ in range(PROFILE_QUERIES)])
+        for name, i in (("two_stage", idx), ("flat", None))})
+
+    # query_topk_bias at the index path's shapes: stage 1 (k = m = 64, and
+    # the largest m the kernel takes), stage 2, the flat sweep
+    s1, s2 = captured_topk_calls(
+        ops, lambda: execute_query(st, spec, index=idx))[:2]
+    (fl,) = captured_topk_calls(ops, lambda: execute_query(st, spec))
+    topk_rows = [topk_time(torch, clock, *s1, "stage 1"),
+                 topk_time(torch, clock, *s1[:3],
+                           min(search._KERNEL_MAX_K, idx.grid.n_cells),
+                           "stage 1 at the largest m"),
+                 topk_time(torch, clock, *s2, "stage 2"),
+                 topk_time(torch, clock, *fl, "flat sweep")]
+    del s1, s2, fl
+    peak = torch.cuda.max_memory_allocated()
+
+    # churn: tombstones, then moves with a version bump, then refresh
+    rng = np.random.default_rng(7)
+    t0 = time.perf_counter()
+    remove_objects(st, rng.choice(np.arange(1, n + 1), tombstones,
+                                  replace=False))
+    slots = torch.from_numpy(rng.choice(n, moves, replace=False)).to(dev)
+    st.centroid[slots] += torch.from_numpy(rng.normal(
+        scale=8.0, size=(moves, 3)).astype(np.float32)).to(dev)
+    st.version[slots] += 1
+    changed = idx.refresh(st)
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scratch = rebuilt(idx, st)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    equal = [torch.equal(a, b) for a, b in zip(idx.summaries,
+                                               scratch.summaries)]
+    check(all(equal), "incremental = rebuilt after churn on the card: "
+          + str(dict(zip(ClusterSummaries._fields, equal))))
+    check(torch.equal(idx.members, scratch.members),
+          "member table = rebuilt after churn")
+    del scratch
+    err_churn = same_topk(torch, execute_query(st, spec, index=idx),
+                          execute_query(st, spec))
+    check(err_churn <= SCORE_TOL, f"two-stage = flat after churn: "
+          f"{err_churn}")
+
+    cross = index_cross_device(torch, dev, cross_n, cfg)
+    out = {"objects": n, "embed_dim": cfg["embed_dim"],
+           "n_cells": idx.grid.n_cells, "cell_cap": idx.cell_cap,
+           "store_s_host": store_s, "build_s": build_s,
+           "two_stage_ms_p50": float(np.percentile(two_ms, 50)),
+           "two_stage_ms_p95": float(np.percentile(two_ms, 95)),
+           "flat_ms_p50": float(np.percentile(flat_ms, 50)),
+           "flat_ms_p95": float(np.percentile(flat_ms, 95)),
+           "split_ms_mean": split,
+           "escalations": metrics["query_index_escalations_total"],
+           "candidate_fraction": metrics["query_index_candidate_fraction"],
+           "two_stage_vs_flat_max_abs_err": err,
+           "churn": {"tombstones": tombstones, "moves": moves,
+                     "changed_slots": changed, "refresh_s": refresh_s,
+                     "rebuild_s": rebuild_s},
+           "max_memory_allocated_bytes": peak,
+           "launches": counts, "cross_device": cross}
+    emit("index_phase", out)
+    return out, st, idx, topk_rows
+
+
+def index_cross_device(torch, dev, n, cfg) -> dict:
+    """The same build and query on the card and on the CPU port: equal
+    member tables and exact summary fields, float fields within SUMM_TOL,
+    equal results."""
+    from repro_torch.core.query import execute_query
+    from repro_torch.index import ClusterIndex
+
+    built = {}
+    for d in (dev, "cpu"):
+        st = clustered(n, d, **cfg)
+        built[str(d)] = (st, ClusterIndex.for_target(st))
+    (gst, gidx), (cst, cidx) = built[str(dev)], built["cpu"]
+    check(gidx.grid == cidx.grid and gidx.cell_cap == cidx.cell_cap,
+          "grid and cell_cap, card vs CPU")
+    check(np.array_equal(gidx._members, cidx._members)
+          and torch.equal(gidx.members.cpu(), cidx.members),
+          "member tables, card vs CPU")
+    errs = {}
+    for f, g in gidx.summaries._asdict().items():
+        c = getattr(cidx.summaries, f)
+        if f in ("centroid", "embed_mean", "res_max"):
+            diff = (g.cpu() - c).abs()
+            errs[f] = float(diff.max())
+            check(bool((diff <= SUMM_TOL + SUMM_TOL * c.abs()).all()),
+                  f"summaries.{f} card vs CPU {errs[f]}")
+        else:
+            check(torch.equal(g.cpu(), c), f"summaries.{f} card vs CPU")
+    qi = query_object(cst)
+    err = same_topk(torch, execute_query(gst, full_mix(torch, gst, qi),
+                                         index=gidx),
+                    execute_query(cst, full_mix(torch, cst, qi), index=cidx))
+    check(err <= SCORE_TOL, f"two-stage card vs CPU scores err {err}")
+    return {"objects": n, "n_cells": gidx.grid.n_cells,
+            "summary_max_abs_err": errs, "score_max_abs_err": err}
+
+
+# ----------------------------------------------------------------- step 10
+def serving_phase(torch, dev, st, idx, *, requests, batch_size):
+    """Batched full_mix requests through BatchScheduler and the query step
+    function over step 9's store and index, blocking and not; each result
+    equal to the same request run alone."""
+    from repro_torch.core.query import execute_query
+    from repro_torch.kernels import ops
+    from repro_torch.serving.batching import (BatchScheduler,
+                                              make_query_step_fn,
+                                              resolve_results)
+
+    rng = np.random.default_rng(3)
+    lab_ok = np.nonzero(st.label.cpu().numpy() < 10)[0]
+    specs = [full_mix(torch, st, int(q))
+             for q in rng.choice(lab_ok, requests, replace=False)]
+    alone = [execute_query(st, s, index=idx) for s in specs]
+    out = {"requests": requests, "batch_size": batch_size}
+    for block in (True, False):
+        fn = make_query_step_fn(lambda: st, pad_to=batch_size, block=block,
+                                get_index=lambda: idx)
+        step_ms = []
+
+        def step_fn(payloads, fn=fn, step_ms=step_ms):
+            t0 = time.perf_counter()
+            res = fn(payloads)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return res
+        sched = BatchScheduler(batch_size=batch_size, step_fn=step_fn)
+        rids = [sched.submit(s) for s in specs]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = sched.drain()
+        torch.cuda.synchronize()
+        if not block:
+            resolve_results(done)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        check(counts["query_topk_bias"] > 0,
+              "query_topk_bias launched on the serving path")
+        err = 0.0
+        for rid, want in zip(rids, alone):
+            got = done[rid]
+            check(np.array_equal(got.oids, want.oids.cpu().numpy())
+                  and np.array_equal(got.slots, want.slots.cpu().numpy()),
+                  f"request {rid} batched = alone (block={block})")
+            w = want.scores.cpu().numpy()
+            fin = np.isfinite(w)
+            check(np.array_equal(np.isfinite(got.scores), fin),
+                  f"request {rid} padded ranks")
+            if fin.any():
+                err = max(err, float(np.abs(got.scores[fin] - w[fin]).max()))
+        check(err <= SCORE_TOL, f"batched scores err {err}")
+        out["blocking" if block else "non_blocking"] = {
+            "requests_per_s": requests / wall, "wall_s": wall,
+            "steps": len(step_ms),
+            "step_ms_p50": float(np.percentile(step_ms, 50)),
+            "max_abs_err_vs_alone": err, "launches": counts}
+    emit("serving_phase", out)
+    return out
+
+
+# ----------------------------------------------------------------- step 11
+def mapping_arms_phase(torch, dev, *, embed_dim, n_objects, n_frames,
+                       keyframe_interval, h, w):
+    """The four Fig. 3 arms on the card and on the CPU port with the same
+    host-drawn noise: equal stores, class accuracy, per-stage walls, and
+    lift_compact launched once per keyframe in the SD arms only."""
+    from repro_torch.core import Knobs, MappingServer, Query
+    from repro_torch.core.query import execute_query
+    from repro_torch.data.scenes import make_scene, scene_stream
+    from repro_torch.kernels import ops
+    from repro_torch.perception.embedder import OracleEmbedder
+
+    scene = make_scene(n_objects=n_objects, seed=0)
+    classes = {o.oid: o.class_id for o in scene.objects}
+    frames = list(scene_stream(scene, n_frames=n_frames,
+                               keyframe_interval=keyframe_interval, h=h, w=w))
+    D = ARM_KNOBS["max_detections_per_frame"]
+    gen = torch.Generator().manual_seed(0)
+    noises = [torch.randn((D, embed_dim), generator=gen) for _ in frames]
+    emb = OracleEmbedder(embed_dim=embed_dim)
+    gt = sorted({o.class_id for o in scene.objects})
+
+    def run(mode, instrument, device):
+        kn = dict(ARM_KNOBS)
+        if mode != "semanticxr":
+            kn["max_object_points_server"] = 2048
+        srv = MappingServer(knobs=Knobs(**kn), embedder=emb, mode=mode,
+                            instrument=instrument, device=device)
+        times = [srv.process_frame(fr, classes, z)
+                 for fr, z in zip(frames, noises)]
+        return srv, times
+
+    out = {"reference_cpu_container_gate": REFERENCE_GATE}
+    for label, mode, instrument in ARM_MODES:
+        ops.reset_launch_counts()
+        srv, times = run(mode, instrument, dev)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        mapped = sum(t.ingest_ms > 0 or t.embed_ms > 0 for t in times)
+        want = mapped if mode == "semanticxr" else 0
+        check(counts["lift_compact"] == want,
+              f"{label}: {counts['lift_compact']} lift_compact launches for "
+              f"{mapped} mapped keyframes (want {want})")
+        cpu, _ = run(mode, instrument, "cpu")
+        errs = {}
+        for f, v in cpu.store._asdict().items():
+            g = getattr(srv.store, f).cpu()
+            if v.is_floating_point():
+                errs[f] = float((g - v).abs().max())
+                check(errs[f] <= LIFT_TOL, f"{label} store.{f} card vs CPU "
+                      f"{errs[f]}")
+            else:
+                check(torch.equal(g, v), f"{label} store.{f} card vs CPU")
+        act = srv.store.active.cpu().numpy()
+        lab = srv.store.label.cpu().numpy()
+        hits = 0
+        for c in gt:
+            s = int(execute_query(srv.store, Query(
+                embed=emb.embed_text(c, dev), k=5)).slots[0])
+            hits += bool(s >= 0 and act[s] and lab[s] == c)
+        macc = hits / len(gt)
+        check(macc >= 0.9, f"{label} top-1 class accuracy {macc}")
+        warm = times[2:]
+        stages = ("embed", "lift", "associate") if label != \
+            "B+P+SD (fused)" else ("ingest",)
+        out[label] = {
+            "n_mapped": int(act.sum()), "mAcc": 100.0 * macc,
+            "keyframes": len(frames), "mapped_keyframes": mapped,
+            "stage_ms_mean": {
+                st: float(np.mean([getattr(t, f"{st}_ms") for t in warm]))
+                for st in ("detect",) + stages},
+            "max_abs_err_vs_cpu": errs, "launches": counts}
+    emit("mapping_arms_phase", out)
+    return out
+
 # ---------------------------------------------------------------- build
 def kernel_resources(build) -> dict:
     """{source: {kernel: registers, static shared memory, spills}} from
@@ -1042,19 +1539,35 @@ def main() -> int:
     # the floor of a kernel time on this clock: a one-element fill
     one = torch.empty(1, device=dev)
     emit("clock", {"empty_kernel_ms": clock.ms(lambda: one.fill_(0.0))})
-    lift_row, topk_row = kernel_checks(torch, clock, dev)
-    flash_row = attention_checks(torch, clock, dev)
-    nd_row = nearest_checks(torch, clock, dev)
-    nd_path = nearest_phase(torch, dev)
+    phase_s = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+    lift_row, topk_row = timed("kernel_checks", kernel_checks, torch, clock,
+                               dev)
+    flash_row = timed("attention_checks", attention_checks, torch, clock, dev)
+    nd_row = timed("nearest_checks", nearest_checks, torch, clock, dev)
+    nd_path = timed("nearest_phase", nearest_phase, torch, dev)
     knobs = Knobs()
-    path, kept, snap, loop = main_path(torch, dev, knobs, **DEPLOYMENT)
-    profile_phase(torch, dev, loop, **DEPLOYMENT)
-    query_phase(torch, dev, **QUERY_STORE)
-    cross_device(torch, knobs, DEPLOYMENT["embed_dim"], kept, snap,
-                 loop.classes)
+    path, kept, snap, loop = timed("main_path", main_path, torch, dev, knobs,
+                                   **DEPLOYMENT)
+    timed("profile_phase", profile_phase, torch, dev, loop, **DEPLOYMENT)
+    timed("query_phase", query_phase, torch, dev, **QUERY_STORE)
+    timed("cross_device", cross_device, torch, knobs,
+          DEPLOYMENT["embed_dim"], kept, snap, loop.classes)
     captioner = get_config("semanticxr-captioner-110m")
-    serve = serve_phase(torch, dev, captioner, **SERVE)
-    replay_phase(torch, dev, captioner, **REPLAY)
+    serve = timed("serve_phase", serve_phase, torch, dev, captioner, **SERVE)
+    timed("replay_phase", replay_phase, torch, dev, captioner, **REPLAY)
+    index, st, idx, index_topk = timed("index_phase", index_phase, torch, dev,
+                                       clock, **INDEX)
+    timed("serving_phase", serving_phase, torch, dev, st, idx, **SERVING)
+    del st, idx
+    arms = timed("mapping_arms_phase", mapping_arms_phase, torch, dev, **ARMS)
+    emit("phase_seconds", phase_s)
+    print(smi, flush=True)          # again, inside the tail of a long log
 
     launches = path["launches"]
     kernels = [
@@ -1062,12 +1575,16 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/lift_compact.cu",
          "replaces": "src/repro/kernels/lift_compact.py:229",
          "launches": launches["lift_compact"],
-         "launched_on": "step 3 main path", **lift_row},
+         "launched_on": "step 3 main path", **lift_row,
+         "mapping_arms_launches": {a: arms[a]["launches"]["lift_compact"]
+                                   for a, _, _ in ARM_MODES}},
         {"name": "query_topk_bias", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/query_topk.cu",
          "replaces": "src/repro/kernels/query_topk.py:121",
          "launches": launches["query_topk_bias"],
-         "launched_on": "step 3 main path", **topk_row},
+         "launched_on": "step 3 main path", **topk_row,
+         "index_launches": index["launches"]["query_topk_bias"],
+         "index_shapes": index_topk},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:93",

@@ -15,6 +15,7 @@ import torch
 from repro_torch.core.local_map import LocalMap, UpdateBatch
 from repro_torch.core.store import ObjectStore
 from repro_torch.device import resolve_device
+from repro_torch.index.cluster import ClusterSummaries
 from repro_torch.models import common as cm
 from repro_torch.models.lm import LM
 from repro_torch.perception.embedder import OracleEmbedder
@@ -49,6 +50,11 @@ def local_map_from_numpy(state, *, device="cuda") -> LocalMap:
 
 def update_batch_from_numpy(state, *, device="cuda") -> UpdateBatch:
     return _from_numpy(UpdateBatch, state, device)
+
+
+def cluster_summaries_from_numpy(state, *,
+                                 device="cuda") -> ClusterSummaries:
+    return _from_numpy(ClusterSummaries, state, device)
 
 
 def store_to_numpy(store: ObjectStore) -> dict:

@@ -1,7 +1,8 @@
 """Incremental object association + merge (paper Sec. 2.3.1 / 3.1).
 
-Port of ``repro.core.association`` (the batched ``associate``; the
-sequential ``associate_reference`` oracle is not ported yet).  Per-frame
+Port of ``repro.core.association``: the batched ``associate`` and the
+seed's sequential-scan ``associate_reference`` (the oracle the batched
+path equals on conflict-free frames).  Per-frame
 detections are matched to map objects by combined spatial proximity
 (centroid distance) and semantic similarity (embedding cosine) over a
 [D, cap] score matrix; the resolve is fully batched: first-index argmax per
@@ -136,6 +137,62 @@ def associate(store: ObjectStore, det: Detections, *, frame: int,
     store.version[rows] = new_ver[w].to(torch.int32)
     store.last_seen[rows] = int(frame)
     store.next_id.add_(n_inserted)
+    return store
+
+
+def associate_reference(store: ObjectStore, det: Detections, *, frame: int,
+                        match_threshold: float = 0.6,
+                        point_budget: int = 2000,
+                        ema: float = 0.25) -> ObjectStore:
+    """Seed sequential-scan associate, one detection after another: merge
+    into the best-scoring slot, else insert into the first inactive slot.
+    Scores are computed once from the pre-frame store, as in the seed.
+    Writes the store in place; returns it."""
+    score, _ = association_scores(store, det)
+    D = score.shape[0]
+    point_budget = min(point_budget, store.points.shape[1])
+    for i in range(D):
+        j = int(first_argmax(score[i], dim=0))
+        best = float(score[i, j])
+        valid = bool(det.valid[i])
+        pts_b, n_b = det.points[i:i + 1], det.n_points[i:i + 1]
+        if best >= match_threshold and valid:
+            new_emb = (1 - ema) * store.embed[j] + ema * det.embed[i]
+            new_emb = new_emb / torch.clamp(
+                torch.linalg.vector_norm(new_emb), min=1e-9)
+            mpts, mn_ = geo.merge_clouds_argsort(
+                store.points[j:j + 1], store.n_points[j:j + 1], pts_b, n_b,
+                point_budget)
+            c, mn, mx = geo.centroid_bbox(mpts, mn_)
+            store.embed[j] = new_emb
+            store.points[j] = mpts[0]
+            store.n_points[j] = mn_[0]
+            store.centroid[j] = c[0]
+            store.bbox_min[j] = mn[0]
+            store.bbox_max[j] = mx[0]
+            store.obs_count[j] += 1
+            store.version[j] += 1
+            store.last_seen[j] = int(frame)
+            continue
+        # insert into the first inactive slot (``jnp.argmin`` of active)
+        free = int(first_argmax((~store.active).to(torch.int8), dim=0))
+        if bool(store.active[free]) or not valid:
+            continue
+        pts, n = geo.downsample(pts_b, n_b, point_budget)
+        c, mn, mx = geo.centroid_bbox(pts, n)
+        store.ids[free] = store.next_id
+        store.active[free] = True
+        store.embed[free] = det.embed[i]
+        store.label[free] = det.label[i]
+        store.points[free] = pts[0]
+        store.n_points[free] = n[0]
+        store.centroid[free] = c[0]
+        store.bbox_min[free] = mn[0]
+        store.bbox_max[free] = mx[0]
+        store.obs_count[free] = 1
+        store.version[free] = 1
+        store.last_seen[free] = int(frame)
+        store.next_id.add_(1)
     return store
 
 

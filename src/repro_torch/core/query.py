@@ -14,11 +14,18 @@ that is the hand-written kernel, on the CPU its plain version.  The
 reference's ``use_pallas`` flag is accepted and ignored.  An embed-less
 query (spatial predicates only) has no matmul: its top-k of the bias is a
 stable sort on (-score, slot), never ``torch.topk``, whose tie order on
-CUDA is unspecified.  Sharded targets, the cluster index, cluster-level
-queries and the deprecated wrappers are not ported yet.
+CUDA is unspecified.
+
+``compile_query(..., index=...)`` (or a ``cluster_index`` found on the
+target) plans coarse-to-fine through ``repro_torch.index`` once the index
+is engaged, and ``level="cluster"`` queries return the index's cluster
+summaries.  The seed's embedding-only entry points (``query_server``,
+``query_local``, ``batched_query_server`` / ``_local``) are thin deprecated
+wrappers.  Zone-sharded targets are not ported yet.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, replace
 from typing import Any, NamedTuple
 
@@ -152,6 +159,13 @@ def _promote(spec: Query, device) -> Query:
     return replace(spec, batched=True, **dyn)
 
 
+def _n_queries(spec: Query) -> int:
+    """Q of a promoted spec (1 when it has no dynamic field)."""
+    leaves = [x for v in spec.dynamic().values()
+              for x in (v if isinstance(v, tuple) else (v,))]
+    return int(leaves[0].shape[0]) if leaves else 1
+
+
 def _zone_ids(centroid: torch.Tensor, grid: tuple) -> torch.Tensor:
     """Mirror of the reference's clamped XZ zone grid."""
     x0, z0, zs, nx, nz = grid
@@ -212,15 +226,11 @@ def _execute(spec: Query, cols: _Cols, *, use_pallas: bool = False):
     """The one execution path: predicates + score + top-k.  ``use_pallas``
     is accepted for API parity and ignored."""
     del use_pallas
-    if spec.level != "object":
-        raise NotImplementedError("cluster-level queries are not ported")
     squeeze = not spec.batched
     spec = _promote(spec, cols.active.device)
     cap = cols.active.shape[0]
     k = min(spec.k, cap)
-    leaves = [x for v in spec.dynamic().values()
-              for x in (v if isinstance(v, tuple) else (v,))]
-    Q = int(leaves[0].shape[0]) if leaves else 1
+    Q = _n_queries(spec)
     ok, bonus = _mask_and_bonus(spec, cols)
     ok = ok.expand(Q, cap)
     bias = torch.zeros((Q, cap), dtype=torch.float32,
@@ -251,35 +261,109 @@ def _execute(spec: Query, cols: _Cols, *, use_pallas: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# compile + execute API (flat targets)
+# compile + execute API
 # ---------------------------------------------------------------------------
 def _check_flat(target) -> None:
     if hasattr(target, "zones") and hasattr(target, "grid"):
-        raise NotImplementedError("zone-sharded targets are not ported")
+        raise NotImplementedError(
+            "zone-sharded targets: the fleet tier is not ported yet: "
+            "ROADMAP.md section 2 item 1 lists it")
+
+
+def _count_flat_fallback() -> None:
+    """An index-carrying target served by the flat sweep (below the
+    engagement threshold)."""
+    from repro_torch.index import search
+    search._METRICS["query_index_flat_total"] += 1
 
 
 @dataclass
 class CompiledQuery:
     """A (spec, target)-shaped plan; call it with a new same-structure
-    ``spec`` and/or an updated target to re-run."""
+    ``spec`` and/or an updated target to re-run.
+
+    ``index`` (a ``repro_torch.index.ClusterIndex``) switches the plan to
+    the two-stage path once ``index.engaged()``; below that the flat sweep
+    runs.  Without ``index`` the plan uses ``target.cluster_index`` when the
+    target has one.  ``level="cluster"`` specs need an index and return a
+    ``repro_torch.index.ClusterResult``."""
     spec: Query
     use_pallas: bool = False
+    index: Any = None
 
-    def __call__(self, target, spec: Query | None = None) -> QueryResult:
+    def __call__(self, target, spec: Query | None = None):
         _check_flat(target)
-        return _execute(self.spec if spec is None else spec,
-                        _columns(target))
+        spec = self.spec if spec is None else spec
+        idx = self.index if self.index is not None \
+            else getattr(target, "cluster_index", None)
+        if spec.level == "cluster":
+            if idx is None:
+                raise ValueError(
+                    "Query(level='cluster') needs a ClusterIndex: pass "
+                    "index= to compile_query or attach one as "
+                    "target.cluster_index")
+            from repro_torch.index.search import cluster_query
+            return cluster_query(spec, [(None, idx, target)])
+        if idx is not None:
+            if idx.engaged():
+                from repro_torch.index.search import two_stage_query
+                return two_stage_query(spec, target, idx)
+            _count_flat_fallback()
+        return _execute(spec, _columns(target))
 
 
-def compile_query(spec: Query, target, *,
-                  use_pallas: bool = False) -> CompiledQuery:
+def compile_query(spec: Query, target, *, use_pallas: bool = False,
+                  index: Any = None) -> CompiledQuery:
     """Lower ``spec`` against a LocalMap or ObjectStore target."""
     _check_flat(target)
-    return CompiledQuery(spec=spec, use_pallas=use_pallas)
+    return CompiledQuery(spec=spec, use_pallas=use_pallas, index=index)
 
 
-def execute_query(target, spec: Query, *,
-                  use_pallas: bool = False) -> QueryResult:
+def execute_query(target, spec: Query, *, use_pallas: bool = False,
+                  index: Any = None):
     """One-shot convenience: compile + run."""
-    return CompiledQuery(spec=spec, use_pallas=use_pallas)(target)
+    return CompiledQuery(spec=spec, use_pallas=use_pallas,
+                         index=index)(target)
 
+
+# ---------------------------------------------------------------------------
+# deprecated embedding-only wrappers (the seed API)
+# ---------------------------------------------------------------------------
+def _warn_deprecated(name: str) -> None:
+    warnings.warn(
+        f"repro_torch.core.query.{name} is deprecated: build a Query spec "
+        "and run it through compile_query / execute_query (which adds "
+        "spatial / attribute predicates and score combination on the same "
+        "sweep).", DeprecationWarning, stacklevel=3)
+
+
+def query_server(store, query_embed, *, k: int = 5,
+                 use_pallas: bool = False) -> QueryResult:
+    """Deprecated: ``execute_query(store, Query(embed=..., k=k))``."""
+    _warn_deprecated("query_server")
+    return execute_query(store, Query(embed=query_embed, k=k),
+                         use_pallas=use_pallas)
+
+
+def query_local(m, query_embed, *, k: int = 5,
+                use_pallas: bool = False) -> QueryResult:
+    """Deprecated: ``execute_query(m, Query(embed=..., k=k))``."""
+    _warn_deprecated("query_local")
+    return execute_query(m, Query(embed=query_embed, k=k),
+                         use_pallas=use_pallas)
+
+
+def batched_query_local(m, query_embeds, *, k: int = 5,
+                        use_pallas: bool = False) -> QueryResult:
+    """Deprecated: ``execute_query`` with a batched Query spec."""
+    _warn_deprecated("batched_query_local")
+    return execute_query(m, Query(embed=query_embeds, k=k, batched=True),
+                         use_pallas=use_pallas)
+
+
+def batched_query_server(store, query_embeds, *, k: int = 5,
+                         use_pallas: bool = False) -> QueryResult:
+    """Deprecated: ``execute_query`` with a batched Query spec."""
+    _warn_deprecated("batched_query_server")
+    return execute_query(store, Query(embed=query_embeds, k=k, batched=True),
+                         use_pallas=use_pallas)

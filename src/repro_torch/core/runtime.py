@@ -15,11 +15,14 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch.core import query as query_mod
 from repro_torch.core.knobs import Knobs
-from repro_torch.core.local_map import (LocalMap, apply_updates_batch_slots,
+from repro_torch.core.local_map import (LocalMap, UpdateBatch,
+                                        apply_updates_batch,
+                                        apply_updates_batch_slots,
                                         compute_priority, init_local_map,
                                         local_map_nbytes)
 from repro_torch.core.updates import SyncState, collect_updates, init_sync
@@ -91,6 +94,7 @@ class DeviceClient:
     device: str | torch.device = "cuda"
     local: LocalMap = None
     use_pallas: bool = False           # accepted for API parity, ignored
+    cluster_index: object = None       # repro_torch.index.ClusterIndex | None
     # measured stats
     lq_count: int = 0
     sq_count: int = 0
@@ -101,16 +105,42 @@ class DeviceClient:
             self.local = init_local_map(self.knobs, self.embed_dim,
                                         device=self.device)
 
+    def enable_index(self, **kw) -> None:
+        """Attach a cluster-summary index over the local map; from then on
+        every ingest maintains it from the batch's touched slots and
+        ``query_spec`` plans coarse-to-fine once the map is big enough."""
+        from repro_torch.index import ClusterIndex
+        self.cluster_index = ClusterIndex.for_target(self.local, **kw)
+
     def ingest(self, packet, *, user_pos, interest_embeds=None):
         """Apply a whole UpdatePacket: batched compute_priority, then the
-        in-order row apply (the local map is written in place)."""
+        in-order row apply (the local map is written in place); the
+        touched slots maintain the cluster index when one is enabled."""
         if packet is None or packet.count == 0:
             return
         b = packet.batch
         pri = compute_priority(b.embed, b.label, b.centroid,
                                user_pos=user_pos, knobs=self.knobs,
                                interest_embeds=interest_embeds)
-        self.local, _ = apply_updates_batch_slots(self.local, b, pri)
+        self.local, touched = apply_updates_batch_slots(self.local, b, pri)
+        if self.cluster_index is not None:
+            t = np.unique(touched.cpu().numpy())
+            self.cluster_index.update_slots(self.local, t[t >= 0])
+
+    def ingest_sequential(self, packet, *, user_pos, interest_embeds=None):
+        """Seed per-object ingest — the equivalence oracle for ``ingest``:
+        each live row's priority computed alone, then applied alone."""
+        if packet is None or packet.count == 0:
+            return
+        b = packet.batch
+        for i in range(packet.count):
+            row = UpdateBatch(*(None if x is None else x[i:i + 1]
+                                for x in b))
+            row = row._replace(valid=torch.ones_like(row.valid))
+            pri = compute_priority(row.embed, row.label, row.centroid,
+                                   user_pos=user_pos, knobs=self.knobs,
+                                   interest_embeds=interest_embeds)
+            self.local = apply_updates_batch(self.local, row, pri)
 
     def memory_bytes(self) -> int:
         return local_map_nbytes(self.local)
@@ -120,8 +150,11 @@ class DeviceClient:
         return self.query_spec(query_mod.Query(embed=embed, k=5))
 
     def query_spec(self, spec):
-        """Declarative LQ: a full ``core.query.Query`` against the local map."""
-        res = query_mod.execute_query(self.local, spec)
+        """Declarative LQ: a full ``core.query.Query`` against the local map
+        (coarse-to-fine through ``cluster_index`` when one is enabled and
+        engaged)."""
+        res = query_mod.execute_query(self.local, spec,
+                                      index=self.cluster_index)
         synchronize(self.device)
         self.lq_count += 1
         return res
@@ -190,8 +223,11 @@ class CloudService:
         return self.query_spec(query_mod.Query(embed=embed, k=5))
 
     def query_spec(self, spec):
-        """Declarative SQ over the server store."""
-        res = query_mod.execute_query(self.store_ref.store, spec)
+        """Declarative SQ over the server store: two-stage through the
+        mapping server's cluster index when it maintains one."""
+        res = query_mod.execute_query(
+            self.store_ref.store, spec,
+            index=getattr(self.store_ref, "cluster_index", None))
         synchronize(self.device)
         return res
 

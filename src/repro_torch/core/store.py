@@ -17,6 +17,7 @@ and the associate path in association.py); each such place says so.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
@@ -110,6 +111,112 @@ def synthetic_store(n: int, capacity: int, embed_dim: int, max_points: int,
     st.version[:n] = 1
     st.next_id.fill_(n + 1)
     return st
+
+
+def clustered_synthetic_store(n: int, capacity: int, embed_dim: int,
+                              max_points: int, *, seed: int = 0,
+                              n_proto: int = 64, proto_spread: float = 0.5,
+                              n_hotspots: int = 128, room: float = 80.0,
+                              hotspot_sigma: float = 1.2,
+                              n_labels: int = 20, obs_count: int = 3,
+                              device="cuda") -> ObjectStore:
+    """Like ``synthetic_store`` but with structured content: centroids
+    clustered around ``n_hotspots`` hotspots on a ``room``-sized floor, each
+    hotspot populated from one of ``n_proto`` embedding prototypes (members
+    = prototype + ``proto_spread``-norm noise, renormalized) — the regime
+    where a cluster index earns its keep.  Point clouds are not filled
+    (P = 1); n_points is drawn, so predicates still bite.  The draws are
+    numpy's, in the reference's order: the same seed gives the same bits as
+    ``repro.core.store.clustered_synthetic_store``."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    protos = rng.normal(size=(n_proto, embed_dim)).astype(np.float32)
+    protos /= np.linalg.norm(protos, axis=1, keepdims=True)
+    hid = rng.integers(0, n_hotspots, size=n)
+    pid = hid % n_proto                  # spatially-correlated object kinds
+    emb = protos[pid] + proto_spread / np.sqrt(embed_dim) * rng.normal(
+        size=(n, embed_dim)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+
+    hot = rng.uniform(-room / 2, room / 2, size=(n_hotspots, 3)) \
+        .astype(np.float32)
+    hot[:, 1] = rng.uniform(0.0, 2.0, size=n_hotspots)
+    cents = hot[hid] + hotspot_sigma * rng.normal(size=(n, 3)) \
+        .astype(np.float32)
+    npts = rng.integers(4, max(max_points, 5), size=n)
+
+    st = init_store(capacity, embed_dim, 1, device=dev)
+    put = lambda a, dt: torch.from_numpy(                  # noqa: E731
+        np.ascontiguousarray(a, dt)).to(dev)
+    st.ids[:n] = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+    st.active[:n] = True
+    st.embed[:n] = put(emb, np.float32)
+    st.label[:n] = put(pid % n_labels, np.int32)
+    st.n_points[:n] = put(npts, np.int32)
+    st.centroid[:n] = put(cents, np.float32)
+    st.obs_count[:n] = obs_count
+    st.version[:n] = 1
+    st.next_id.fill_(n + 1)
+    return st
+
+
+def n_active(store: ObjectStore) -> torch.Tensor:
+    return store.active.sum()
+
+
+def copy_store(store: ObjectStore) -> ObjectStore:
+    """Deep copy on the same device: every field a tensor of its own."""
+    return ObjectStore(*(None if x is None else x.clone() for x in store))
+
+
+@dataclass
+class SnapshotStore:
+    """Two-generation ObjectStore with snapshot versioning.
+
+    Protocol (one serving tick)::
+
+        scratch = snap.take_back()          # the dead generation t-1
+        ... write this tick's changes into scratch ...
+        ... queries and syncs read snap.front ...
+        snap.publish(scratch, pending=delta_t)   # swap; version += 1
+
+    ``front`` is the published snapshot every reader sees; publishing is a
+    host-side swap, so a reader sees the pre-tick or the post-tick store,
+    never a torn mix.  The port writes stores in place, so a
+    ``MappingServer`` (or any other writer) may only write into the
+    generation that ``take_back()`` handed out, never into ``front``:
+    readers of ``front`` would see the writes.  ``back`` starts as a
+    ``copy_store`` of ``front`` with tensors of its own.  ``version`` is the
+    publish counter; ``pending`` the delta that produced ``front`` from
+    ``back``."""
+    front: ObjectStore
+    back: ObjectStore | None = None
+    version: int = 0
+    pending: object = None
+
+    @classmethod
+    def of(cls, store: ObjectStore) -> "SnapshotStore":
+        return cls(front=store, back=copy_store(store))
+
+    def snapshot(self) -> tuple:
+        """(published store, publish version)."""
+        return self.front, self.version
+
+    def take_back(self) -> ObjectStore:
+        """Hand out the dead generation for writing (once per tick)."""
+        assert self.back is not None, \
+            "take_back called twice without an intervening publish"
+        b = self.back
+        self.back = None
+        return b
+
+    def publish(self, new_front: ObjectStore, *, pending=None) -> None:
+        """Swap: the current front becomes the next write target."""
+        assert self.back is None, "publish without take_back"
+        self.back = self.front
+        self.front = new_front
+        self.pending = pending
+        self.version += 1
 
 
 def store_nbytes(store: ObjectStore) -> int:

@@ -27,6 +27,24 @@ def query_topk_bias(qs: torch.Tensor, embeds: torch.Tensor,
     return _qt.query_topk_bias_cuda(qs, embeds, bias, k)
 
 
+def query_topk_multi(qs: torch.Tensor, embeds: torch.Tensor,
+                     active: torch.Tensor, k: int):
+    """[Q, E] queries over the slots where ``active`` [N] is set: the
+    active-mask form of ``query_topk_bias`` (bias 0 where active, NEG
+    elsewhere) -> ([Q, k] f32, [Q, k] i32)."""
+    bias = torch.where(active, 0.0, _qt.NEG).to(torch.float32)
+    return query_topk_bias(qs, embeds,
+                           bias[None, :].expand(qs.shape[0], -1).contiguous(),
+                           k)
+
+
+def query_topk(q: torch.Tensor, embeds: torch.Tensor, active: torch.Tensor,
+               k: int):
+    """The Q = 1 case of ``query_topk_multi``: q [E] -> ([k], [k])."""
+    vals, idx = query_topk_multi(q[None, :], embeds, active, k)
+    return vals[0], idx[0]
+
+
 def lift_compact(depth: torch.Tensor, masks: torch.Tensor,
                  intrinsics: torch.Tensor, pose: torch.Tensor, *,
                  stride: int = 1, budget: int, lift_cap: int = 4096):

@@ -29,7 +29,7 @@ MIXER_RWKV6 = "rwkv6"             # RWKV-6 "Finch" time mixing
 MLP_DENSE = "dense"
 MLP_MOE = "moe"
 
-NOT_PORTED = "not ported yet: ROADMAP.md section 2 item 7 lists it"
+NOT_PORTED = "not ported yet: ROADMAP.md section 2 item 4 lists it"
 
 
 @dataclass(frozen=True)

@@ -57,7 +57,9 @@ def _entry_points():
     from repro_torch.core import (CloudService, DeviceClient, Knobs,
                                   MappingServer, init_local_map, init_store)
     from repro_torch.configs.base import get_config
-    from repro_torch.core.store import synthetic_store
+    from repro_torch.core.store import (clustered_synthetic_store,
+                                        synthetic_store)
+    from repro_torch.index import CellGrid, ClusterIndex
     from repro_torch.models.api import model_api
     from repro_torch.perception.embedder import OracleEmbedder
     kn = Knobs(server_capacity=8, client_capacity=4,
@@ -68,6 +70,17 @@ def _entry_points():
         "init_local_map": lambda: init_local_map(kn, 4),
         "MappingServer": lambda: MappingServer(
             knobs=kn, embedder=OracleEmbedder(embed_dim=4)),
+        "MappingServer(mode=baseline)": lambda: MappingServer(
+            knobs=kn, embedder=OracleEmbedder(embed_dim=4), mode="baseline"),
+        "MappingServer(mode=parallel)": lambda: MappingServer(
+            knobs=kn, embedder=OracleEmbedder(embed_dim=4), mode="parallel"),
+        "MappingServer(instrument=True)": lambda: MappingServer(
+            knobs=kn, embedder=OracleEmbedder(embed_dim=4), instrument=True),
+        "clustered_synthetic_store": lambda: clustered_synthetic_store(
+            4, 8, 4, 8),
+        "ClusterIndex": lambda: ClusterIndex(
+            grid=CellGrid(origin=(0.0, 0.0), size=(1.0, 1.0), nx=2, nz=2),
+            embed_dim=4, capacity=8, cell_cap=16),
         "DeviceClient": lambda: DeviceClient(knobs=kn, embed_dim=4),
         "CloudService": lambda: CloudService(knobs=kn, store_ref=None),
         "OracleEmbedder.embed_text": lambda: OracleEmbedder(
