@@ -25,6 +25,11 @@
    and nearest_dist; and times kernel, plain version and, where one
    PyTorch call computes the same function, that call (with TFLOP/s for
    flash_attention; nearest_dist at the centroid and the chamfer shape);
+   then query_topk_bias past its old limits (``query_topk_bias_any_k``):
+   k = 2000 at the SQ shape and at the 1M flat shape, k = N + 5, N * E >=
+   2^31 (N = 1,048,576, E = 2048) and Q * N >= 2^31 (Q = 2048, N =
+   1,048,576, E = 16, against the plain version over chunks of queries),
+   on exact-grid values so ties are exact, each timed beside its bound;
 3. drives the single-client loop at the paper's deployment size (Knobs()
    defaults, E = 512, 720x1280 keyframes, 40 keyframes of an 80-object
    scene): MappingServer.process_frame, CloudService.update_tick ->
@@ -74,7 +79,22 @@
     host-drawn noise: equal stores (ints exactly, floats within 1e-4),
     top-1 class accuracy >= 0.9, one lift_compact launch per mapped
     keyframe in the SD arms and none in B / B+P; per-stage walls beside the
-    reference's CPU-container gate figures (printed, not required).
+    reference's CPU-container gate figures (printed, not required);
+12. the fleet tier (``fleet_phase``): (a) benchmarks/fleet_scale.py's full
+    configuration, C from 1 to 4096 (tick ms p50 / p95, per-client bytes
+    and objects, the caller's reused sync tensor untouched, a 4-part mesh
+    tier byte-identical to the unsharded one at every C >= 4) and its
+    default configuration, whose per-client bytes must be exactly 19748
+    at C = 1, 8, 64 and 256; a fenced span around one collect; (b)
+    FleetServer at Knobs() defaults, E = 512, over 3,000 objects: 8 clean
+    and 8 faulty pose twins through 20 ticks of churn and a clean settle,
+    each faulty twin's map equal to its clean twin's, every packet equal
+    to the CPU port's tick by tick, one query_topk_bias launch per
+    selected flat zone in FleetServer.query; (c) step 9's 1,000,000
+    objects mirrored into a 2x2 ZoneShardedStore with a zone index each:
+    full_mix equal to the flat sweep (global slots zone * capacity +
+    slot), two launches per two-stage shard round, mirror and build s,
+    p50 / p95 ms, and the card against the CPU port at 100,000.
 
 ``nearest_dist`` has no caller on any system path: its phase drives its
 entry point, ``ops.nearest_dist``, at a chamfer and a centroid shape.
@@ -87,6 +107,7 @@ is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -115,6 +136,14 @@ CROSS_FRAMES = 6         # keyframes replayed on the CPU port (step 6)
 # to 8 bits, so one rounding that lands the other way moves an output by a
 # bf16 ulp
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# query_topk_bias past its old limits: (what, (Q, N, E, k), the plain
+# version's query chunk or None, timed reps)
+TOPK_ANY_K = (("k=2000 at the SQ shape", (1, 4096, 512, 2000), None, 10),
+              ("k=2000 at the 1M flat shape", (1, 1_000_000, 256, 2000),
+               None, 3),
+              ("k=N+5", (2, 3000, 64, 3005), None, 10),
+              ("N*E >= 2^31", (2, 1 << 20, 2048, 10), None, 3),
+              ("Q*N >= 2^31", (2048, 1 << 20, 16, 10), 128, 3))
 ND_TOL = 1e-4            # nearest_dist: |a|^2 + |b|^2 - 2ab in another order
 LOGIT_TOL = 1e-4         # step 8: f32 logits, 12 layers in another order
 PROFILE_KEYFRAMES = 4    # keyframes timed by stage, then as many profiled
@@ -164,6 +193,23 @@ ARM_KNOBS = dict(server_capacity=256, client_capacity=128,
                  max_object_points_server=512, max_object_points_client=128,
                  max_detections_per_frame=16, min_obs_before_sync=1)
 REFERENCE_GATE = {"n_mapped": 31, "mAcc": 100.0}
+# step 12: benchmarks/fleet_scale.py's full configuration (:128-130) and
+# its default one (:131-133), whose per-client bytes at C = 1, 8, 64 and 256
+# are the reference's exact counter (BENCH_fleet_scale.json)
+FLEET_SWEEP = (1, 8, 64, 256, 512, 1024, 2048, 4096)
+FLEET_FULL = dict(sweep=FLEET_SWEEP, n_obj=256, cap=512, E=256, P=512,
+                  budget=32, reps=10, shards=4)
+FLEET_DEFAULT = dict(sweep=(1, 8, 64, 256), n_obj=128, cap=256, E=128, P=256,
+                     budget=32, reps=3, shards=4)
+FLEET_BYTES = 19748
+# FleetServer at the paper's deployment: Knobs() defaults, E = 512, a 2x2
+# grid over an 8 m room and 3,000 objects, 60 % of them transient (below
+# min_obs_before_sync), so each client's one subscribed zone holds fewer
+# objects than its 512 local-map slots; 8 clean / faulty pose twins
+TWINS = dict(n_objects=3000, embed_dim=512, pairs=8, ticks=20, settle=16,
+             transient=0.6, churn=6, radius=1.0,
+             faults=dict(loss_prob=0.1, dup_prob=0.05, reorder_prob=0.1,
+                         corrupt_prob=0.05))
 
 
 def check(cond, what: str) -> None:
@@ -402,6 +448,86 @@ def kernel_checks(torch, clock, dev):
                 "max_abs_err": err, "shape": f"Q={Q} N={N} E={E} k={k}"}
             emit("query_topk_bias_time", timed[(Q, N)])
     return lift_row, timed[(1, 4096)]
+
+
+def grid_topk_inputs(torch, Q, N, E, seed, dev, *, frac=0.8):
+    """``topk_inputs(grid=True)`` drawn on the card (the shapes past 2^31
+    elements would take minutes of numpy): every value a multiple of 1/16,
+    the bias a multiple of 1/256 or NEG, so each score is exact in f32 under
+    any summation order and equal scores are exact ties."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def vals(shape):
+        return (torch.randint(-8, 9, shape, generator=g, device=dev,
+                              dtype=torch.int8).to(torch.float32) / 16)
+    qs, emb = vals((Q, E)), vals((N, E))
+    bias = torch.empty((Q, N), device=dev)
+    rows = max(1, (1 << 28) // N)           # fill the bias in slabs
+    for q0 in range(0, Q, rows):
+        q1 = min(Q, q0 + rows)
+        inc = torch.rand((q1 - q0, N), generator=g, device=dev) < frac
+        fin = torch.randint(0, 52, (q1 - q0, N), generator=g, device=dev,
+                            dtype=torch.int8).to(torch.float32) / 256
+        bias[q0:q1] = torch.where(inc, fin, -1e30)
+    return qs, emb, bias
+
+
+def plain_by_query_chunks(torch, qt, qs, emb, bias, k, rows):
+    """The plain version over chunks of ``rows`` queries (queries are
+    independent rows), for shapes whose [Q, N] scores would not fit twice."""
+    outs = [qt.query_topk_bias_plain(qs[q0:q0 + rows], emb,
+                                     bias[q0:q0 + rows], k)
+            for q0 in range(0, qs.shape[0], rows)]
+    return torch.cat([v for v, _ in outs]), torch.cat([i for _, i in outs])
+
+
+def topk_any_k_checks(torch, clock, dev) -> list:
+    """query_topk_bias past the old limits: k = 2000 at the SQ shape and at
+    the 1M flat shape, k = N + 5, N * E >= 2^31 and Q * N >= 2^31; each
+    against its plain version (slots exactly, ties to the lower slot,
+    scores within SCORE_TOL) and timed beside its byte bound."""
+    from repro_torch.kernels import query_topk as qt
+
+    rows = []
+    for tag, (Q, N, E, k), chunk, reps in TOPK_ANY_K:
+        qs, emb, bias = grid_topk_inputs(torch, Q, N, E, Q + N + E + k, dev)
+
+        def plain(qs=qs, emb=emb, bias=bias, k=k, chunk=chunk):
+            if chunk is None:
+                return qt.query_topk_bias_plain(qs, emb, bias, k)
+            return plain_by_query_chunks(torch, qt, qs, emb, bias, k, chunk)
+        gv, gi = qt.query_topk_bias_cuda(qs, emb, bias, k)
+        wv, wi = plain()
+        torch.cuda.synchronize()
+        check(tuple(gi.shape) == (Q, k), f"query_topk_bias shape at {tag}")
+        check(torch.equal(gi, wi), f"query_topk_bias slots at {tag}")
+        err = float((gv - wv).abs().max())
+        check(err <= SCORE_TOL, f"query_topk_bias err {err} at {tag}")
+        n_inc = (bias > -5e29).sum(dim=1)
+        if k > N:
+            check(bool((gi[:, N:] == -1).all())
+                  and bool((gv[:, N:] == qt.NEG).all()),
+                  f"query_topk_bias pads past N at {tag}")
+        del wv, wi
+        b_ms, b_by = bound(*topk_cost(Q, N, E, k))
+        # past 2^31 elements the caching allocator frees and syncs inside
+        # the calls, so the host cannot queue ahead: time them as called
+        timer = clock.ms if chunk is None else clock.call_ms
+        row = {"case": tag, "shape": [Q, N, E, k], "max_abs_err": err,
+               "included_min": int(n_inc.min()),
+               "timed": "device" if chunk is None else "call",
+               "ms": timer(lambda: qt.query_topk_bias_cuda(qs, emb, bias, k),
+                           reps),
+               "plain_ms": timer(plain, reps),
+               "bound_ms": b_ms, "bound_by": b_by,
+               # torch.topk refuses k > N
+               "library_ms": None if k > N else timer(
+                   lambda: torch.topk(qs @ emb.T + bias, k), reps)}
+        emit("query_topk_bias_any_k", row)
+        rows.append(row)
+        del qs, emb, bias, gv, gi
+        torch.cuda.empty_cache()
+    return rows
 
 
 def attn_inputs(torch, B, S, H, Kv, dh, dtype, seed, dev):
@@ -1213,9 +1339,8 @@ def index_phase(torch, dev, clock, *, n, reps, tombstones, moves, cross_n,
         ops, lambda: execute_query(st, spec, index=idx))[:2]
     (fl,) = captured_topk_calls(ops, lambda: execute_query(st, spec))
     topk_rows = [topk_time(torch, clock, *s1, "stage 1"),
-                 topk_time(torch, clock, *s1[:3],
-                           min(search._KERNEL_MAX_K, idx.grid.n_cells),
-                           "stage 1 at the largest m"),
+                 topk_time(torch, clock, *s1[:3], idx.grid.n_cells,
+                           "stage 1 at the largest m (every cell)"),
                  topk_time(torch, clock, *s2, "stage 2"),
                  topk_time(torch, clock, *fl, "flat sweep")]
     del s1, s2, fl
@@ -1442,6 +1567,395 @@ def mapping_arms_phase(torch, dev, *, embed_dim, n_objects, n_frames,
     emit("mapping_arms_phase", out)
     return out
 
+# ----------------------------------------------------------------- step 12
+def fleet_sweep(torch, dev, *, sweep, n_obj, cap, E, P, budget, reps,
+                shards):
+    """benchmarks/fleet_scale.py at one configuration: tick ms (p50, p95)
+    of a SessionManager collect for C clients, every rep from the same
+    ``fresh`` sync row (which must stay zero: the collect returns new
+    tensors), per-client bytes and objects; and at C >= ``shards`` the
+    mesh tier of ``shards`` parts against the unsharded tier on fresh
+    sessions, byte for byte."""
+    from repro_torch.core import Knobs
+    from repro_torch.core.store import synthetic_store
+    from repro_torch.server import (ClientRoster, MeshSessionTier,
+                                    SessionManager)
+
+    kn = Knobs(server_capacity=cap, client_capacity=max(budget * 2, 64),
+               max_object_points_server=P,
+               max_object_points_client=max(P // 4, 16),
+               min_obs_before_sync=1)
+    store = synthetic_store(n_obj, cap, E, P, device=dev)
+    out = {}
+    for C in sweep:
+        sm = SessionManager(knobs=kn, n_clients=C, capacity=cap,
+                            budget=budget, device=dev)
+        fresh = torch.zeros((C, cap), dtype=torch.int32, device=dev)
+
+        def tick_once(sm=sm, fresh=fresh):
+            sm.sync = sm.sync._replace(synced_version=fresh)
+            return sm.collect(store)
+        for _ in range(2):
+            tick_once()
+        ms = host_ms(torch, tick_once, reps if C <= 256 else
+                     max(reps // 2, 3))
+        pkt = tick_once()
+        check(not bool(fresh.any()), f"C={C}: the collect wrote the "
+              "caller's sync tensor")
+        row = {"tick_ms_p50": float(np.percentile(ms, 50)),
+               "tick_ms_p95": float(np.percentile(ms, 95)),
+               "per_client_bytes": float(pkt.nbytes.mean()),
+               "objects_per_client": float(pkt.counts.mean())}
+        if C >= shards:
+            roster = ClientRoster.round_robin(C, shards)
+            tier = MeshSessionTier(knobs=kn, capacity=cap, roster=roster,
+                                   budget=budget, device=dev)
+            tier.set_all(subscribed=np.ones((C,), bool))
+            ref = SessionManager(knobs=kn, n_clients=C, capacity=cap,
+                                 budget=budget, device=dev)
+            a, b = tier.collect(store), ref.collect(store)
+            same = all(np.array_equal(getattr(a, f), getattr(b, f))
+                       for f in ("counts", "nbytes", "seqs"))
+            for part, members in zip(a.parts, roster.members):
+                m = torch.from_numpy(members).to(dev)
+                same &= part is not None and all(
+                    torch.equal(x, y[m]) for x, y in zip(part.batch,
+                                                         b.batch))
+            check(same, f"mesh tier ({shards} parts) = unsharded at C={C}")
+            row["mesh_byte_identical"] = same
+            row["tick_ms_mesh_p50"] = float(np.percentile(host_ms(
+                torch, lambda tier=tier: tier.collect(store), 3), 50))
+        out[C] = row
+    return out
+
+
+def fleet_digest(packets, C) -> list:
+    """Per zone packet of one tick: nbytes and seqs, and each client's
+    count, crc32, ids, versions, points and centroids (host copies)."""
+    out = []
+    for z, pkt in packets:
+        rows = []
+        for c in range(C):
+            u = pkt.packet_for(c)
+            if not u.count:
+                rows.append(None)
+                continue
+            b = u.batch
+            n = u.count
+            rows.append((u.seq, u.epoch, u.checksum,
+                         b.oid[:n].cpu().numpy(),
+                         b.version[:n].cpu().numpy(),
+                         b.n_points[:n].cpu().numpy(),
+                         b.points[:n].cpu().numpy(),
+                         b.centroid[:n].cpu().numpy()))
+        out.append((z, pkt.nbytes.tolist(), pkt.seqs.tolist(), rows))
+    return out
+
+
+def same_digest(a, b) -> bool:
+    """Two runs' digests (per tick, per zone packet): ids, versions,
+    counts, seqs, crc32 and bytes exactly; points to one f16 ulp;
+    centroids within rtol = atol = SUMM_TOL."""
+    if [len(t) for t in a] != [len(t) for t in b]:
+        return False
+    for (za, na, sa, ra), (zb, nb, sb, rb) in zip(
+            [e for t in a for e in t], [e for t in b for e in t]):
+        if (za, na, sa) != (zb, nb, sb) or len(ra) != len(rb):
+            return False
+        for x, y in zip(ra, rb):
+            if (x is None) != (y is None):
+                return False
+            if x is None:
+                continue
+            if x[:3] != y[:3] or not all(np.array_equal(p, q) for p, q in
+                                         zip(x[3:6], y[3:6])):
+                return False
+            ulp = np.abs(x[6].view(np.int16).astype(np.int32)
+                         - y[6].view(np.int16).astype(np.int32))
+            if ulp.max(initial=0) > 1 or not np.allclose(
+                    x[7], y[7], rtol=SUMM_TOL, atol=SUMM_TOL):
+                return False
+    return True
+
+
+def fleet_twins(torch, dev, *, n_objects, embed_dim, pairs, ticks, settle,
+                transient, churn, radius, faults, seed=0):
+    """FleetServer end to end: ``pairs`` pose twins, one on a clean link and
+    one on a FaultModel link, through ``ticks`` ticks of churn (removals,
+    version-bumped moves inside a zone, transients promoted past min_obs,
+    tombstones released once no subscriber owes an ack) and ``settle``
+    clean ticks;
+    clean twins acked through ``ack_tick``, faulty ones through ``ack``
+    (with uplink loss) and ``request_resync``.  Returns the per-tick packet
+    digests, each twin's map ({oid: version}), the faulty clients' counters
+    and the server."""
+    from repro_torch.core import (ClientSession, DeviceClient, FaultModel,
+                                  Knobs, NetworkModel)
+    from repro_torch.core.store import (release_tombstones, remove_objects,
+                                        synthetic_store, tombstone_slots)
+    from repro_torch.server import FleetServer, ZoneGrid
+
+    kn = Knobs()
+    C = 2 * pairs
+    rng = np.random.default_rng(seed)
+    st = synthetic_store(n_objects, kn.server_capacity, embed_dim,
+                         kn.max_object_points_server, seed=seed, device=dev)
+    transients = np.nonzero(rng.random(n_objects) < transient)[0]
+    st.obs_count[torch.from_numpy(transients).to(dev)] = 1
+    grid = ZoneGrid.for_room(8.0, 2, 2)
+    fs = FleetServer(knobs=kn, embed_dim=embed_dim, n_clients=C, grid=grid,
+                     proto=True, device=dev)
+    fm = FaultModel(seed=seed, **faults)
+    centers = np.array([[-2, 1.5, -2], [-2, 1.5, 2], [2, 1.5, -2],
+                        [2, 1.5, 2]], np.float32)
+    poses = np.stack([centers[c % 4] + [0.1 * (c // 4), 0.0, 0.0]
+                      for c in range(pairs)] * 2).astype(np.float32)
+    sess = [ClientSession(dev=DeviceClient(knobs=kn, embed_dim=embed_dim,
+                                           device=dev),
+                          net=NetworkModel(), knobs=kn, cid=c,
+                          user_pos=torch.from_numpy(poses[c]).to(dev),
+                          faults=None if c < pairs else fm)
+            for c in range(C)]
+    clean = np.arange(C) < pairs
+    up = np.ones((C,), bool)
+    fs.refresh(st)
+    for c in range(C):
+        fs.join(c, poses[c], radius, tick=0)
+    digests = []
+    promoted = list(rng.permutation(transients))
+    for t in range(ticks + settle):
+        if t < ticks:
+            live = np.nonzero(st.active.cpu().numpy())[0]
+            remove_objects(st, st.ids.cpu().numpy()[
+                rng.choice(live, churn, replace=False)])
+            # moves stay inside their zone: a move across a zone boundary
+            # frees the old shard's slot without a tombstone, so a client
+            # that had received the object keeps it (ROADMAP.md section 4)
+            act = np.nonzero(st.active.cpu().numpy())[0]
+            cand = rng.choice(act, 4 * churn, replace=False)
+            old = st.centroid.cpu().numpy()[cand]
+            new = old + rng.normal(scale=0.3, size=old.shape).astype(
+                np.float32)
+            keep = np.nonzero(grid.zone_of(new) == grid.zone_of(old))[0]
+            keep = keep[:churn]
+            mv = torch.from_numpy(cand[keep]).to(dev)
+            st.centroid[mv] = torch.from_numpy(new[keep]).to(dev)
+            st.version[mv] += 1
+            pr = torch.from_numpy(np.asarray(
+                [promoted.pop() for _ in range(min(churn, len(promoted)))],
+                np.int64)).to(dev)
+            st.obs_count[pr] = 2
+            st.version[pr] += 1
+        elif t == ticks:
+            for s in sess[pairs:]:
+                s.faults = None                    # the settle: clean links
+        fs.refresh(st)
+        pk = fs.tick(up, tick=t)
+        digests.append(fleet_digest(pk, C))
+        for c, s in enumerate(sess):
+            for _, p in pk or [(None, None)]:
+                s.step(float(t), None if p is None else p.packet_for(c))
+        fs.ack_tick([(z, dataclasses.replace(p, seqs=np.where(
+            clean, p.seqs, -1))) for z, p in pk], tick=t)
+        for c in range(pairs, C):
+            for z, ep, sq in sess[c].drain_acks():
+                if sess[c].faults is None or not fm.uplink_lost(0, c, t, z,
+                                                                sq):
+                    fs.ack(c, z, ep, sq, tick=t)
+            for _, z in sess[c].drain_ctrl():
+                fs.request_resync(c)
+        for s in sess[:pairs]:
+            s.drain_acks()
+        fs.maintain(tick=t, deliverable=up, retx_ticks=fm.retx_ticks)
+        blocked = fs.blocked_tombstone_oids(tick=t)
+        ids = st.ids.cpu().numpy()
+        rel = [sl for sl in tombstone_slots(st)
+               if int(ids[sl]) not in blocked]
+        if rel:
+            release_tombstones(st, np.asarray(rel))
+    maps = []
+    for s in sess:
+        m = s.dev.local
+        a = m.active.cpu().numpy()
+        maps.append(dict(zip(m.ids.cpu().numpy()[a].tolist(),
+                             m.version.cpu().numpy()[a].tolist())))
+    counters = [{k: getattr(s, k) for k in ("lost", "dup_drops",
+                                            "corrupt_drops", "stale_drops",
+                                            "resyncs", "delivered")}
+                for s in sess[pairs:]]
+    return digests, maps, counters, fs
+
+
+def zoned_mirror(torch, dev, st, n, cfg):
+    """Step 9's store mirrored into a 2x2 ZoneShardedStore on the query
+    engine benchmark's grid (room 80 m, zone capacity 2n / 4) with one
+    ClusterIndex per zone.  Returns (zoned, mirror s, per-zone build s)."""
+    from repro_torch.core import Knobs
+    from repro_torch.index import cluster
+    from repro_torch.server import ZoneGrid, ZoneShardedStore
+
+    zoned = ZoneShardedStore(knobs=Knobs(server_capacity=n),
+                             embed_dim=cfg["embed_dim"],
+                             grid=ZoneGrid.for_room(cfg["room"], 2, 2),
+                             max_points=cfg["max_points"], device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    zoned.refresh_from(st)
+    sync()
+    mirror_s = time.perf_counter() - t0
+    build_s, real = [], cluster.ClusterIndex.refresh
+
+    def timed_refresh(self, target):
+        t0 = time.perf_counter()
+        out = real(self, target)
+        sync()
+        build_s.append(time.perf_counter() - t0)
+        return out
+    cluster.ClusterIndex.refresh = timed_refresh
+    try:
+        zoned.enable_index()
+    finally:
+        cluster.ClusterIndex.refresh = real
+    return zoned, mirror_s, build_s
+
+
+def fleet_phase(torch, dev, st, *, sweep_full, sweep_default, twins, index):
+    """Step 12: the fleet tier on the card.  (a) the fleet_scale sweep,
+    (b) FleetServer end to end with faulty / clean twins against the CPU
+    port, (c) the zone-sharded full_mix at step 9's 1,000,000 objects."""
+    from repro_torch.core.query import Query, compile_query, execute_query
+    from repro_torch.index import search
+    from repro_torch.kernels import ops
+
+    out = {}
+    # (a) session-tier sweep
+    t0 = time.perf_counter()
+    full = fleet_sweep(torch, dev, **sweep_full)
+    default = fleet_sweep(torch, dev, **sweep_default)
+    for C in (1, 8, 64, 256):
+        b = default[C]["per_client_bytes"]
+        check(b == FLEET_BYTES, f"per_client_bytes {b} at C={C} on the "
+              f"default configuration (want {FLEET_BYTES})")
+    out["sweep_full"] = full
+    out["sweep_default"] = default
+    out["sweep_s"] = time.perf_counter() - t0
+    # a fenced span around one collect waits on the card's queued work
+    from repro_torch.core import Knobs
+    from repro_torch.core.store import synthetic_store
+    from repro_torch.obs import Tracer, set_tracer
+    from repro_torch.server import SessionManager
+    sm = SessionManager(knobs=Knobs(), n_clients=64, capacity=512,
+                        budget=32, device=dev)
+    tr = Tracer(fenced=True)
+    prev = set_tracer(tr)
+    try:
+        sm.collect(synthetic_store(256, 512, 256, 64, device=dev))
+    finally:
+        set_tracer(prev)
+    check(len(tr.durations_ms("session.collect_fleet")) == 1,
+          "a fenced collect span")
+    out["fenced_collect_ms"] = tr.durations_ms("session.collect_fleet")[0]
+
+    # (b) FleetServer end to end, card and CPU port
+    t0 = time.perf_counter()
+    dg, maps, counters, fs = fleet_twins(torch, dev, **twins)
+    card_s = time.perf_counter() - t0
+    pairs = twins["pairs"]
+    for c in range(pairs):
+        check(maps[c] == maps[c + pairs] and len(maps[c]) > 0,
+              f"faulty twin {c + pairs} converged to clean twin {c}")
+    t0 = time.perf_counter()
+    dg_cpu, maps_cpu, counters_cpu, fs_cpu = fleet_twins(
+        torch, torch.device("cpu"), **twins)
+    cpu_s = time.perf_counter() - t0
+    check(same_digest(dg, dg_cpu), "card = CPU port packets, tick by tick")
+    check(maps == maps_cpu and counters == counters_cpu,
+          "card = CPU port maps and fault counters")
+    launches = {}
+    for name, kw in (
+            ("zones=(3,)", dict(zones=(3,), grid=Query.grid_of(fs.grid))),
+            ("near two zones", dict(near=(torch.tensor([-2.0, 1.5, 0.0]),
+                                          torch.tensor(1.0)))),
+            ("all zones", {})):
+        spec = Query(embed=fs.zoned.zones[0].embed[0], k=5, **kw)
+        shards = compile_query(spec, fs.zoned).shards
+        ops.reset_launch_counts()
+        got = fs.query(spec)
+        torch.cuda.synchronize()
+        n = ops.launch_counts()["query_topk_bias"]
+        check(n == len(shards), f"FleetServer.query {name}: {n} launches "
+              f"for {len(shards)} flat shards")
+        want = fs_cpu.query(Query(embed=fs_cpu.zoned.zones[0].embed[0], k=5,
+                                  **kw))
+        same_topk(torch, got, want)
+        launches[name] = {"shards": list(shards), "launches": n}
+    out["fleet_server"] = {
+        "clients": 2 * pairs, "ticks": twins["ticks"],
+        "settle": twins["settle"], "objects": twins["n_objects"],
+        "twins_converged": True, "card_eq_cpu_port": True,
+        "map_sizes": [len(m) for m in maps],
+        "packets": sum(len(d) for d in dg),
+        "faulty_counters": counters, "card_s": card_s, "cpu_port_s": cpu_s,
+        "query_launches": launches}
+
+    # (c) the zone-sharded full_mix at 1M objects
+    qi = query_object(st)
+    spec = full_mix(torch, st, qi)
+    zoned, mirror_s, build_s = zoned_mirror(torch, dev, st, index["n"],
+                                            index)
+    capz = zoned.zone_capacity
+    plan = compile_query(spec, zoned)
+    search.reset_metrics()
+    ops.reset_launch_counts()
+    got = plan(zoned)
+    torch.cuda.synchronize()
+    n_launch = ops.launch_counts()["query_topk_bias"]
+    rounds = len(plan.shards) \
+        + search.metrics()["query_index_escalations_total"]
+    engaged = all(zoned.indexes[z].engaged() for z in plan.shards)
+    check(engaged, "every zone index engages at 1M")
+    check(n_launch == 2 * rounds, f"sharded full_mix: {n_launch} "
+          f"query_topk_bias launches for {rounds} two-stage rounds")
+    flat = execute_query(st, spec)
+    check(torch.equal(got.oids.cpu(), flat.oids.cpu()),
+          "zoned full_mix oids = step 9's flat sweep")
+    fin = torch.isfinite(flat.scores)
+    err = float((got.scores[fin] - flat.scores[fin]).abs().max())
+    check(err <= SCORE_TOL and torch.equal(torch.isfinite(got.scores), fin),
+          f"zoned full_mix scores err {err}")
+    for r in range(got.slots.shape[0]):
+        g = int(got.slots[r])
+        if g >= 0:
+            z, loc = divmod(g, capz)
+            check(int(zoned.zones[z].ids[loc]) == int(got.oids[r]),
+                  "global slot = zone * zone_capacity + slot")
+    ms = host_ms(torch, lambda: plan(zoned), index["reps"])
+    zone_objects = [int(z.active.sum()) for z in zoned.zones]
+    del zoned, plan
+    geom = {k: index[k] for k in ("embed_dim", "max_points", "room")}
+    (gst, gz), (cst, cz) = [
+        (x, zoned_mirror(torch, d, x, index["cross_n"], index)[0])
+        for d in (dev, torch.device("cpu"))
+        for x in (clustered(index["cross_n"], d, **geom),)]
+    qc = query_object(cst)
+    cg = compile_query(full_mix(torch, gst, qc), gz)(gz)
+    cc = compile_query(full_mix(torch, cst, qc), cz)(cz)
+    cross = {"objects": index["cross_n"],
+             "score_max_abs_err": same_topk(torch, cg, cc)}
+    check(cross["score_max_abs_err"] <= SCORE_TOL, "zoned card = CPU port")
+    out["sharded_query"] = {
+        "objects": index["n"], "zones": 4, "zone_capacity": capz,
+        "zone_objects": zone_objects,
+        "mirror_s": mirror_s, "build_s_per_zone": build_s,
+        "ms_p50": float(np.percentile(ms, 50)),
+        "ms_p95": float(np.percentile(ms, 95)),
+        "launches": n_launch, "rounds": rounds,
+        "max_abs_err_vs_flat": err, "cross_device": cross}
+    emit("fleet_phase", out)
+    return out
+
+
 # ---------------------------------------------------------------- build
 def kernel_resources(build) -> dict:
     """{source: {kernel: registers, static shared memory, spills}} from
@@ -1548,6 +2062,7 @@ def main() -> int:
         return out
     lift_row, topk_row = timed("kernel_checks", kernel_checks, torch, clock,
                                dev)
+    any_k = timed("topk_any_k_checks", topk_any_k_checks, torch, clock, dev)
     flash_row = timed("attention_checks", attention_checks, torch, clock, dev)
     nd_row = timed("nearest_checks", nearest_checks, torch, clock, dev)
     nd_path = timed("nearest_phase", nearest_phase, torch, dev)
@@ -1564,8 +2079,12 @@ def main() -> int:
     index, st, idx, index_topk = timed("index_phase", index_phase, torch, dev,
                                        clock, **INDEX)
     timed("serving_phase", serving_phase, torch, dev, st, idx, **SERVING)
-    del st, idx
+    del idx
     arms = timed("mapping_arms_phase", mapping_arms_phase, torch, dev, **ARMS)
+    fleet = timed("fleet_phase", fleet_phase, torch, dev, st,
+                  sweep_full=FLEET_FULL, sweep_default=FLEET_DEFAULT,
+                  twins=TWINS, index=INDEX)
+    del st
     emit("phase_seconds", phase_s)
     print(smi, flush=True)          # again, inside the tail of a long log
 
@@ -1584,7 +2103,10 @@ def main() -> int:
          "launches": launches["query_topk_bias"],
          "launched_on": "step 3 main path", **topk_row,
          "index_launches": index["launches"]["query_topk_bias"],
-         "index_shapes": index_topk},
+         "index_shapes": index_topk, "any_k_shapes": any_k,
+         "fleet_launches": {
+             "fleet_server_query": fleet["fleet_server"]["query_launches"],
+             "sharded_full_mix_1M": fleet["sharded_query"]["launches"]}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:93",

@@ -19,6 +19,7 @@ from repro_torch.index.cluster import ClusterSummaries
 from repro_torch.models import common as cm
 from repro_torch.models.lm import LM
 from repro_torch.perception.embedder import OracleEmbedder
+from repro_torch.server.session import FleetSync, SessionManager
 
 
 def _fields(state) -> dict:
@@ -55,6 +56,33 @@ def update_batch_from_numpy(state, *, device="cuda") -> UpdateBatch:
 def cluster_summaries_from_numpy(state, *,
                                  device="cuda") -> ClusterSummaries:
     return _from_numpy(ClusterSummaries, state, device)
+
+
+def fleet_sync_from_numpy(state, *, device="cuda") -> FleetSync:
+    """The reference's ``FleetSync`` (synced_version [C, N] int32,
+    ever_sent [C, N] bool) as the port's, copied onto ``device``."""
+    return _from_numpy(FleetSync, state, device)
+
+
+def load_session_state(sm: SessionManager, state) -> SessionManager:
+    """Start the port's SessionManager ``sm`` from the reference's fleet
+    sync state: ``synced_version`` / ``ever_sent`` (the device sync state;
+    ``ever_sent`` also seeds the host mirror) and whichever of the host
+    arrays ``min_obs``, ``user_pos``, ``subscribed``, ``acked`` and
+    ``next_seq`` ``state`` holds, all copied.  Returns ``sm``."""
+    src = _fields(state)
+    sm.sync = fleet_sync_from_numpy(
+        {"synced_version": src["synced_version"],
+         "ever_sent": src.get("ever_sent", np.zeros(
+             np.shape(src["synced_version"]), bool))}, device=sm.device)
+    sm.ever_sent = sm.sync.ever_sent.cpu().numpy().copy()
+    for f, dt in (("min_obs", np.int32), ("user_pos", np.float32),
+                  ("subscribed", bool), ("acked", np.int32),
+                  ("next_seq", np.int64)):
+        if src.get(f) is not None:
+            setattr(sm, f, np.array(src[f], dtype=dt))
+    sm.dirty = True
+    return sm
 
 
 def store_to_numpy(store: ObjectStore) -> dict:

@@ -11,6 +11,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
+from repro_torch.core import geometry as geo
 from repro_torch.core.knobs import Knobs
 
 
@@ -19,6 +22,13 @@ def downsample_depth(depth, ratio: int):
     if ratio <= 1:
         return depth
     return depth[::ratio, ::ratio]
+
+
+def downsample_mask(mask, ratio: int):
+    """Stride-decimate a [H, W] instance mask by ``ratio`` per dim."""
+    if ratio <= 1:
+        return mask
+    return mask[::ratio, ::ratio]
 
 
 # The min_mapping_bbox_area knob default is expressed in the paper's
@@ -39,6 +49,13 @@ def mapping_gate(area, knobs: Knobs, *, frame_pixels: int):
     scaled = area * (REF_SENSOR_PIXELS / frame_pixels)
     keep = scaled >= knobs.min_mapping_bbox_area
     return keep | (knobs.depth_downsampling_ratio <= 1)
+
+
+def mapping_gate_mask(mask_full: torch.Tensor, knobs: Knobs):
+    """Gate straight from a [H, W] bool instance mask tensor (area via
+    ``geometry.bbox_pixel_area``)."""
+    return mapping_gate(geo.bbox_pixel_area(mask_full), knobs,
+                        frame_pixels=mask_full.numel())
 
 
 @dataclass(frozen=True)

@@ -60,11 +60,17 @@ def local_map_nbytes(m: LocalMap) -> int:
 
 def compute_priority(embed, label, centroid, *, user_pos, knobs: Knobs,
                      interest_embeds=None) -> torch.Tensor:
-    """[U] priority score for update admission / eviction (Sec. 3.2)."""
+    """[U] priority score for update admission / eviction (Sec. 3.2).
+    ``user_pos`` [3], or [C, 1, 3] for every client of a fleet at once
+    ([C, U]).  The distance is written out elementwise, so a row's value
+    never depends on how many rows ride along (a library norm may split
+    its sum by the output count)."""
     dev = centroid.device
     user_pos = torch.as_tensor(user_pos, dtype=torch.float32, device=dev)
-    prox = 1.0 / (1.0 + torch.linalg.vector_norm(centroid - user_pos,
-                                                 dim=-1))
+    d = centroid - user_pos
+    prox = 1.0 / (1.0 + torch.sqrt(d[..., 0] * d[..., 0]
+                                   + d[..., 1] * d[..., 1]
+                                   + d[..., 2] * d[..., 2]))
     score = knobs.proximity_weight * prox
     if interest_embeds is not None and interest_embeds.shape[0] > 0:
         ie = torch.as_tensor(interest_embeds, dtype=torch.float32, device=dev)
@@ -186,6 +192,21 @@ def apply_updates_batch(m: LocalMap, batch: UpdateBatch,
                         priorities: torch.Tensor) -> LocalMap:
     """``apply_updates_batch_slots`` without the touched slots."""
     return apply_updates_batch_slots(m, batch, priorities)[0]
+
+
+def apply_update(m: LocalMap, u: ObjectUpdate,
+                 priority: torch.Tensor) -> LocalMap:
+    """Admit one object update (the single-row form of
+    ``apply_updates_batch``): evict the lowest-priority entry if full and
+    the newcomer outranks it.  Writes ``m`` in place."""
+    one = lambda x: torch.as_tensor(x, device=m.ids.device)[None]  # noqa
+    row = UpdateBatch(
+        oid=one(u.oid), embed=one(u.embed), label=one(u.label),
+        points=one(u.points), n_points=one(u.n_points),
+        centroid=one(u.centroid), version=one(u.version),
+        valid=torch.ones((1,), dtype=torch.bool, device=m.ids.device),
+        deleted=None if u.deleted is None else one(u.deleted))
+    return apply_updates_batch(m, row, one(priority))
 
 
 def prune_slots(m: LocalMap, drop: torch.Tensor) -> LocalMap:

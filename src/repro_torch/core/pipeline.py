@@ -56,10 +56,12 @@ class StageTimes:
 
     def record(self, mode: str) -> None:
         """The reference feeds these walls to its metrics registry; the
-        port has no registry yet."""
+        port's registry (``repro_torch.obs``) exists, but wiring the
+        mapping stages into it comes with the serving loop."""
         raise NotImplementedError(
-            "StageTimes.record: the port's metrics registry (obs) is not "
-            "ported yet: ROADMAP.md section 2 item 3 lists it")
+            "StageTimes.record: recording the stage walls into the port's "
+            "metrics registry (repro_torch.obs) is not wired yet: "
+            "ROADMAP.md section 2 item 3 lists it")
 
 
 def ingest_frame(store: ObjectStore, embedder: OracleEmbedder, knobs: Knobs,

@@ -1,7 +1,8 @@
 """Declarative query engine over the SemanticXR object maps (Sec. 2.3.2).
 
-Port of ``repro.core.query`` for flat targets (``LocalMap`` and
-``ObjectStore``).  One ``Query`` spec expresses the whole request —
+Port of ``repro.core.query``: flat targets (``LocalMap``, ``ObjectStore``)
+and the fleet's ``ZoneShardedStore``.  One ``Query`` spec expresses the
+whole request —
 semantic similarity (``embed``, ``sem_weight``), spatial predicates
 (``near``, ``aabb``, ``zones`` + ``grid``), attribute filters (``labels``,
 ``min_points``, ``min_obs``, ``since``), score combination
@@ -21,7 +22,15 @@ target) plans coarse-to-fine through ``repro_torch.index`` once the index
 is engaged, and ``level="cluster"`` queries return the index's cluster
 summaries.  The seed's embedding-only entry points (``query_server``,
 ``query_local``, ``batched_query_server`` / ``_local``) are thin deprecated
-wrappers.  Zone-sharded targets are not ported yet.
+wrappers.
+
+On a zone-sharded target the zone / near predicates prune shards before
+any work (``_select_shards``); each selected shard runs the same plan
+(flat, or two-stage through its zone index once engaged) and
+``_merge_shards`` folds the per-shard top-k into one, globalising slots as
+``zone * zone_capacity + slot``.  The merge is a stable sort over the
+shard-major concatenation: ties go to the earlier selected shard, then the
+lower rank, as ``lax.top_k`` orders them in the reference.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import warnings
 from dataclasses import dataclass, replace
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
@@ -66,6 +76,12 @@ class Query:
     k: int = 5
     batched: bool = False
     level: str = "object"
+
+    @staticmethod
+    def grid_of(grid) -> tuple:
+        """ZoneGrid (duck-typed: .origin/.zone_size/.nx/.nz) -> grid tuple."""
+        return (float(grid.origin[0]), float(grid.origin[1]),
+                float(grid.zone_size), int(grid.nx), int(grid.nz))
 
     def static(self) -> tuple:
         return tuple(getattr(self, f) for f in _STATIC_FIELDS)
@@ -260,14 +276,50 @@ def _execute(spec: Query, cols: _Cols, *, use_pallas: bool = False):
     return res
 
 
+def _merge_shards(oids, scores, slots, zone_ids, capz: int) -> QueryResult:
+    """Fold S per-shard top-k results ([S, Q, k] each) into one [Q, k].
+    Shard-local slots globalize to ``zone * zone_capacity + slot``; ties
+    go to the earlier shard, then the lower rank (a stable sort over the
+    shard-major concatenation)."""
+    gslot = torch.where(slots >= 0,
+                        zone_ids[:, None, None] * capz + slots, -1)
+    cat = lambda x: x.movedim(0, 1).reshape(x.shape[1], -1)  # noqa: E731
+    sc, oid, sl = cat(scores), cat(oids), cat(gslot)         # [Q, S*k]
+    k = scores.shape[-1]
+    top, sel = torch.sort(sc, dim=1, descending=True, stable=True)
+    top, sel = top[:, :k], sel[:, :k]
+    take = lambda x: torch.gather(x, 1, sel)                  # noqa: E731
+    return QueryResult(oids=take(oid), scores=top,
+                       slots=take(sl).to(torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # compile + execute API
 # ---------------------------------------------------------------------------
-def _check_flat(target) -> None:
-    if hasattr(target, "zones") and hasattr(target, "grid"):
-        raise NotImplementedError(
-            "zone-sharded targets: the fleet tier is not ported yet: "
-            "ROADMAP.md section 2 item 1 lists it")
+def _is_sharded(target) -> bool:
+    return hasattr(target, "zones") and hasattr(target, "grid")
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def _select_shards(spec: Query, target) -> list:
+    """Zone predicates prune shards BEFORE any work (host-side, from the
+    spec's concrete values at compile time)."""
+    Z = target.grid.n_zones
+    if spec.zones is not None:
+        return [z for z in sorted(set(spec.zones)) if 0 <= z < Z]
+    if spec.near is not None:
+        center, radius = spec.near
+        c = np.atleast_2d(_host(center))
+        r = np.atleast_1d(_host(radius))
+        sel = np.zeros((Z,), bool)
+        for i in range(c.shape[0]):
+            sel |= target.grid.overlaps(c[i], float(r[min(i, len(r) - 1)]))
+        return [z for z in range(Z) if sel[z]]
+    return list(range(Z))
 
 
 def _count_flat_fallback() -> None:
@@ -280,20 +332,25 @@ def _count_flat_fallback() -> None:
 @dataclass
 class CompiledQuery:
     """A (spec, target)-shaped plan; call it with a new same-structure
-    ``spec`` and/or an updated target to re-run.
+    ``spec`` and/or an updated target to re-run.  For sharded targets the
+    shard selection is fixed at compile time from the spec's concrete
+    zone / near values.
 
-    ``index`` (a ``repro_torch.index.ClusterIndex``) switches the plan to
-    the two-stage path once ``index.engaged()``; below that the flat sweep
-    runs.  Without ``index`` the plan uses ``target.cluster_index`` when the
-    target has one.  ``level="cluster"`` specs need an index and return a
-    ``repro_torch.index.ClusterResult``."""
+    ``index`` (a ``repro_torch.index.ClusterIndex``, or a ``{zone:
+    ClusterIndex}`` dict for sharded targets) switches the plan to the
+    two-stage path once ``index.engaged()``; below that the flat sweep
+    runs.  Without ``index`` the plan uses ``target.cluster_index`` /
+    ``target.indexes`` when the target has them.  ``level="cluster"`` specs
+    need an index and return a ``repro_torch.index.ClusterResult``."""
     spec: Query
     use_pallas: bool = False
+    shards: tuple | None = None        # zone ids (sharded targets only)
     index: Any = None
 
     def __call__(self, target, spec: Query | None = None):
-        _check_flat(target)
         spec = self.spec if spec is None else spec
+        if _is_sharded(target):
+            return self._run_sharded(target, spec)
         idx = self.index if self.index is not None \
             else getattr(target, "cluster_index", None)
         if spec.level == "cluster":
@@ -311,12 +368,74 @@ class CompiledQuery:
             _count_flat_fallback()
         return _execute(spec, _columns(target))
 
+    def _run_sharded(self, target, spec: Query):
+        shards = self.shards if self.shards is not None \
+            else tuple(_select_shards(spec, target))
+        idxs = self.index if self.index is not None \
+            else getattr(target, "indexes", None)
+        if not idxs:                   # {} (index never enabled) == None
+            idxs = None
+        k = spec.k
+        dev = target.zones[0].ids.device
+        shape = (k,) if not spec.batched else (_n_queries(spec), k)
+        if spec.level == "cluster":
+            from repro_torch.index.search import ClusterResult, cluster_query
+            items = [] if idxs is None else \
+                [(z, idxs[z], target.zones[z]) for z in shards
+                 if idxs.get(z) is not None]
+            if not items:
+                if idxs is None:
+                    raise ValueError(
+                        "Query(level='cluster') on a sharded target needs "
+                        "zone indexes: pass index= to compile_query or call "
+                        "enable_index() on the store")
+                i32 = dict(dtype=torch.int32, device=dev)
+                return ClusterResult(
+                    zones=torch.full(shape, -1, **i32),
+                    cells=torch.full(shape, -1, **i32),
+                    scores=torch.full(shape, -torch.inf, device=dev),
+                    counts=torch.zeros(shape, **i32),
+                    centroids=torch.zeros(shape + (3,), device=dev))
+            return cluster_query(spec, items)
+        if not shards:
+            return QueryResult(
+                oids=torch.zeros(shape, dtype=torch.int32, device=dev),
+                scores=torch.full(shape, -torch.inf, device=dev),
+                slots=torch.full(shape, -1, dtype=torch.int32, device=dev))
+        # the same plan per selected shard, then a [k]-sized merge; shards
+        # with an engaged index take the two-stage path, the rest stay flat
+        bspec = spec if spec.batched else _promote(spec, dev)
+        parts = []
+        for z in shards:
+            zt = target.zones[z]
+            zidx = None if idxs is None else idxs.get(z)
+            if zidx is not None and zidx.engaged():
+                from repro_torch.index.search import two_stage_query
+                parts.append(two_stage_query(bspec, zt, zidx))
+            else:
+                if zidx is not None:
+                    _count_flat_fallback()
+                parts.append(_execute(bspec, _columns(zt)))
+        stack = lambda f: torch.stack(                         # noqa: E731
+            [getattr(p, f).to(dev) for p in parts])
+        res = _merge_shards(stack("oids"), stack("scores"), stack("slots"),
+                            torch.tensor(shards, dtype=torch.int32,
+                                         device=dev),
+                            capz=int(target.zones[0].ids.shape[0]))
+        if not spec.batched:
+            res = QueryResult(*(x[0] for x in res))
+        return res
+
 
 def compile_query(spec: Query, target, *, use_pallas: bool = False,
                   index: Any = None) -> CompiledQuery:
-    """Lower ``spec`` against a LocalMap or ObjectStore target."""
-    _check_flat(target)
-    return CompiledQuery(spec=spec, use_pallas=use_pallas, index=index)
+    """Lower ``spec`` against a LocalMap, ObjectStore or ZoneShardedStore
+    target (duck-typed); the plan is reusable with updated targets and
+    same-structure specs."""
+    shards = tuple(_select_shards(spec, target)) if _is_sharded(target) \
+        else None
+    return CompiledQuery(spec=spec, use_pallas=use_pallas, shards=shards,
+                         index=index)
 
 
 def execute_query(target, spec: Query, *, use_pallas: bool = False,

@@ -1,13 +1,15 @@
 """Object-level incremental update protocol (paper Sec. 3.2, Fig. 6).
 
-Port of ``repro.core.updates`` for the single-client path.  The server
+Port of ``repro.core.updates``.  The server
 tracks the per-client synced version of every object and, on each update
 tick, ships exactly the objects that are new or modified since the last
 sync, observed at least ``min_obs_before_sync`` times, and admitted by the
 prioritizer.  The selection runs on the host over the store's small control
 columns; the packet body is one gather + downsample on the store's device,
 with points cast to f16 for the wire.  Byte accounting is exact over the
-wire format below.
+wire format below; the hardened protocol's framing (sequence, epoch,
+crc32) and its upstream control frames are counted only when the
+fault-injection transport is on.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 
 from repro_torch.core import geometry as geo
 from repro_torch.core.knobs import Knobs
-from repro_torch.core.local_map import UpdateBatch
+from repro_torch.core.local_map import ObjectUpdate, UpdateBatch
 from repro_torch.core.store import ObjectStore, deleted_mask
 
 # wire format per object: id(4) + label(2) + version(4) + n_points(2)
@@ -31,6 +33,14 @@ from repro_torch.core.store import ObjectStore, deleted_mask
 # n_points(1) = 9 B.
 _HEADER_B = 4 + 2 + 4 + 2 + 12
 TOMBSTONE_NBYTES = 9
+
+# hardened-protocol framing (counted only under the fault-injection
+# transport): per-packet header seq(4) + epoch(4) + flags(1) + crc32(4),
+# and the fixed-size upstream control frames (cumulative ack / resync
+# request): zone(2) + epoch(4) + seq-or-reason(4) + crc.
+PROTO_HEADER_NBYTES = 13
+ACK_NBYTES = 12
+RESYNC_NBYTES = 12
 
 _MIN_BUCKET = 8
 
@@ -88,13 +98,15 @@ class UpdatePacket:
     count: int                   # live rows in batch (rest is padding)
     nbytes: int
     tick: int
-    # hardened-protocol framing fields (unused on the single-client path:
-    # seq None means "apply on arrival, no ordering")
-    zone: int = 0
-    seq: int | None = None
-    epoch: int = 0
-    fresh: bool = False
-    checksum: int | None = None
+    # hardened-protocol framing (seq None means "apply on arrival, no
+    # ordering": the single-client path)
+    zone: int = 0                # zone shard this packet's seq stream is for
+    seq: int | None = None       # per-(client, zone) sequence number
+    epoch: int = 0               # per-client sync epoch (bumped on resync)
+    fresh: bool = False          # epoch started from scratch: the client
+    #                              resets its map before applying
+    checksum: int | None = None  # crc32 over header + id/version columns
+    #                              (None = unframed)
 
     def compute_checksum(self) -> int:
         """crc32 over the packet header and the id/version columns, packed
@@ -107,6 +119,24 @@ class UpdatePacket:
         o = self.batch.oid[:self.count].cpu().numpy().astype(np.int64)
         v = self.batch.version[:self.count].cpu().numpy().astype(np.int64)
         return zlib.crc32(head + o.tobytes() + v.tobytes())
+
+    def checksum_ok(self) -> bool:
+        """True when unframed, or the framed checksum verifies."""
+        return self.checksum is None \
+            or self.checksum == self.compute_checksum()
+
+    @property
+    def updates(self) -> list:
+        """AoS view: list[ObjectUpdate] of the live rows."""
+        if self.batch is None or self.count == 0:
+            return []
+        b = self.batch
+        return [ObjectUpdate(oid=b.oid[i], embed=b.embed[i], label=b.label[i],
+                             points=b.points[i], n_points=b.n_points[i],
+                             centroid=b.centroid[i], version=b.version[i],
+                             deleted=None if b.deleted is None
+                             else b.deleted[i])
+                for i in range(self.count)]
 
     @property
     def deleted_oids(self) -> list:

@@ -6,11 +6,11 @@ equal to the flat sweep:
 
 1. **Stage 1** scores every cluster summary with a conservative upper bound
    on the best score any member could reach, under predicate masks that can
-   only over-include.  With an embedding and ``m <= _KERNEL_MAX_K`` the
-   ranking is one call of ``kernels.ops.query_topk_bias`` (queries x
+   only over-include.  With an embedding the ranking is one call of
+   ``kernels.ops.query_topk_bias`` at k = m (queries x
    ``summaries.embed_mean`` with the slack / mask as bias): the
-   hand-written kernel on the GPU, its plain version on the CPU.  Otherwise
-   a stable top-k of the bound.
+   hand-written kernel on the GPU, its plain version on the CPU.  Without
+   one, a stable top-k of the bound.
 2. **Stage 2** gathers the surviving cells' member slots (ascending, so
    ties break as in the flat sweep) into a candidate slab and runs
    ``core.query._execute`` over it: the same kernel again.
@@ -25,9 +25,10 @@ results — semantic (query x mean embedding) + proximity (to the cluster
 centroid) + ``density_weight * log1p(count)``, top-k cells as a
 ``ClusterResult``.
 
-The reference records three metrics through its ``obs`` registry; until
-the port has one they are plain module counters under the same names
-(``metrics()`` / ``reset_metrics()``).
+The reference records three metrics through its ``obs`` registry; here
+they stay plain module counters under the same names (``metrics()`` /
+``reset_metrics()``) until ROADMAP.md section 2 item 3 wires them into the
+port's own registry (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -44,7 +45,6 @@ from repro_torch.kernels.query_topk import topk_stable
 
 _C0 = 64              # initial stage-1 selection width (cells per query)
 _CERT_EPS = 1e-5      # f32 slack on the exactness certificate
-_KERNEL_MAX_K = 1024  # the largest k stage 1 hands the kernel
 
 _METRICS = {"query_index_two_stage_total": 0,
             "query_index_escalations_total": 0,
@@ -162,12 +162,8 @@ def _stage1(spec, summ, *, m: int, has_obs: bool, has_seen: bool):
         qs = _scaled_queries(spec)
         sim = qs @ summ.embed_mean.T                       # [Q, M]
         ub = torch.where(bias > NEG * 0.5, sim + bias, NEG)
-        if m <= _KERNEL_MAX_K:
-            vals, picks = ops.query_topk_bias(qs.contiguous(),
-                                              summ.embed_mean,
-                                              bias.contiguous(), m)
-        else:
-            vals, picks = topk_stable(ub, m)
+        vals, picks = ops.query_topk_bias(qs.contiguous(), summ.embed_mean,
+                                          bias.contiguous(), m)
     else:
         ub = torch.where(bias > NEG * 0.5, bias, NEG)
         vals, picks = topk_stable(ub, m)
@@ -318,17 +314,30 @@ def _cluster_execute(spec, summ, *, has_obs: bool,
 
 def cluster_query(spec, items) -> ClusterResult:
     """Run a cluster-level query over ``items = [(zone_or_None, index,
-    target)]``.  One flat target only: merging zone shards belongs to the
-    fleet tier."""
-    if len(items) != 1:
-        raise NotImplementedError(
-            "cluster_query over zone shards: the fleet tier is not ported "
-            "yet: ROADMAP.md section 2 item 1 lists it")
-    zone, index, target = items[0]
-    cols = _columns(target)
-    r = _cluster_execute(spec, index.summaries,
-                         has_obs=cols.obs_count is not None,
-                         has_seen=cols.last_seen is not None)
-    z = -1 if zone is None else int(zone)
-    return r._replace(zones=torch.where(r.cells >= 0, z, -1)
-                      .to(torch.int32))
+    target)]`` and merge to one top-k: a stable sort over the item-major
+    concatenation, so ties go to the earlier item, then the lower rank
+    (``lax.top_k``'s order in the reference)."""
+    parts = []
+    for zone, index, target in items:
+        cols = _columns(target)
+        r = _cluster_execute(spec, index.summaries,
+                             has_obs=cols.obs_count is not None,
+                             has_seen=cols.last_seen is not None)
+        z = -1 if zone is None else int(zone)
+        parts.append(r._replace(zones=torch.where(r.cells >= 0, z, -1)
+                                .to(torch.int32)))
+    if len(parts) == 1:
+        return parts[0]
+    dev = parts[0].scores.device
+    cat = ClusterResult(*(torch.cat([getattr(p, f).to(dev) for p in parts],
+                                    dim=-1 if f != "centroids" else -2)
+                          for f in ClusterResult._fields))
+    k = min(spec.k, cat.scores.shape[-1])
+    vals, sel = torch.sort(cat.scores, dim=-1, descending=True, stable=True)
+    vals, sel = vals[..., :k], sel[..., :k]
+    take = lambda x: torch.gather(x, -1, sel)             # noqa: E731
+    return ClusterResult(
+        zones=take(cat.zones), cells=take(cat.cells), scores=vals,
+        counts=take(cat.counts),
+        centroids=torch.gather(cat.centroids, -2,
+                               sel[..., None].expand(*sel.shape, 3)))

@@ -37,6 +37,14 @@
 //     shared memory, so a round of the tournament waits on no global load.
 //     The last merger resets the counters for the next launch.
 //
+// Any k >= 1: a block keeps L = min(k, kRows) candidates, which is every
+// row it scores once k >= kRows, and the merge pads with NEG / -1 once the
+// best head is excluded, so k past the included count (k > N too) costs
+// no more rounds than there are included slots.  Every offset into qs,
+// emb, bias, the scratch lists and the outputs is formed in 64 bits
+// (size_t), so Q * N and N * E may pass 2^31; only Q, N, E and k
+// themselves are 32-bit.
+//
 // What bounds it on this card: the table read.  At N = 10,240 and E = 512
 // it is 21 MB, about 6.3 us at 3.35 TB/s, against 2*Q*N*E flops (0.17
 // GFLOP at Q = 16, about 2.5 us at 67 TFLOP/s fp32).  At one query (SQ,
@@ -347,7 +355,8 @@ struct Plan {
 };
 
 // 0, or -1 when one query's row does not fit in the current device's
-// opt-in shared memory per block, or a CUDA error code.
+// opt-in shared memory per block, -2 when the query tiles exceed the
+// grid's y limit (65535), or a CUDA error code.
 int make_plan(int Q, int N, int E, int k, Plan* p) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -362,10 +371,12 @@ int make_plan(int Q, int N, int E, int k, Plan* p) {
   const int qmax = Q < kMaxQ ? Q : kMaxQ;
   p->qtile = fit < qmax ? static_cast<int>(fit) : qmax;
   if (p->qtile < 1) return -1;
+  const long long qtiles = (static_cast<long long>(Q) + p->qtile - 1) /
+                           p->qtile;
+  if (qtiles > 65535) return -2;
   p->nchunks = (N + kRows - 1) / kRows;
   p->L = k < kRows ? k : kRows;
-  const long long total = static_cast<long long>(p->nchunks) *
-                          ((Q + p->qtile - 1) / p->qtile);
+  const long long total = static_cast<long long>(p->nchunks) * qtiles;
   p->mergers = static_cast<int>(Q < kMaxMergers ? Q : kMaxMergers);
   if (p->mergers > total) p->mergers = static_cast<int>(total);
   const int per_merger = (Q + p->mergers - 1) / p->mergers;

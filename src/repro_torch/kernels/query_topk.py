@@ -29,7 +29,8 @@ import torch
 from repro_torch.kernels import build
 
 NEG = -1e30
-MAX_K = 1024          # the cluster index's largest kernel k
+# the C interface takes 32-bit sizes; every offset inside is 64-bit
+_INT_MAX = 2 ** 31 - 1
 
 launches = 0          # kernel launches made by query_topk_bias_cuda
 # two zeroed counters per (device, stream): the kernel's last blocks take
@@ -73,7 +74,8 @@ def query_topk_bias_plain(qs: torch.Tensor, embeds: torch.Tensor,
 def query_topk_bias_cuda(qs: torch.Tensor, embeds: torch.Tensor,
                          bias: torch.Tensor, k: int):
     """The hand-written kernel (same contract as ``query_topk_bias_plain``);
-    all inputs f32, contiguous, on one CUDA device; 1 <= k <= 1024."""
+    all inputs f32, contiguous, on one CUDA device; any k >= 1 (past the
+    included count the ranks pad with NEG / -1)."""
     global launches
     dev = qs.device
     if dev.type != "cuda":
@@ -84,8 +86,8 @@ def query_topk_bias_cuda(qs: torch.Tensor, embeds: torch.Tensor,
                            ("bias", bias, (Q, N))):
         build.check_arg("query_topk_bias", name, t, (torch.float32,), shape,
                         dev)
-    if not (1 <= k <= MAX_K and Q >= 1 and N >= 1 and E >= 1
-            and Q * N < 2 ** 31 and N * E < 2 ** 31):
+    if not (1 <= k <= _INT_MAX and 1 <= Q <= _INT_MAX and 1 <= N <= _INT_MAX
+            and 1 <= E <= _INT_MAX):
         raise ValueError(f"query_topk_bias: unsupported Q={Q} N={N} E={E} "
                          f"k={k}")
     lib = build.load("query_topk", _SIGNATURES)
@@ -97,6 +99,9 @@ def query_topk_bias_cuda(qs: torch.Tensor, embeds: torch.Tensor,
         if err == -1:
             raise ValueError(f"query_topk_bias: E={E} does not fit in shared "
                              "memory")
+        if err == -2:
+            raise ValueError(f"query_topk_bias: Q={Q} needs more than 65535 "
+                             "query tiles")
         if err != 0:
             raise RuntimeError(f"query_topk_bias plan failed: CUDA error "
                                f"{err}")

@@ -60,10 +60,15 @@ def _entry_points():
     from repro_torch.core.store import (clustered_synthetic_store,
                                         synthetic_store)
     from repro_torch.index import CellGrid, ClusterIndex
+    from repro_torch.core.runtime import ClientSession, NetworkModel
     from repro_torch.models.api import model_api
     from repro_torch.perception.embedder import OracleEmbedder
+    from repro_torch.server import (FleetServer, MeshSessionTier,
+                                    SessionManager, ZoneGrid,
+                                    ZoneShardedStore)
     kn = Knobs(server_capacity=8, client_capacity=4,
                max_object_points_server=8, max_object_points_client=4)
+    grid = ZoneGrid.for_room(8.0, 2, 2)
     return {
         "init_store": lambda: init_store(8, 4, 8),
         "synthetic_store": lambda: synthetic_store(4, 8, 4, 8),
@@ -87,6 +92,17 @@ def _entry_points():
             embed_dim=4).embed_text(0),
         "model_api.init": lambda: model_api(get_config(
             "semanticxr-captioner-110m-smoke")).init(),
+        "ClientSession": lambda: ClientSession(
+            dev=DeviceClient(knobs=kn, embed_dim=4), net=NetworkModel(),
+            knobs=kn),
+        "SessionManager": lambda: SessionManager(knobs=kn, n_clients=2,
+                                                 capacity=8),
+        "MeshSessionTier": lambda: MeshSessionTier(knobs=kn, capacity=8,
+                                                   n_clients=4, n_shards=2),
+        "ZoneShardedStore": lambda: ZoneShardedStore(knobs=kn, embed_dim=4,
+                                                     grid=grid),
+        "FleetServer": lambda: FleetServer(knobs=kn, embed_dim=4,
+                                           n_clients=2, grid=grid),
     }
 
 

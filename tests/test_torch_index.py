@@ -185,6 +185,68 @@ def test_stage1_takes_the_kernel_and_metrics_count(built):
     assert search.metrics()["query_index_two_stage_total"] == 0
 
 
+def test_stage1_hands_the_kernel_m_past_1024(built):
+    """Stage 1 calls ops.query_topk_bias at every m: at m = 1100 (past the
+    old 1024 limit, where it used to take the plain sort ``topk_stable``)
+    the selection equals that sort's."""
+    from repro_torch.kernels.query_topk import topk_stable
+    jst, tst, _, _ = built
+    idx = ClusterIndex.for_target(tst, n_cells_target=1600,
+                                  min_flat_size=1024)
+    M = idx.grid.n_cells
+    assert M > 1100
+    spec = tquery.Query(**_specs(N, jst, _t)["embed_spatial"])
+    calls = []
+    real = ops.query_topk_bias
+
+    def spy(qs, embeds, bias, k):
+        calls.append((embeds.shape[0], k))
+        return real(qs, embeds, bias, k)
+    search.ops.query_topk_bias = spy
+    try:
+        cells, excl = search._stage1(spec, idx.summaries, m=1100,
+                                     has_obs=True, has_seen=True)
+    finally:
+        search.ops.query_topk_bias = real
+    assert calls == [(M, 1100)]
+    # the selection the plain sort made before
+    p = tquery._promote(spec, "cpu")
+    ok, slack = search._cluster_gate(p, idx.summaries, has_obs=True,
+                                     has_seen=True)
+    bias = torch.where(ok, slack, tquery.NEG)
+    ub = torch.where(bias > tquery.NEG * 0.5, search._scaled_queries(p)
+                     @ idx.summaries.embed_mean.T + bias, tquery.NEG)
+    vals, picks = topk_stable(ub, 1100)
+    want = np.unique(_np(picks)[_np(vals) > tquery.NEG * 0.5])
+    got = _np(cells)
+    np.testing.assert_array_equal(got[got >= 0], want)
+
+
+@pytest.mark.parametrize("k", [2000, 2700])
+def test_execute_query_past_k_1024_matches_reference(k):
+    """k = 2000 over 2,600 slots, and k past the capacity: the port's CPU
+    path equals the reference's.  Values are multiples of 1/16, so every
+    score is exact in f32 and ties are exact: the tie order must agree."""
+    rng = np.random.default_rng(k)
+    jst = jstore.synthetic_store(2500, 2600, E, 16, seed=1)
+    tst = tstore.synthetic_store(2500, 2600, E, 16, seed=1, device="cpu")
+    emb = np.zeros((2600, E), np.float32)
+    emb[:2500] = rng.integers(-4, 5, size=(2500, E)) / 16
+    jst = jst._replace(embed=jnp.asarray(emb))
+    tst.embed[:] = torch.from_numpy(emb)
+    q = (rng.integers(-4, 5, size=(E,)) / 16).astype(np.float32)
+    for kw in ({}, dict(labels=(1, 2, 3, 4, 5, 6, 7))):
+        want = jquery.execute_query(jst, jquery.Query(embed=jnp.asarray(q),
+                                                      k=k, **kw))
+        got = tquery.execute_query(tst, tquery.Query(
+            embed=torch.from_numpy(q), k=k, **kw))
+        _same_topk(want, got)
+        assert got.oids.shape == (k,)
+        n_ok = int((got.slots >= 0).sum())
+        assert n_ok == min(k, 2500 if not kw else int(
+            np.isin(_np(tst.label)[:2500], kw["labels"]).sum()))
+
+
 # ------------------------------------------------------------ cluster level
 @pytest.mark.parametrize("batched", [False, True])
 def test_cluster_level_query_matches_reference(built, batched):
@@ -354,8 +416,25 @@ def test_active_mask_wrappers_match_reference():
 
 
 def test_sharded_cluster_query_is_not_ported():
-    _, tst = _stores(256)
-    tidx = ClusterIndex.for_target(tst)
-    spec = tquery.Query(embed=tst.embed[0], k=2, level="cluster")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        search.cluster_query(spec, [(0, tidx, tst), (1, tidx, tst)])
+    """The name predates the fleet tier: cluster_query over several zone
+    items is ported now.  Two items over one index tie on every score, so
+    the merge must order ties as the reference's ``lax.top_k`` does (the
+    earlier item first, then the lower rank), zones, cells, counts and
+    centroids included."""
+    from repro.index import search as jsearch
+    jst, tst = _stores(256)
+    jidx, tidx = _indexes(jst, tst)
+    q = _np(tst.embed[0])
+    for k in (2, 9, 40):          # 40 > two items' non-empty cells
+        jr = jsearch.cluster_query(
+            jquery.Query(embed=jnp.asarray(q), k=k, level="cluster"),
+            [(0, jidx, jst), (1, jidx, jst)])
+        tr = search.cluster_query(
+            tquery.Query(embed=torch.from_numpy(q), k=k, level="cluster"),
+            [(0, tidx, tst), (1, tidx, tst)])
+        for f in ("zones", "cells", "counts"):
+            np.testing.assert_array_equal(_np(getattr(tr, f)),
+                                          _np(getattr(jr, f)), err_msg=f)
+        np.testing.assert_allclose(_np(tr.scores), _np(jr.scores), **SCORE)
+        np.testing.assert_allclose(_np(tr.centroids), _np(jr.centroids),
+                                   **SUMM)
