@@ -94,7 +94,35 @@
     objects mirrored into a 2x2 ZoneShardedStore with a zone index each:
     full_mix equal to the flat sweep (global slots zone * capacity +
     slot), two launches per two-stage shard round, mirror and build s,
-    p50 / p95 ms, and the card against the CPU port at 100,000.
+    p50 / p95 ms, and the card against the CPU port at 100,000;
+13. the scenario engine (``sim_phase``): (a) the golden churn scenario
+    (seed 23, 20 objects, 20 + 8 ticks, 3 clients) matches the committed
+    ``tests/golden/scenario_churn_v1.json``, two card runs are ``equals``,
+    the card run ``equals`` the CPU port's and ``async_loop=True`` the
+    sequential tick; (b) scenario_suite's small, mid and large arms:
+    sent_bytes_total 15150 and 111840, large ``equals`` the CPU port,
+    engine tick ms p50 / p95; (c) fault_tolerance's loss sweep (0, 1, 5,
+    20 %) and its crash arm at the benchmark's default shape: down_bytes
+    25987, 26533, 27675, 40844 and 31898, every arm converged; (d) the
+    network-drop session of ``examples/network_drop_session.py`` (E = 256,
+    240x320 keyframes, the stream cut after tick 8) on the card and on the
+    CPU port with the same host-drawn noise, ``equals``; one lift_compact
+    launch per mapped keyframe and one query_topk_bias launch per SQ and
+    LQ; (e) FleetSimulator at the paper's deployment (``Knobs()``, E =
+    512, step 3's 40 keyframes at 720x1280, 16 clients on heterogeneous
+    links, SQ through BatchScheduler): stats, tick ms, both kernels
+    launched, and the card's MetricsLog ``equals`` the CPU port's over the
+    first 8 ticks;
+14. the serving loop (``serving_loop_phase``) at
+    benchmarks/serving_loop.py's non-smoke configuration (C = 256, 120
+    ticks, 4096 live objects in a 131,072-slot store, E = 128, P = 128,
+    churn 96, budget 32, batches of 4, two a tick, 1 Hz base and 8 Hz
+    burst): the sync arm, then the overlapped arm, every per-request result
+    byte-identical and equal sent bytes and final stores; ticks/s, tick ms,
+    wait / e2e ms and query_topk_bias launches; the overlapped arm again
+    with ``enable_index`` (two-stage), equal to the flat results; and
+    ``StageTimes.record`` and the index metrics in an installed registry
+    after one mapped keyframe and one two-stage query.
 
 ``nearest_dist`` has no caller on any system path: its phase drives its
 entry point, ``ops.nearest_dist``, at a chamfer and a centroid shape.
@@ -210,6 +238,47 @@ TWINS = dict(n_objects=3000, embed_dim=512, pairs=8, ticks=20, settle=16,
              transient=0.6, churn=6, radius=1.0,
              faults=dict(loss_prob=0.1, dup_prob=0.05, reorder_prob=0.1,
                          corrupt_prob=0.05))
+# step 13: the scenario engine.  The golden churn scenario
+# (tests/golden/regen.py) and its committed snapshot; scenario_suite's arms
+# (benchmarks/scenario_suite.py:95-100, the large one at its _BIG knobs)
+# with the reference's sent_bytes_total (BENCH_scenario_suite.json, None:
+# the large arm is held to the CPU port instead); fault_tolerance's default
+# shape and arms (benchmarks/fault_tolerance.py:74-91) with their
+# down_bytes (BENCH_fault_tolerance.json): (loss, crash, down_bytes)
+GOLDEN = dict(seed=23, n_objects=20, n_ticks=20, n_clients=3,
+              remove_frac=0.25, drain_ticks=8)
+GOLDEN_SNAPSHOT = ROOT / "tests" / "golden" / "scenario_churn_v1.json"
+SUITE_KNOBS = dict(server_capacity=256, client_capacity=128,
+                   max_object_points_server=64, max_object_points_client=16,
+                   min_obs_before_sync=1)
+SUITE = (("small", GOLDEN, 15150),
+         ("mid", dict(seed=23, n_objects=60, n_ticks=40, n_clients=8,
+                      remove_frac=0.3, drain_ticks=8), 111840),
+         ("large", dict(seed=23, n_objects=100, n_ticks=60, n_clients=16,
+                        remove_frac=0.3, drain_ticks=10), None))
+FAULT_SHAPE = dict(seed=29, n_objects=24, n_ticks=24, n_clients=4,
+                   drain_ticks=12, outage_frac=0.0, query_prob=0.0)
+FAULT_ARMS = ((0.0, False, 25987), (0.01, False, 26533),
+              (0.05, False, 27675), (0.2, False, 40844), (0.05, True, 31898))
+# examples/network_drop_session.py:36-62: E = 256, 240x320 keyframes, the
+# stream cut after tick 8, an outage over ticks 4-8, two removals at tick 9
+NETWORK_DROP = dict(n_objects=25, scene_seed=2, embed_dim=256, h=240,
+                    w=320, n_frames=60, keyframe_interval=5, stream_ticks=9,
+                    knobs=dict(server_capacity=256, client_capacity=64,
+                               max_object_points_server=512,
+                               max_object_points_client=128,
+                               max_detections_per_frame=16,
+                               min_obs_before_sync=1))
+# FleetSimulator at the paper's deployment over step 3's keyframes: 16
+# clients, one tick per keyframe, the card held to the CPU port over the
+# first 8 ticks
+FLEET_SIM = dict(n_clients=16, seed=3, cross_ticks=8)
+# step 14: benchmarks/serving_loop.py's non-smoke configuration (:151-153)
+SERVING_LOOP = dict(C=256, ticks=120, n_live=4096, cap=131072, E=128, P=128,
+                    nz=1, zcap=6144, churn=96, budget=32, batch=4,
+                    max_batches=2, base_hz=1.0, burst_hz=8.0,
+                    warm_ticks=6, trace_ticks=40, index_min_flat=1024,
+                    hold_every=25)
 
 
 def check(cond, what: str) -> None:
@@ -1204,20 +1273,79 @@ def host_ms(torch, fn, reps):
     return out
 
 
-def captured_topk_calls(ops, fn) -> list:
-    """(qs, embeds, bias, k) of every ops.query_topk_bias call ``fn``
-    makes (these launches are extra: outside any counted window)."""
+def topk_spy(ops, fn, keep=lambda i: True, clone=True) -> list:
+    """[(inputs or None, (scores, slots))] of every ops.query_topk_bias call
+    ``fn`` makes, in order: each call's answer, and its inputs (qs, embeds,
+    bias, k) where ``keep(i)`` picks the i-th call, cloned (``clone``) so a
+    later in-place write to a store leaves them as the call read them.  The
+    calls go through to the real wrapper: a launch count around ``fn``
+    stays exact."""
     calls, real = [], ops.query_topk_bias
 
     def spy(qs, embeds, bias, k):
-        calls.append((qs.clone(), embeds, bias.clone(), k))
-        return real(qs, embeds, bias, k)
+        args = None
+        if keep(len(calls)):
+            args = (qs.clone(), embeds.clone() if clone else embeds,
+                    bias.clone(), k)
+        out = real(qs, embeds, bias, k)
+        calls.append((args, tuple(x.clone() for x in out)))
+        return out
     ops.query_topk_bias = spy
     try:
         fn()
     finally:
         ops.query_topk_bias = real
     return calls
+
+
+def captured_topk_calls(ops, fn) -> list:
+    """(qs, embeds, bias, k) of every ops.query_topk_bias call ``fn``
+    makes (these launches are extra: outside any counted window)."""
+    return [args for args, _ in topk_spy(ops, fn, clone=False)]
+
+
+def hold_topk_calls(torch, calls, where: str) -> dict:
+    """The kernel against its plain version on every call of ``calls``
+    (``topk_spy``'s list) whose inputs were kept, at the shapes the path
+    gave it (a launch each, after the counted window): equal slots, scores
+    within SCORE_TOL, and the answer the path got equal to both."""
+    from repro_torch.kernels import query_topk as qt
+
+    err, shapes, n = 0.0, set(), 0
+    for args, (vals, slots) in calls:
+        if args is None:
+            continue
+        qs, emb, bias, k = args
+        gv, gi = qt.query_topk_bias_cuda(qs, emb, bias, k)
+        wv, wi = qt.query_topk_bias_plain(qs, emb, bias, k)
+        tag = (f"{where}: Q={qs.shape[0]} N={emb.shape[0]} "
+               f"E={qs.shape[1]} k={k}")
+        check(torch.equal(gi, wi) and torch.equal(slots.to(gi.device), gi),
+              f"query_topk_bias slots != plain at {tag}")
+        e = max(float((gv - wv).abs().max()),
+                float((vals.to(gv.device) - wv).abs().max())) \
+            if gv.numel() else 0.0
+        check(e <= SCORE_TOL, f"query_topk_bias err {e} at {tag}")
+        err, n = max(err, e), n + 1
+        shapes.add(tag.split(": ", 1)[1])
+    check(n > 0, f"{where}: no query_topk_bias call held to its plain version")
+    return {"held": n, "max_abs_err": err, "shapes": sorted(shapes)}
+
+
+def same_topk_answers(torch, a, b) -> float:
+    """Max |score| difference between two runs' query_topk_bias answers
+    (``topk_spy``'s lists), call by call; -1 when the call counts, shapes
+    or slots differ."""
+    if len(a) != len(b):
+        return -1.0
+    err = 0.0
+    for (_, (av, ai)), (_, (bv, bi)) in zip(a, b):
+        av, ai, bv, bi = av.cpu(), ai.cpu(), bv.cpu(), bi.cpu()
+        if av.shape != bv.shape or not torch.equal(ai, bi):
+            return -1.0
+        if av.numel():
+            err = max(err, float((av - bv).abs().max()))
+    return err
 
 
 def topk_time(torch, clock, qs, emb, bias, k, where):
@@ -1283,6 +1411,7 @@ def index_phase(torch, dev, clock, *, n, reps, tombstones, moves, cross_n,
     from repro_torch.index import ClusterIndex, rebuilt, search
     from repro_torch.index.cluster import ClusterSummaries
     from repro_torch.kernels import ops
+    from repro_torch.obs.metrics import MetricsRegistry, set_registry
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1299,12 +1428,15 @@ def index_phase(torch, dev, clock, *, n, reps, tombstones, moves, cross_n,
     check(idx.engaged(), "the index engages at this size")
 
     # the counted run: one two-stage query; stage 1 alone launches once
-    search.reset_metrics()
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
     ops.reset_launch_counts()
     two = execute_query(st, spec, index=idx)
     torch.cuda.synchronize()
+    set_registry(prev)
     counts = ops.launch_counts()
-    rounds = 1 + search.metrics()["query_index_escalations_total"]
+    escalations = reg.counter("query_index_escalations_total").total()
+    rounds = 1 + escalations
     check(counts["query_topk_bias"] == 2 * rounds,
           f"query_topk_bias launched by stage 1 and stage 2 in each of "
           f"{rounds} rounds: {counts}")
@@ -1314,7 +1446,7 @@ def index_phase(torch, dev, clock, *, n, reps, tombstones, moves, cross_n,
     torch.cuda.synchronize()
     check(ops.launch_counts()["query_topk_bias"] == 1,
           "stage 1 is one query_topk_bias launch")
-    metrics = search.metrics()
+    fraction = reg.histogram("query_index_candidate_fraction").summary()
 
     flat = execute_query(st, spec)
     err = same_topk(torch, two, flat)
@@ -1383,8 +1515,8 @@ def index_phase(torch, dev, clock, *, n, reps, tombstones, moves, cross_n,
            "flat_ms_p50": float(np.percentile(flat_ms, 50)),
            "flat_ms_p95": float(np.percentile(flat_ms, 95)),
            "split_ms_mean": split,
-           "escalations": metrics["query_index_escalations_total"],
-           "candidate_fraction": metrics["query_index_candidate_fraction"],
+           "escalations": escalations,
+           "candidate_fraction": fraction["mean"],
            "two_stage_vs_flat_max_abs_err": err,
            "churn": {"tombstones": tombstones, "moves": moves,
                      "changed_slots": changed, "refresh_s": refresh_s,
@@ -1825,8 +1957,8 @@ def fleet_phase(torch, dev, st, *, sweep_full, sweep_default, twins, index):
     (b) FleetServer end to end with faulty / clean twins against the CPU
     port, (c) the zone-sharded full_mix at step 9's 1,000,000 objects."""
     from repro_torch.core.query import Query, compile_query, execute_query
-    from repro_torch.index import search
     from repro_torch.kernels import ops
+    from repro_torch.obs.metrics import MetricsRegistry, set_registry
 
     out = {}
     # (a) session-tier sweep
@@ -1906,13 +2038,15 @@ def fleet_phase(torch, dev, st, *, sweep_full, sweep_default, twins, index):
                                             index)
     capz = zoned.zone_capacity
     plan = compile_query(spec, zoned)
-    search.reset_metrics()
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
     ops.reset_launch_counts()
     got = plan(zoned)
     torch.cuda.synchronize()
+    set_registry(prev)
     n_launch = ops.launch_counts()["query_topk_bias"]
     rounds = len(plan.shards) \
-        + search.metrics()["query_index_escalations_total"]
+        + reg.counter("query_index_escalations_total").total()
     engaged = all(zoned.indexes[z].engaged() for z in plan.shards)
     check(engaged, "every zone index engages at 1M")
     check(n_launch == 2 * rounds, f"sharded full_mix: {n_launch} "
@@ -1957,6 +2091,460 @@ def fleet_phase(torch, dev, st, *, sweep_full, sweep_default, twins, index):
 
 
 # ---------------------------------------------------------------- build
+# ----------------------------------------------------------------- step 13
+def tick_ms(wall_ms) -> dict:
+    return {"ticks": len(wall_ms),
+            "tick_ms_p50": float(np.percentile(wall_ms, 50)),
+            "tick_ms_p95": float(np.percentile(wall_ms, 95))}
+
+
+def span_split(tracer, n_ticks: int) -> dict:
+    """Host ms a tick in each traced span name (spans nest: an inner span's
+    time is inside its parent's)."""
+    acc = {}
+    for name, _, t0, t1, _, _ in tracer.events:
+        acc[name] = acc.get(name, 0.0) + (t1 - t0) * 1e3
+    return {k: v / n_ticks for k, v in sorted(acc.items())}
+
+
+def converged(eng) -> bool:
+    """Every client's map holds exactly the world's live set."""
+    live = eng.world.live_ids()
+    return all(set(m.ids.cpu().numpy()[m.active.cpu().numpy()].tolist())
+               == live for m in (s.dev.local for s in eng.sessions.values()))
+
+
+def network_drop_run(torch, dev, cfg, noise=None):
+    """examples/network_drop_session.py's scenario on ``dev``: the mapper
+    over the 240x320 keyframes, the stream cut after tick 8."""
+    from repro_torch.core import Knobs, MappingServer
+    from repro_torch.data.scenes import make_scene, scene_stream
+    from repro_torch.perception.embedder import OracleEmbedder
+    from repro_torch.sim import (ClientSpec, GridSpec, NetTrace, ObjectEvent,
+                                 PoseTrack, QueryPlan, Scenario,
+                                 ScenarioEngine)
+
+    scene = make_scene(n_objects=cfg["n_objects"], seed=cfg["scene_seed"])
+    classes = {o.oid: o.class_id for o in scene.objects}
+    E = cfg["embed_dim"]
+    emb = OracleEmbedder(embed_dim=E)
+    kn = Knobs(**cfg["knobs"])
+    srv = MappingServer(knobs=kn, embedder=emb, device=dev)
+    frames = list(scene_stream(scene, n_frames=cfg["n_frames"],
+                               keyframe_interval=cfg["keyframe_interval"],
+                               h=cfg["h"], w=cfg["w"]))
+    sc = Scenario(
+        seed=0, n_ticks=len(frames), tick_s=1.0, embed_dim=E, knobs=kn,
+        grid=GridSpec(room=scene.room_size, nx=1, nz=1), budget=64,
+        clients=(ClientSpec(
+            cid=0, net=NetTrace(rtt_ms=20.0, outages=((4.0, 8.0),)),
+            track=PoseTrack(anchor=(0.0, 1.5, 0.0), orbit_radius=0.0),
+            subscribe_radius=scene.room_size),),
+        events=(ObjectEvent(tick=9, kind="remove", oid=1),
+                ObjectEvent(tick=9, kind="remove", oid=2)),
+        query=QueryPlan(prob=0.6, radius=scene.room_size, k=3))
+    eng = ScenarioEngine(sc, mapper=srv,
+                         frames=frames[:cfg["stream_ticks"]],
+                         classes=classes, embedder=emb, noise=noise,
+                         device=dev)
+    return eng.run(), eng
+
+
+def sim_phase(torch, dev, *, deployment):
+    """Step 13: the scenario engine on the card.  (a) The golden churn
+    scenario: the committed snapshot, card = card, card = CPU port,
+    ``async_loop`` = sequential.  (b) scenario_suite's arms: the
+    reference's sent bytes on small and mid, large = CPU port; engine tick
+    ms.  (c) fault_tolerance's loss sweep and crash arm: the reference's
+    down bytes, every arm converged.  (d) The network-drop session, card =
+    CPU port with the same host-drawn noise, every SQ / LQ answer = the CPU
+    port's and held to the plain version; one lift_compact launch per
+    mapped keyframe and one query_topk_bias launch per SQ and LQ.  (e)
+    FleetSimulator at the paper's deployment over step 3's keyframes:
+    stats, tick ms, both kernels launched, every query_topk_bias call
+    held to the plain version, the card's MetricsLog and SQ answers
+    = the CPU port's over the first ticks."""
+    from repro_torch.core import Knobs, MappingServer
+    from repro_torch.data.scenes import make_scene, scene_stream
+    from repro_torch.kernels import ops
+    from repro_torch.obs.metrics import MetricsRegistry, set_registry
+    from repro_torch.obs.trace import Tracer, set_tracer
+    from repro_torch.perception.embedder import OracleEmbedder
+    from repro_torch.server import FleetSimulator, ZoneGrid
+    from repro_torch.serving.batching import resolve_results
+    from repro_torch.sim import (CrashEvent, FaultModel, MetricsLog,
+                                 ScenarioEngine, churn_scenario,
+                                 run_scenario)
+
+    cpu = torch.device("cpu")
+    out = {}
+
+    # (a) the golden churn scenario
+    sc = churn_scenario(**GOLDEN)
+    t0 = time.perf_counter()
+    card = run_scenario(sc, device=dev)
+    card_s = time.perf_counter() - t0
+    again = run_scenario(sc, device=dev)
+    overlapped = run_scenario(sc, device=dev, async_loop=True)
+    t0 = time.perf_counter()
+    host = run_scenario(sc, device=cpu)
+    cpu_s = time.perf_counter() - t0
+    try:
+        card.assert_matches_snapshot(json.loads(GOLDEN_SNAPSHOT.read_text()))
+    except AssertionError as e:
+        check(False, f"golden: {e}")
+    check(card.equals(again), f"golden: card != card in {card.diff(again)}")
+    check(card.equals(host), f"golden: card != CPU port in {card.diff(host)}")
+    check(card.equals(overlapped),
+          f"golden: async_loop != sequential in {card.diff(overlapped)}")
+    out["golden"] = {"summary": card.summary(), "card_s": card_s,
+                     "cpu_s": cpu_s}
+
+    # (b) scenario_suite's arms
+    out["suite"] = {}
+    for name, kw, want in SUITE:
+        kn = Knobs(**SUITE_KNOBS) if name == "large" else None
+        sc = churn_scenario(knobs=kn, **kw)
+        eng = ScenarioEngine(sc, device=dev)
+        t0 = time.perf_counter()
+        log = eng.run()
+        row = {"card_s": time.perf_counter() - t0, **tick_ms(eng.wall_ms),
+               "sent_bytes_total": log.summary()["exact"]["sent_bytes_total"],
+               "converged": converged(eng)}
+        check(row["converged"], f"scenario_suite {name}: converged")
+        if want is not None:
+            check(row["sent_bytes_total"] == want,
+                  f"scenario_suite {name}: sent_bytes_total "
+                  f"{row['sent_bytes_total']} != {want}")
+        else:
+            t0 = time.perf_counter()
+            host = run_scenario(sc, device=cpu)
+            row["cpu_s"] = time.perf_counter() - t0
+            check(log.equals(host), f"scenario_suite {name}: card != CPU "
+                  f"port in {log.diff(host)}")
+        out["suite"][name] = row
+
+    # (c) fault_tolerance's arms
+    out["fault_tolerance"] = {}
+    for loss, crash, want in FAULT_ARMS:
+        crashes = (CrashEvent(tick=FAULT_SHAPE["n_ticks"] // 2, cid=1,
+                              down_ticks=2),) if crash else ()
+        eng = ScenarioEngine(churn_scenario(
+            faults=FaultModel(seed=30, loss_prob=loss),
+            crash_events=crashes, **FAULT_SHAPE), device=dev)
+        log = eng.run()
+        s = log.summary()["exact"]
+        name = f"crash+loss={loss:g}" if crash else f"loss={loss:g}"
+        row = {"down_bytes": s["sent_bytes_total"],
+               "up_bytes": s["up_bytes_total"],
+               "packets_lost": s["packets_lost"],
+               "resync_requests": s["resync_requests"],
+               "converged": converged(eng), **tick_ms(eng.wall_ms)}
+        check(row["converged"], f"fault_tolerance {name}: converged")
+        check(row["down_bytes"] == want, f"fault_tolerance {name}: "
+              f"down_bytes {row['down_bytes']} != {want}")
+        out["fault_tolerance"][name] = row
+
+    # (d) the network-drop session; every SQ / LQ answer is recorded on
+    # both devices (the mapper path scores no hit against a world)
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
+    ops.reset_launch_counts()
+    run = {}
+    calls = topk_spy(ops, lambda: run.update(
+        card=network_drop_run(torch, dev, NETWORK_DROP)))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    set_registry(prev)
+    log, eng = run["card"]
+    mapped = reg.histogram("mapping_stage_ms").count(stage="ingest",
+                                                     mode="semanticxr")
+    s = log.summary()["exact"]
+    t0 = time.perf_counter()
+    host_calls = topk_spy(ops, lambda: run.update(
+        cpu=network_drop_run(torch, cpu, NETWORK_DROP)), keep=lambda i: False)
+    cpu_s = time.perf_counter() - t0
+    host = run["cpu"][0]
+    check(log.equals(host),
+          f"network drop: card != CPU port in {log.diff(host)}")
+    answers_err = same_topk_answers(torch, calls, host_calls)
+    check(0.0 <= answers_err <= SCORE_TOL,
+          f"network drop: card's SQ / LQ answers != the CPU port's "
+          f"(err {answers_err})")
+    held = hold_topk_calls(torch, calls, "network drop")
+    check(mapped > 0 and counts["lift_compact"] == mapped,
+          f"network drop: {counts['lift_compact']} lift_compact launches "
+          f"for {mapped} mapped keyframes")
+    queries = s["sq_queries"] + s["lq_queries"]
+    check(s["sq_queries"] > 0 and s["lq_queries"] > 0
+          and counts["query_topk_bias"] == queries,
+          f"network drop: {counts['query_topk_bias']} query_topk_bias "
+          f"launches for {s['sq_queries']} SQ + {s['lq_queries']} LQ")
+    check(int(log.sent_tomb_bytes[9:].sum()) == 18,
+          "network drop: two 9-byte tombstones on the wire")
+    out["network_drop"] = {"summary": s, "mapped_keyframes": mapped,
+                           "launches": counts, "cpu_s": cpu_s,
+                           "answers_max_err_vs_cpu": answers_err,
+                           "held_to_plain": held,
+                           **tick_ms(eng.wall_ms)}
+
+    # (e) FleetSimulator at the paper's deployment
+    kn, E = Knobs(), deployment["embed_dim"]
+    scene = make_scene(n_objects=deployment["n_objects"], seed=0)
+    classes = {o.oid: o.class_id for o in scene.objects}
+    frames = list(scene_stream(
+        scene, n_frames=deployment["n_frames"],
+        keyframe_interval=deployment["keyframe_interval"],
+        h=deployment["h"], w=deployment["w"]))
+    emb = OracleEmbedder(embed_dim=E)
+    grid = ZoneGrid.for_room(scene.room_size, 2, 2)
+    mk = lambda d: FleetSimulator(                         # noqa: E731
+        knobs=kn, embed_dim=E, n_clients=FLEET_SIM["n_clients"],
+        seed=FLEET_SIM["seed"], grid=grid, device=d)
+    sim = mk(dev)
+    tracer = Tracer()                    # unfenced: host wall per span
+    prev = set_tracer(tracer)
+    ops.reset_launch_counts()
+    run = {}
+    t0 = time.perf_counter()
+    calls = topk_spy(ops, lambda: run.update(stats=sim.run(
+        n_ticks=len(frames), mapper=MappingServer(
+            knobs=kn, embedder=emb, device=dev), frames=frames,
+        embedder=emb, classes=classes)))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    set_tracer(prev)
+    counts = ops.launch_counts()
+    stats = run["stats"]
+    held = hold_topk_calls(torch, calls, "FleetSimulator")
+    check(counts["lift_compact"] > 0 and counts["query_topk_bias"] > 0,
+          f"FleetSimulator launched both kernels: {counts}")
+    check(stats["unserved"] == 0 and stats["served"] == stats["sq_queries"],
+          "FleetSimulator: every SQ served")
+    # the CPU port over the first ticks: the same clients (drawn for the
+    # whole run), keyframes and per-tick noise, SQ through a scheduler as
+    # the simulator routes it
+    n = FLEET_SIM["cross_ticks"]
+    host_sim = mk(cpu)
+    host_sim._build_clients(len(frames))
+    host_map = MappingServer(knobs=kn, embedder=emb, device=cpu)
+    sched = host_sim._build_scheduler(lambda: host_map.store)
+    t0 = time.perf_counter()
+    host = ScenarioEngine(
+        dataclasses.replace(host_sim._scenario(len(frames)), n_ticks=n),
+        mapper=host_map, frames=frames[:n], classes=classes, embedder=emb,
+        server=host_sim.server, device=cpu,
+        query_hook=lambda cid, t, spec: sched.submit(spec),
+        tick_hook=lambda t: sched.step()).run()
+    cpu_s = time.perf_counter() - t0
+    head = MetricsLog(**{f: getattr(sim.log, f)[:n]
+                         for f in MetricsLog._FIELDS})
+    check(head.equals(host), f"FleetSimulator: card != CPU port over the "
+          f"first {n} ticks in {head.diff(host)}")
+    # every SQ of those ticks: the card's answer = the CPU port's
+    want = resolve_results(sched.drain())
+    got = resolve_results(sim.scheduler.done)
+    sq_err = same_results({r: got[r] for r in want if r in got}, want,
+                          exact=False)
+    check(len(want) > 0 and 0.0 <= sq_err <= SCORE_TOL,
+          f"FleetSimulator: the card's SQ answers over the first {n} ticks "
+          f"!= the CPU port's ({len(want)} requests, err {sq_err})")
+    out["fleet_simulator"] = {"stats": stats, "launches": counts,
+                              "held_to_plain": held,
+                              f"sq_answers_first_{n}_ticks": len(want),
+                              "sq_answers_max_err_vs_cpu": sq_err,
+                              "card_s": card_s,
+                              f"cpu_s_first_{n}_ticks": cpu_s,
+                              **tick_ms(sim.log.wall_ms),
+                              "span_ms_per_tick": span_split(
+                                  tracer, len(frames))}
+    emit("sim_phase", out)
+    return out
+
+
+# ----------------------------------------------------------------- step 14
+def serving_loop_build(torch, dev, cfg, *, overlap: bool, ticks: int):
+    """benchmarks/serving_loop.py's ``_build`` on the port."""
+    from repro_torch.core import Knobs
+    from repro_torch.core.store import SnapshotStore, synthetic_store
+    from repro_torch.server import FleetServer, ZoneGrid, ZoneShardedStore
+    from repro_torch.serving.loadgen import LoadGenerator, LoadSpec
+    from repro_torch.serving.loop import IngestStream, ServingLoop
+
+    kn = Knobs(server_capacity=cfg["cap"],
+               client_capacity=max(cfg["budget"] * 2, 64),
+               max_object_points_server=cfg["P"],
+               max_object_points_client=max(cfg["P"] // 8, 8),
+               min_obs_before_sync=1)
+    store = synthetic_store(cfg["n_live"], cfg["cap"], cfg["E"], cfg["P"],
+                            seed=7, centroid_low=(-7.0, 0.0, -7.0),
+                            centroid_high=(7.0, 2.0, 7.0), device=dev)
+    grid = ZoneGrid.for_room(16.0, cfg["nz"], cfg["nz"])
+    zoned = ZoneShardedStore(knobs=kn, embed_dim=cfg["E"], grid=grid,
+                             zone_capacity=cfg["zcap"], device=dev)
+    srv = FleetServer(knobs=kn, embed_dim=cfg["E"], n_clients=cfg["C"],
+                      grid=grid, budget=cfg["budget"], index=False,
+                      zoned=zoned, device=dev)
+    lg = LoadGenerator(LoadSpec(n_clients=cfg["C"], n_ticks=ticks,
+                                base_hz=cfg["base_hz"],
+                                burst_hz=cfg["burst_hz"]),
+                       embed_dim=cfg["E"], device=dev)
+    ing = IngestStream(n_ticks=ticks, n_live=cfg["n_live"],
+                       embed_dim=cfg["E"], max_points=cfg["P"],
+                       churn=cfg["churn"], seed=11, device=dev)
+    snap = SnapshotStore.of(store) if overlap \
+        else SnapshotStore(front=store)
+    for c in range(cfg["C"]):
+        srv.join(c, lg.pose_at(c, 0), 6.0)
+    return ServingLoop(server=srv, store=snap, ingest=ing, loadgen=lg,
+                       overlap=overlap, batch_size=cfg["batch"],
+                       max_batches_per_tick=cfg["max_batches"])
+
+
+def same_results(a: dict, b: dict, exact: bool) -> float:
+    """Max |score| difference of two loops' per-request results; -1 when
+    the request sets, oids or slots differ (or, ``exact``, any score)."""
+    if set(a) != set(b):
+        return -1.0
+    err = 0.0
+    for rid, r in a.items():
+        o = b[rid]
+        if not (np.array_equal(r.oids, o.oids)
+                and np.array_equal(r.slots, o.slots)):
+            return -1.0
+        fin = np.isfinite(r.scores)
+        if not np.array_equal(fin, np.isfinite(o.scores)):
+            return -1.0
+        d = float(np.abs(r.scores[fin] - o.scores[fin]).max()) \
+            if fin.any() else 0.0
+        if exact and not np.array_equal(r.scores, o.scores):
+            return -1.0
+        err = max(err, d)
+    return err
+
+
+def serving_loop_phase(torch, dev, cfg):
+    """Step 14: the serving loop at benchmarks/serving_loop.py's non-smoke
+    configuration.  The sync arm, then the overlapped arm (each after a
+    short warm-up run): every per-request result byte-identical, equal
+    sent bytes and final stores; ticks/s, tick ms, wait / e2e ms and the
+    query_topk_bias launches; in each arm every ``hold_every``-th
+    scheduler batch (the snapshot it read, its stacked queries and bias)
+    held to the plain version.  Then the overlapped arm once more with
+    ``enable_index`` (min_flat_size lowered so the 4096 live objects go
+    two-stage): results equal to the flat run's.  Last, one mapped
+    keyframe and one two-stage query under an installed registry: the
+    mapping stage and index metrics land in it."""
+    from repro_torch.core import Knobs, MappingServer, Query
+    from repro_torch.core.query import execute_query
+    from repro_torch.data.scenes import make_scene, scene_stream
+    from repro_torch.kernels import ops
+    from repro_torch.obs.metrics import MetricsRegistry, set_registry
+    from repro_torch.obs.trace import Tracer, set_tracer
+    from repro_torch.perception.embedder import OracleEmbedder
+
+    def arm(overlap, index=False):
+        warm = serving_loop_build(torch, dev, cfg, overlap=overlap,
+                                  ticks=cfg["warm_ticks"])
+        warm.run(cfg["warm_ticks"])
+        loop = serving_loop_build(torch, dev, cfg, overlap=overlap,
+                                  ticks=cfg["ticks"])
+        if index:
+            loop.enable_index(min_flat_size=cfg["index_min_flat"])
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        stats = {}
+        calls = topk_spy(ops, lambda: stats.update(loop.run(cfg["ticks"])),
+                         keep=lambda i: i % cfg["hold_every"] == 0)
+        torch.cuda.synchronize()
+        stats["launches"] = ops.launch_counts()
+        stats["held_to_plain"] = hold_topk_calls(
+            torch, calls, f"serving loop ({stats['mode']}"
+            f"{', indexed' if index else ''})")
+        return loop, stats
+
+    sync, s_stats = arm(False)
+    ovl, o_stats = arm(True)
+    # where a tick goes: a traced sync run (each of its dispatches ends in
+    # a synchronize, so a span holds its own device work)
+    traced = serving_loop_build(torch, dev, cfg, overlap=False,
+                                ticks=cfg["trace_ticks"])
+    tracer = Tracer()
+    prev = set_tracer(tracer)
+    traced.run(cfg["trace_ticks"])
+    set_tracer(prev)
+    split = span_split(tracer, cfg["trace_ticks"])
+    check(same_results(sync.results, ovl.results, exact=True) == 0.0,
+          "serving loop: sync and overlapped results byte-identical")
+    check(s_stats["n_queries_served"] == o_stats["n_queries_served"] > 0,
+          "serving loop: every request served in both arms")
+    check(s_stats["sent_bytes_total"] == o_stats["sent_bytes_total"] > 0,
+          "serving loop: equal sent_bytes_total")
+    check(all(torch.equal(a, b) for a, b in zip(sync.store.front,
+                                                ovl.store.front)
+              if a is not None), "serving loop: equal final stores")
+    for st in (s_stats, o_stats):
+        check(st["launches"]["query_topk_bias"] > 0,
+              f"serving loop ({st['mode']}): query_topk_bias launched")
+
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
+    idx_loop, i_stats = arm(True, index=True)
+    set_registry(prev)
+    err = same_results(ovl.results, idx_loop.results, exact=False)
+    check(0.0 <= err <= SCORE_TOL,
+          f"serving loop: indexed results = flat results (err {err})")
+    two_stage = reg.counter("query_index_two_stage_total").total()
+    check(two_stage > 0, "serving loop: the index served two-stage")
+    check(i_stats["sent_bytes_total"] == o_stats["sent_bytes_total"],
+          "serving loop: indexed run's sent bytes")
+
+    # the registry after one mapped keyframe and one two-stage query
+    kn = Knobs(max_detections_per_frame=16)
+    scene = make_scene(n_objects=25, seed=2)
+    classes = {o.oid: o.class_id for o in scene.objects}
+    frame = next(iter(scene_stream(scene, n_frames=5, keyframe_interval=5,
+                                   h=240, w=320)))
+    srv = MappingServer(knobs=kn, embedder=OracleEmbedder(embed_dim=256),
+                        device=dev)
+    st = idx_loop.store.front
+    spec = Query(embed=st.embed[0], k=5)
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
+    srv.process_frame(frame, classes, torch.Generator().manual_seed(0))
+    execute_query(st, spec, index=idx_loop.index)
+    set_registry(prev)
+    stages = reg.histogram("mapping_stage_ms")
+    registry = {"mapping_stage_ms": {
+        k: stages.count(stage=k, mode="semanticxr")
+        for k in ("detect", "ingest")},
+        "query_index_two_stage_total":
+            reg.counter("query_index_two_stage_total").total(),
+        "query_index_candidate_fraction":
+            reg.histogram("query_index_candidate_fraction").summary()}
+    check(registry["mapping_stage_ms"] == {"detect": 1, "ingest": 1},
+          f"StageTimes.record in the registry: {registry}")
+    check(registry["query_index_two_stage_total"] == 1
+          and registry["query_index_candidate_fraction"]["n"] == 1,
+          f"index metrics in the registry: {registry}")
+
+    keep = ("ticks_per_s", "tick_ms", "wait_ms", "e2e_ms",
+            "n_queries_served", "n_arrivals", "sent_bytes_total",
+            "launches", "held_to_plain")
+    out = {"config": {k: v for k, v in cfg.items()},
+           "arms": {st["mode"]: {k: st[k] for k in keep}
+                    for st in (s_stats, o_stats)},
+           "indexed": {**{k: i_stats[k] for k in keep},
+                       "two_stage_queries": two_stage,
+                       "max_score_err_vs_flat": err},
+           "overlap_speedup_x": o_stats["ticks_per_s"]
+           / max(s_stats["ticks_per_s"], 1e-9),
+           "sync_span_ms_per_tick": split,
+           "registry": registry}
+    emit("serving_loop_phase", out)
+    return out
+
+
 def kernel_resources(build) -> dict:
     """{source: {kernel: registers, static shared memory, spills}} from
     ptxas's ``-v`` report in each build log (dynamic shared memory is set
@@ -2085,6 +2673,9 @@ def main() -> int:
                   sweep_full=FLEET_FULL, sweep_default=FLEET_DEFAULT,
                   twins=TWINS, index=INDEX)
     del st
+    sim = timed("sim_phase", sim_phase, torch, dev, deployment=DEPLOYMENT)
+    loop_out = timed("serving_loop_phase", serving_loop_phase, torch, dev,
+                     SERVING_LOOP)
     emit("phase_seconds", phase_s)
     print(smi, flush=True)          # again, inside the tail of a long log
 
@@ -2096,7 +2687,11 @@ def main() -> int:
          "launches": launches["lift_compact"],
          "launched_on": "step 3 main path", **lift_row,
          "mapping_arms_launches": {a: arms[a]["launches"]["lift_compact"]
-                                   for a, _, _ in ARM_MODES}},
+                                   for a, _, _ in ARM_MODES},
+         "sim_launches": {
+             "network_drop": sim["network_drop"]["launches"]["lift_compact"],
+             "fleet_simulator":
+                 sim["fleet_simulator"]["launches"]["lift_compact"]}},
         {"name": "query_topk_bias", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/query_topk.cu",
          "replaces": "src/repro/kernels/query_topk.py:121",
@@ -2106,7 +2701,15 @@ def main() -> int:
          "index_shapes": index_topk, "any_k_shapes": any_k,
          "fleet_launches": {
              "fleet_server_query": fleet["fleet_server"]["query_launches"],
-             "sharded_full_mix_1M": fleet["sharded_query"]["launches"]}},
+             "sharded_full_mix_1M": fleet["sharded_query"]["launches"]},
+         "sim_launches": {
+             "network_drop":
+                 sim["network_drop"]["launches"]["query_topk_bias"],
+             "fleet_simulator":
+                 sim["fleet_simulator"]["launches"]["query_topk_bias"]},
+         "serving_loop_launches": {
+             mode: a["launches"]["query_topk_bias"]
+             for mode, a in loop_out["arms"].items()}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:93",

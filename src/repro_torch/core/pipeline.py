@@ -36,6 +36,7 @@ from repro_torch.core.store import ObjectStore, store_from_knobs
 from repro_torch.data.scenes import Frame
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import ops
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.perception.embedder import OracleEmbedder
 
 LIFT_BUFFER = 4096   # per-object lift cap (the reference's uncapped buffer)
@@ -55,13 +56,17 @@ class StageTimes:
                 self.associate_ms + self.ingest_ms)
 
     def record(self, mode: str) -> None:
-        """The reference feeds these walls to its metrics registry; the
-        port's registry (``repro_torch.obs``) exists, but wiring the
-        mapping stages into it comes with the serving loop."""
-        raise NotImplementedError(
-            "StageTimes.record: recording the stage walls into the port's "
-            "metrics registry (repro_torch.obs) is not wired yet: "
-            "ROADMAP.md section 2 item 3 lists it")
+        """Feed the per-stage wall times into the process-wide metrics
+        registry (``repro_torch.obs``; a no-op when none is installed)."""
+        reg = obs_metrics.get_registry()
+        if reg is None:
+            return
+        h = reg.histogram("mapping_stage_ms",
+                          "per-keyframe mapping stage wall time (ms)")
+        for stage in ("detect", "embed", "lift", "associate", "ingest"):
+            v = getattr(self, f"{stage}_ms")
+            if v > 0.0:
+                h.observe(v, stage=stage, mode=mode)
 
 
 def ingest_frame(store: ObjectStore, embedder: OracleEmbedder, knobs: Knobs,
@@ -161,6 +166,7 @@ class MappingServer:
         nd = len(cids_np)
         if nd == 0:
             self.frame_count += 1
+            times.record(self.mode)
             return times
 
         if isinstance(noise, torch.Generator):
@@ -185,6 +191,7 @@ class MappingServer:
             self._staged(times, nd, *args, noise)
         self._maintain_index()
         self.frame_count += 1
+        times.record(self.mode)
         return times
 
     def _staged(self, times: StageTimes, nd: int, depth_lo, masks, intr,

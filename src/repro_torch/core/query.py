@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.query_topk import NEG, topk_stable
+from repro_torch.obs import metrics as obs_metrics
 
 _DYN_FIELDS = ("embed", "sem_weight", "near", "aabb", "prox_weight",
                "min_points", "min_obs", "since", "density_weight")
@@ -323,10 +324,13 @@ def _select_shards(spec: Query, target) -> list:
 
 
 def _count_flat_fallback() -> None:
-    """An index-carrying target served by the flat sweep (below the
-    engagement threshold)."""
-    from repro_torch.index import search
-    search._METRICS["query_index_flat_total"] += 1
+    """Mark an index-carrying target served by the flat sweep (below the
+    engagement threshold) — the coverage counterpart of
+    ``query_index_two_stage_total``."""
+    reg = obs_metrics.get_registry()
+    if reg is not None:
+        reg.counter("query_index_flat_total",
+                    "index present but below min_flat_size: flat sweep").inc()
 
 
 @dataclass

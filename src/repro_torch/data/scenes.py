@@ -105,6 +105,19 @@ def render_frame(scene: Scene, idx: int, *, h: int = 120, w: int = 160,
     return _splat(scene, idx, pose, intr, h, w, min_pixels)
 
 
+def rerender_frame(scene: Scene, frame: Frame,
+                   *, min_pixels: int = 12) -> Frame:
+    """Re-render an existing frame's viewpoint against the CURRENT scene:
+    same pose / intrinsics / resolution, fresh depth + instance splat.
+    This is how a dynamic scene event (spawn / move / remove) becomes
+    visible to a mapping frontend that consumes pre-rendered frames — the
+    engine re-renders the tick's frame instead of replaying stale pixels.
+    Identical to ``render_frame`` when the scene hasn't changed."""
+    h, w = frame.depth.shape
+    return _splat(scene, frame.idx, frame.pose, frame.intrinsics, h, w,
+                  min_pixels)
+
+
 def _splat(scene: Scene, idx: int, pose: np.ndarray, intr: np.ndarray,
            h: int, w: int, min_pixels: int) -> Frame:
     fx, fy, cx, cy = (float(x) for x in intr)

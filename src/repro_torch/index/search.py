@@ -25,10 +25,11 @@ results — semantic (query x mean embedding) + proximity (to the cluster
 centroid) + ``density_weight * log1p(count)``, top-k cells as a
 ``ClusterResult``.
 
-The reference records three metrics through its ``obs`` registry; here
-they stay plain module counters under the same names (``metrics()`` /
-``reset_metrics()``) until ROADMAP.md section 2 item 3 wires them into the
-port's own registry (``repro_torch.obs``).
+Each two-stage query records ``query_index_two_stage_total``,
+``query_index_escalations_total`` and the
+``query_index_candidate_fraction`` histogram into the port's metrics
+registry (``repro_torch.obs``; a no-op when none is installed), as the
+reference does; ``core.query`` records ``query_index_flat_total``.
 """
 from __future__ import annotations
 
@@ -42,25 +43,17 @@ from repro_torch.core.query import (NEG, QueryResult, _Cols, _columns,
 from repro_torch.core.updates import bucket
 from repro_torch.kernels import ops
 from repro_torch.kernels.query_topk import topk_stable
+from repro_torch.obs import metrics as obs_metrics
 
 _C0 = 64              # initial stage-1 selection width (cells per query)
 _CERT_EPS = 1e-5      # f32 slack on the exactness certificate
 
-_METRICS = {"query_index_two_stage_total": 0,
-            "query_index_escalations_total": 0,
-            "query_index_flat_total": 0,
-            "query_index_candidate_fraction": []}
 
-
-def metrics() -> dict:
-    """{metric name: count, or the list of observed candidate fractions}."""
-    return {k: list(v) if isinstance(v, list) else v
-            for k, v in _METRICS.items()}
-
-
-def reset_metrics() -> None:
-    for k, v in _METRICS.items():
-        _METRICS[k] = [] if isinstance(v, list) else 0
+def candidate_fraction_buckets() -> tuple:
+    """Fixed log-spaced fraction buckets (1e-4 .. 1.0) for the
+    candidate-fraction histogram — stable across runs like
+    ``default_latency_buckets``."""
+    return tuple(round(10.0 ** (e / 4.0), 8) for e in range(-16, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -250,9 +243,18 @@ def two_stage_query(spec, target, index, *,
         m = min(2 * m, M)
         escalations += 1
 
-    _METRICS["query_index_two_stage_total"] += 1
-    _METRICS["query_index_escalations_total"] += escalations
-    _METRICS["query_index_candidate_fraction"].append(n_cand / max(cap_t, 1))
+    reg = obs_metrics.get_registry()
+    if reg is not None:
+        reg.counter("query_index_two_stage_total",
+                    "queries served by the cluster index").inc()
+        if escalations:
+            reg.counter("query_index_escalations_total",
+                        "certificate-failure selection doublings").inc(
+                            escalations)
+        reg.histogram("query_index_candidate_fraction",
+                      "stage-2 candidates / table size",
+                      bounds=candidate_fraction_buckets()).observe(
+                          n_cand / max(cap_t, 1))
     return res
 
 

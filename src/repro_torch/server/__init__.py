@@ -13,10 +13,8 @@
              shards; packets stay byte-identical to the single-device path.
 ``fleet``    FleetServer — zones x sessions, the hardened control plane
              (epochs, cumulative acks, ack-driven tombstone retirement) and
-             the zone-sharded query plane.
-
-The reference's FleetSimulator and SimClient come with the scenario
-engine (ROADMAP.md section 2 item 2).
+             the zone-sharded query plane; FleetSimulator / SimClient, the
+             seeded client fleet replayed through ``repro_torch.sim``.
 """
 from repro_torch.core.query import (Query, QueryResult, CompiledQuery,
                                     compile_query, execute_query,
@@ -26,10 +24,11 @@ from repro_torch.server.session import (FleetBatch, FleetPacket, FleetSync,
 from repro_torch.server.zones import ZoneGrid, ZoneShardedStore
 from repro_torch.server.mesh import (ClientRoster, MeshFleetPacket,
                                      MeshSessionTier)
-from repro_torch.server.fleet import FleetServer
+from repro_torch.server.fleet import (FleetServer, FleetSimulator,
+                                      SimClient)
 
 __all__ = ["Query", "QueryResult", "CompiledQuery", "compile_query",
            "execute_query", "stack_queries", "FleetBatch", "FleetPacket",
            "FleetSync", "SessionManager", "ZoneGrid", "ZoneShardedStore",
            "ClientRoster", "MeshFleetPacket", "MeshSessionTier",
-           "FleetServer"]
+           "FleetServer", "FleetSimulator", "SimClient"]

@@ -5,9 +5,14 @@ collect per *dirty* zone — never a Python loop over clients — and a client
 subscribed to quiet zones costs (and receives) nothing.  Each client's
 delivery / ingest / mode step is ``core.runtime.ClientSession``.
 
-The reference's ``FleetSimulator`` and ``SimClient`` drive the scenario
-engine (``repro.sim``), which the port does not have yet (ROADMAP.md
-section 2 item 2).
+``FleetSimulator`` drives tens-to-hundreds of clients against one mapped
+scene: heterogeneous NetworkModels (mixed RTTs / bandwidths, staggered
+outages), join / leave churn mid-session, per-client poses wandering the
+room (zone subscriptions follow), and SQ queries multiplexed through
+``serving.batching.BatchScheduler``.  It is a thin wrapper: it translates
+its seeded fleet parameters into a declarative ``sim.Scenario`` and replays
+it through ``sim.ScenarioEngine``, keeping only the stats-dict surface and
+the scheduler's query hook.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch
 
 from repro_torch.core.knobs import Knobs
 from repro_torch.core.query import Query, QueryResult, compile_query
+from repro_torch.core.runtime import ClientSession, NetworkModel
 from repro_torch.core.store import ObjectStore
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import span as obs_span
@@ -413,3 +419,177 @@ class FleetServer:
         accepted for the reference's signature and ignored."""
         return compile_query(spec, self.zoned,
                              use_pallas=use_pallas)(self.zoned)
+
+
+# ---------------------------------------------------------------------------
+@dataclass
+class SimClient:
+    cid: int
+    session: ClientSession             # the engine-owned per-tick step
+    anchor: np.ndarray                 # wander center
+    radius: float                      # zone-subscription radius
+    join_tick: int = 0
+    leave_tick: int = 10**9
+    active: bool = False
+    queries: int = 0
+    lq_ticks: int = 0
+    net: NetworkModel = None
+
+    def pose_at(self, t: float) -> np.ndarray:
+        ang = 0.15 * t + 0.7 * self.cid
+        return self.anchor + np.array([0.8 * np.cos(ang), 0.0,
+                                       0.8 * np.sin(ang)], np.float32)
+
+
+def _heterogeneous_net(rng, tick_s: float, n_ticks: int) -> NetworkModel:
+    """Mixed-quality links (paper Sec. 4.3 regimes) + staggered outages."""
+    rtt = float(rng.choice([20.0, 40.0, 66.0]))
+    bw = float(rng.choice([50.0, 100.0, 200.0]))
+    outages = ()
+    if rng.random() < 0.5:
+        start = float(rng.uniform(0, n_ticks * tick_s * 0.8))
+        outages = ((start, start + float(rng.uniform(1, 4) * tick_s)),)
+    return NetworkModel(rtt_ms=rtt, bandwidth_mbps=bw, outages=outages)
+
+
+@dataclass
+class FleetSimulator:
+    """Drive C simulated clients against one mapped scene for N ticks."""
+    knobs: Knobs
+    embed_dim: int
+    n_clients: int = 16
+    grid: ZoneGrid = None
+    budget: int = 32
+    seed: int = 0
+    tick_s: float = 1.0
+    churn: float = 0.25                # fraction of clients that join late
+    query_prob: float = 0.5
+    query_radius: float = 6.0          # SQ spatial predicate around the pose
+    device: str | torch.device = "cuda"
+    server: FleetServer = None
+    clients: list = field(default_factory=list)
+    scheduler: object = None
+    stats: dict = field(default_factory=dict)
+    log: object = None                 # the last run's sim.MetricsLog
+
+    def __post_init__(self):
+        if self.grid is None:
+            self.grid = ZoneGrid.for_room(8.0, nx=2, nz=2)
+        if self.server is None:
+            self.server = FleetServer(knobs=self.knobs,
+                                      embed_dim=self.embed_dim,
+                                      n_clients=self.n_clients,
+                                      grid=self.grid, budget=self.budget,
+                                      device=self.device)
+        self.device = self.server.device
+
+    def _build_clients(self, n_ticks: int):
+        rng = np.random.default_rng(self.seed)
+        half = self.grid.zone_size * max(self.grid.nx, self.grid.nz) / 2
+        self.clients = []
+        for c in range(self.n_clients):
+            net = _heterogeneous_net(rng, self.tick_s, n_ticks)
+            anchor = np.array([rng.uniform(-half * 0.8, half * 0.8), 1.5,
+                               rng.uniform(-half * 0.8, half * 0.8)],
+                              np.float32)
+            join = 0
+            leave = 10**9
+            if rng.random() < self.churn:
+                join = int(rng.integers(1, max(n_ticks // 2, 2)))
+            if rng.random() < self.churn / 2:
+                leave = int(rng.integers(n_ticks // 2, n_ticks))
+            # session is attached after the engine builds it (the engine
+            # owns DeviceClient/ClientSession; SimClient is the public view)
+            self.clients.append(SimClient(
+                cid=c, session=None, anchor=anchor, radius=1.5,
+                join_tick=join, leave_tick=leave, net=net))
+
+    def _build_scheduler(self, get_map):
+        from repro_torch.serving.batching import (BatchScheduler,
+                                                  make_query_step_fn)
+        bs = max(4, min(self.n_clients, 16))
+        return BatchScheduler(batch_size=bs,
+                              step_fn=make_query_step_fn(get_map, pad_to=bs))
+
+    def _scenario(self, n_ticks: int):
+        """Declarative Scenario mirroring this simulator's seeded fleet —
+        the engine replays it; the simulator itself only maps results back
+        to the stats dict."""
+        from repro_torch.sim.scenario import (ClientSpec, GridSpec, NetTrace,
+                                              PoseTrack, QueryPlan, Scenario)
+        specs = tuple(ClientSpec(
+            cid=cl.cid,
+            net=NetTrace(rtt_ms=cl.net.rtt_ms,
+                         bandwidth_mbps=cl.net.bandwidth_mbps,
+                         outages=cl.net.outages),
+            track=PoseTrack(anchor=tuple(float(x) for x in cl.anchor),
+                            orbit_radius=0.8, angular_rate=0.15,
+                            phase=0.7 * cl.cid),
+            join_tick=cl.join_tick, leave_tick=cl.leave_tick,
+            subscribe_radius=cl.radius) for cl in self.clients)
+        room = self.grid.zone_size * max(self.grid.nx, self.grid.nz)
+        return Scenario(
+            seed=self.seed, n_ticks=n_ticks, tick_s=self.tick_s,
+            embed_dim=self.embed_dim, knobs=self.knobs,
+            grid=GridSpec(room=room, nx=self.grid.nx, nz=self.grid.nz),
+            budget=self.budget, clients=specs,
+            query=QueryPlan(prob=self.query_prob, radius=self.query_radius,
+                            k=3))
+
+    def run(self, *, n_ticks: int = 30, mapper=None, frames=None,
+            embedder=None, classes=None, noise=None) -> dict:
+        """Run the fleet: a thin wrapper over sim.ScenarioEngine.
+
+        ``mapper`` + ``frames`` drive the mapping frontend (``noise`` is
+        the engine's per-tick noise hook, see ``ScenarioEngine``); SQ
+        queries ride ``serving.BatchScheduler`` via the engine's query hook,
+        so the scheduler stats (hedges/served) stay observable.
+        ``tick_ms_mean`` and ``hedges`` are wall-clock measurements."""
+        from repro_torch.sim.engine import ScenarioEngine
+        self._build_clients(n_ticks)
+        self.scheduler = self._build_scheduler(
+            lambda: mapper.store if mapper else None)
+        hedges0 = self.scheduler.hedge_count
+
+        def submit_sq(cid, t, spec):
+            self.scheduler.submit(spec)
+
+        engine = ScenarioEngine(
+            self._scenario(n_ticks), mapper=mapper,
+            frames=list(frames) if frames is not None else None,
+            classes=classes, embedder=embedder, server=self.server,
+            noise=noise, device=self.device,
+            query_hook=submit_sq if mapper is not None else None,
+            tick_hook=(lambda t: self.scheduler.step())
+            if mapper is not None else None)
+        for cl in self.clients:            # expose engine-owned sessions
+            cl.session = engine.sessions[cl.cid]
+        self.log = log = engine.run()
+
+        if mapper is not None:
+            self.scheduler.drain()      # serve every remaining submission
+        sq = log.queried * (log.mode_sq == 1)
+        lq = log.queried * (log.mode_sq == 0)
+        for cl in self.clients:
+            cl.active = bool(log.client_active[-1, cl.cid])
+            cl.queries = int(sq[:, cl.cid].sum())
+            cl.lq_ticks = int(lq[:, cl.cid].sum())
+        self.stats = {
+            "n_ticks": n_ticks,
+            "n_clients": self.n_clients,
+            "active_at_end": int(log.client_active[-1].sum()),
+            "tick_ms_mean": float(np.mean(engine.wall_ms))
+            if engine.wall_ms else 0.0,
+            "down_bytes_total": int(log.sent_bytes.sum()),
+            "down_bytes_per_client": int(log.sent_bytes.sum())
+            / max(self.n_clients, 1),
+            "delivered_packets": int(log.delivered.sum()),
+            "delayed_packets": int(log.delayed.sum()),
+            "sq_queries": int(sq.sum()),
+            "lq_fallbacks": int(lq.sum()),
+            "hedges": self.scheduler.hedge_count - hedges0,
+            "served": len(self.scheduler.done),
+            "unserved": len(self.scheduler.waiting),
+            "dropped_by_full_zone": self.server.zoned.dropped,
+        }
+        return self.stats

@@ -63,9 +63,12 @@ def _entry_points():
     from repro_torch.core.runtime import ClientSession, NetworkModel
     from repro_torch.models.api import model_api
     from repro_torch.perception.embedder import OracleEmbedder
-    from repro_torch.server import (FleetServer, MeshSessionTier,
-                                    SessionManager, ZoneGrid,
-                                    ZoneShardedStore)
+    from repro_torch.server import (FleetServer, FleetSimulator,
+                                    MeshSessionTier, SessionManager,
+                                    ZoneGrid, ZoneShardedStore)
+    from repro_torch.serving.loadgen import LoadGenerator, LoadSpec
+    from repro_torch.serving.loop import IngestStream
+    from repro_torch.sim import ScenarioEngine, WorldState, churn_scenario
     kn = Knobs(server_capacity=8, client_capacity=4,
                max_object_points_server=8, max_object_points_client=4)
     grid = ZoneGrid.for_room(8.0, 2, 2)
@@ -103,6 +106,17 @@ def _entry_points():
                                                      grid=grid),
         "FleetServer": lambda: FleetServer(knobs=kn, embed_dim=4,
                                            n_clients=2, grid=grid),
+        "FleetSimulator": lambda: FleetSimulator(knobs=kn, embed_dim=4,
+                                                 n_clients=2),
+        "ScenarioEngine": lambda: ScenarioEngine(churn_scenario(
+            n_objects=2, n_ticks=2, n_clients=1)),
+        "WorldState": lambda: WorldState(knobs=kn, embed_dim=4),
+        "IngestStream": lambda: IngestStream(n_ticks=2, n_live=4,
+                                             embed_dim=4, max_points=4,
+                                             churn=2),
+        "LoadGenerator": lambda: LoadGenerator(LoadSpec(n_clients=2,
+                                                        n_ticks=2),
+                                               embed_dim=4),
     }
 
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import obs as j_obs
 from repro.core import query as jquery
 from repro.core import store as jstore
 from repro.index import ClusterIndex as JClusterIndex
@@ -21,6 +22,7 @@ from repro.index import rebuilt as j_rebuilt
 from repro.index import summaries_equal as j_summaries_equal
 
 from repro_torch import convert
+from repro_torch import obs as t_obs
 from repro_torch.core import query as tquery
 from repro_torch.core import store as tstore
 from repro_torch.index import (ClusterIndex, ClusterResult, rebuilt, search,
@@ -159,7 +161,8 @@ def test_two_stage_matches_reference_and_flat_batched(built):
 
 def test_stage1_takes_the_kernel_and_metrics_count(built):
     """Stage 1 and stage 2 are calls of ops.query_topk_bias (the kernel on
-    the card); the reference's three metrics count as module counters."""
+    the card); the index's metrics land in the port's registry as the
+    reference's land in its own, and nothing is recorded without one."""
     jst, tst, jidx, tidx = built
     spec = tquery.Query(**_specs(N, jst, _t)["embed_spatial"])
     calls = []
@@ -169,20 +172,35 @@ def test_stage1_takes_the_kernel_and_metrics_count(built):
         calls.append((embeds.shape[0], k))
         return real(qs, embeds, bias, k)
 
-    search.reset_metrics()
+    reg = t_obs.MetricsRegistry()
+    prev = t_obs.set_registry(reg)
     search.ops.query_topk_bias = spy
     try:
         tquery.execute_query(tst, spec, index=tidx)
     finally:
         search.ops.query_topk_bias = real
+        t_obs.set_registry(prev)
     assert calls[0] == (tidx.grid.n_cells, min(64, tidx.grid.n_cells))
     assert any(n < N and k == 8 for n, k in calls[1:])
-    m = search.metrics()
-    assert m["query_index_two_stage_total"] == 1
-    assert len(m["query_index_candidate_fraction"]) == 1
-    assert 0 < m["query_index_candidate_fraction"][0] <= 1
-    search.reset_metrics()
-    assert search.metrics()["query_index_two_stage_total"] == 0
+
+    jreg = j_obs.MetricsRegistry()
+    jprev = j_obs.set_registry(jreg)
+    try:
+        jquery.execute_query(
+            jst, jquery.Query(**_specs(N, jst, jnp.asarray)["embed_spatial"]),
+            index=jidx)
+    finally:
+        j_obs.set_registry(jprev)
+    got, want = reg.snapshot(), jreg.snapshot()
+    assert got["counters"]["query_index_two_stage_total"] == {"_": 1}
+    assert got["counters"] == want["counters"]
+    frac = got["histograms"]["query_index_candidate_fraction"]["_"]
+    assert frac["n"] == 1 and 0 < frac["mean"] <= 1
+    assert frac == want["histograms"]["query_index_candidate_fraction"]["_"]
+
+    reg.clear()
+    tquery.execute_query(tst, spec, index=tidx)     # no registry installed
+    assert reg.snapshot() == {"counters": {}, "gauges": {}, "histograms": {}}
 
 
 def test_stage1_hands_the_kernel_m_past_1024(built):
@@ -284,14 +302,17 @@ def test_index_below_min_flat_size_falls_back_to_the_flat_sweep():
     jidx, tidx = _indexes(jst, tst, min_flat_size=1024)
     assert not tidx.engaged() and not jidx.engaged()
     spec = tquery.Query(embed=tst.embed[3], k=5)
-    search.reset_metrics()
-    got = tquery.compile_query(spec, tst, index=tidx)(tst)
-    assert search.metrics()["query_index_flat_total"] == 1
-    assert search.metrics()["query_index_two_stage_total"] == 0
+    reg = t_obs.MetricsRegistry()
+    prev = t_obs.set_registry(reg)
+    try:
+        got = tquery.compile_query(spec, tst, index=tidx)(tst)
+    finally:
+        t_obs.set_registry(prev)
+    assert reg.counter("query_index_flat_total").total() == 1
+    assert reg.counter("query_index_two_stage_total").total() == 0
     _same_topk(tquery.execute_query(tst, spec), got, tol=dict(rtol=0, atol=0))
     _same_topk(jquery.execute_query(
         jst, jquery.Query(embed=jst.embed[3], k=5), index=jidx), got)
-    search.reset_metrics()
 
 
 # ------------------------------------- incremental == rebuild after churn

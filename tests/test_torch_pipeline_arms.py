@@ -17,17 +17,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro import obs as j_obs
 from repro.core import Knobs as JKnobs
 from repro.core import MappingServer as JMappingServer
 from repro.core import association as jassoc
 from repro.core import geometry as jgeo
 from repro.core import store as jstore
 from repro.core import updates as jupd
+from repro.core.pipeline import StageTimes as JStageTimes
 from repro.core.runtime import DeviceClient as JDeviceClient
 from repro.data.scenes import make_scene, scene_stream
 from repro.perception.embedder import OracleEmbedder as JOracleEmbedder
 
 from repro_torch import convert
+from repro_torch import obs as t_obs
 from repro_torch.core import Knobs, MappingServer, Query
 from repro_torch.core import association as tassoc
 from repro_torch.core import geometry as tgeo
@@ -146,8 +149,23 @@ def test_modes_and_stage_record():
     with pytest.raises(ValueError):
         MappingServer(knobs=kn, embedder=OracleEmbedder(embed_dim=E),
                       mode="fused", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        StageTimes().record("semanticxr")
+    # record: a no-op without a registry; with one, the reference's
+    # histogram series, stage by stage
+    times = dict(detect_ms=1.5, embed_ms=0.0, lift_ms=2.25, ingest_ms=7.0)
+    StageTimes(**times).record("semanticxr")
+    reg, jreg = t_obs.MetricsRegistry(), j_obs.MetricsRegistry()
+    prev, jprev = t_obs.set_registry(reg), j_obs.set_registry(jreg)
+    try:
+        for mode in ("semanticxr", "baseline"):
+            StageTimes(**times).record(mode)
+            JStageTimes(**times).record(mode)
+    finally:
+        t_obs.set_registry(prev)
+        j_obs.set_registry(jprev)
+    assert reg.snapshot() == jreg.snapshot()
+    h = reg.histogram("mapping_stage_ms")
+    assert h.count(stage="lift", mode="baseline") == 1
+    assert h.count(stage="embed", mode="semanticxr") == 0
 
 
 def test_mapping_server_index_serves_cloud_queries():
