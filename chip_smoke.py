@@ -122,7 +122,30 @@
     wait / e2e ms and query_topk_bias launches; the overlapped arm again
     with ``enable_index`` (two-stage), equal to the flat results; and
     ``StageTimes.record`` and the index metrics in an installed registry
-    after one mapped keyframe and one two-stage query.
+    after one mapped keyframe and one two-stage query;
+15. the flash-attention gradient (``flash_bwd_checks``):
+    ``flash_attention_bwd_cuda`` against ``flash_attention_bwd_plain`` on
+    the card at the captioner's training shape (B = 8, S = 256, H = 12,
+    Kv = 4, dh = 64, causal, bf16 and f32) and at S = 200 and 129 (ragged
+    tiles), window 32, softcap 30, non-causal, G = 1, dh = 128 and S = 1024,
+    within ATTN_TOL, with the same bits from two calls; autograd through
+    ``ops.flash_attention_bshd`` launches it once and returns its bits; its
+    time beside its bound, the plain version and SDPA's backward;
+16. training (``train_phase``): (a) ``repro_torch.launch.train.main`` on
+    the full-width bf16 captioner, B = 8, S = 256, 200 steps, counters
+    reset just before and read just after (12 flash forward and 12
+    backward launches every step; every loss finite, the mean of the last
+    10 under half that of the first 10): step ms p50 / p95, tokens/s, peak
+    bytes, the loss at steps 1, 50, 100, 200; (b) ``--kill-at 6`` of 12
+    with checkpoints every 4 exits 42, the checkpoint restores bit-equal to
+    the parameters saved, and the rerun resumes from step 4 and finishes;
+    (c) ``--compress-grads`` for 4 steps; (d) 3 f32 train steps at B = 1,
+    S = 256 on the card and on the CPU port from the same weights (loss,
+    grad norm, masters within TRAIN_REPLAY_TOL); (e) a ``torch.profiler``
+    window over 3 train steps; (f) the mini-CLIP towers at
+    ``examples/train_perception.py``'s shape (batch 16, 300 steps, a
+    60-object scene): losses, retrieval top-1 over 6 held-out batches, the
+    card's first 10 losses = the CPU port's; no kernel launched.
 
 ``nearest_dist`` has no caller on any system path: its phase drives its
 entry point, ``ops.nearest_dist``, at a chamfer and a centroid shape.
@@ -279,6 +302,19 @@ SERVING_LOOP = dict(C=256, ticks=120, n_live=4096, cap=131072, E=128, P=128,
                     max_batches=2, base_hz=1.0, burst_hz=8.0,
                     warm_ticks=6, trace_ticks=40, index_min_flat=1024,
                     hold_every=25)
+# step 15 holds flash_attention_bwd to its plain version with ATTN_TOL.
+# step 16: the reference trainer's own example (launch/train.py docstring),
+# kill / resume, compression, the f32 replay, a profiler window, and
+# examples/train_perception.py's mini-CLIP run
+TRAIN = dict(arch="semanticxr-captioner-110m", steps=200, batch=8, seq=256,
+             kill=dict(steps=12, ckpt_every=4, kill_at=6), compress=4,
+             replay=dict(batch=1, seq=256, steps=3), profile_steps=3,
+             clip=dict(batch=16, steps=300, n_objects=60, scene_seed=5,
+                       eval_batches=6, cross_steps=10))
+# card vs CPU port, relative: f32 products in another order through 12
+# layers and their gradients; the masters as an L2 norm over every leaf
+TRAIN_REPLAY_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "master": 1e-4}
+CLIP_CROSS_TOL = 1e-4    # mini-CLIP loss, card vs CPU, first 10 steps
 
 
 def check(cond, what: str) -> None:
@@ -949,9 +985,11 @@ def profile_phase(torch, dev, loop, *, embed_dim, h, w, n_frames,
     return out
 
 
-def profile_summary(prof, wall_ms: float) -> dict:
+def profile_summary(prof, wall_ms: float, kernels=()) -> dict:
     """Device-busy share, host syncs and top kernels / CPU ops of a
-    ``torch.profiler`` window that lasted ``wall_ms`` on the host."""
+    ``torch.profiler`` window that lasted ``wall_ms`` on the host; with
+    ``kernels``, the device ms of every kernel whose name holds each
+    substring (``kernel_ms``)."""
     from torch.autograd import DeviceType
 
     ev = prof.key_averages()
@@ -965,7 +1003,10 @@ def profile_summary(prof, wall_ms: float) -> dict:
         return [{"name": e.key[:60], "calls": e.count, "ms": key(e) / 1e3}
                 for e in sorted(rows, key=key, reverse=True)[:10]]
 
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    extra = {"kernel_ms": {k: sum(e.self_device_time_total for e in on_dev
+                                  if k in e.key) / 1e3 for k in kernels}} \
+        if kernels else {}
+    return {**extra, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
             "host_syncs": {e.key: e.count for e in ev if e.key in SYNC_OPS},
             "cpu_ops": sum(e.count for e in aten),
@@ -973,7 +1014,7 @@ def profile_summary(prof, wall_ms: float) -> dict:
             "top_cpu_ops": top(aten, lambda e: e.self_cpu_time_total)}
 
 
-def profiled(torch, fn) -> dict:
+def profiled(torch, fn, kernels=()) -> dict:
     """``profile_summary`` of one call of ``fn`` (ending in a synchronize)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -984,7 +1025,7 @@ def profiled(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return profile_summary(prof, wall_ms)
+    return profile_summary(prof, wall_ms, kernels)
 
 
 # ------------------------------------------------------------------ step 5
@@ -2545,6 +2586,428 @@ def serving_loop_phase(torch, dev, cfg):
     return out
 
 
+# ----------------------------------------------------------------- step 15
+def bwd_cost(q, k, causal, window, elt):
+    """(bytes, flops) of one attention gradient: q, k, v, o and do read and
+    dq, dk, dv written once; five products of 2 * dh flops for each
+    (query, key) pair the masks keep (the forward's two, times 5 / 2)."""
+    _, fwd_flops = attn_cost(q, k, causal, window, elt)
+    return 4 * (q.numel() + k.numel()) * elt, 5 * fwd_flops // 2
+
+
+def flash_bwd_checks(torch, clock, dev):
+    """``flash_attention_bwd_cuda`` against ``flash_attention_bwd_plain`` on
+    the card: the captioner's training shape in bf16 and f32, ragged S,
+    window, softcap, non-causal, G = 1, dh = 128 and S = 1024; two calls
+    give the same bits; autograd through ``ops.flash_attention_bshd``
+    launches it once and returns its bits; timed beside its bound, the
+    plain version and SDPA's backward."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(8, 256, 12, 4, 64, bf, True, 0, 0.0),      # training shape
+             (8, 256, 12, 4, 64, f32, True, 0, 0.0),
+             (2, 200, 12, 4, 64, bf, True, 0, 0.0),      # ragged tiles
+             (2, 129, 12, 4, 64, f32, True, 0, 0.0),
+             (1, 256, 4, 4, 64, bf, True, 32, 0.0),      # window 32
+             (1, 256, 4, 2, 64, f32, True, 0, 30.0),     # softcap 30
+             (2, 200, 4, 4, 64, bf, False, 0, 0.0),      # non-causal, G = 1
+             (2, 129, 4, 4, 128, f32, False, 0, 0.0),    # ... dh = 128
+             (1, 1024, 12, 4, 128, bf, True, 0, 0.0),    # S = 1024
+             (1, 1024, 4, 4, 64, f32, True, 32, 30.0),
+             (2, 333, 12, 4, 128, bf, True, 100, 30.0)]  # every option, GQA
+    rows, timed = [], {}
+    for i, (B, S, H, Kv, dh, dt, causal, window, cap) in enumerate(cases):
+        q, k, v = attn_inputs(torch, B, S, H, Kv, dh, dt, 100 + i, dev)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o = fa.flash_attention_cuda(q, k, v, **kw)
+        g = torch.Generator(device=dev).manual_seed(200 + i)
+        do = torch.randn(o.shape, generator=g, device=dev).to(dt)
+        got = fa.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+        again = fa.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+        torch.cuda.synchronize()
+        tol = ATTN_TOL[str(dt).split(".")[-1]]
+        errs = {}
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            d = (a.float() - b.float()).abs()
+            errs[name] = float(d.max())
+            check(bool((d <= tol + tol * b.float().abs()).all())
+                  and bool(torch.isfinite(a).all()),
+                  f"flash_attention_bwd {name} err {errs[name]} at "
+                  f"{(B, S, H, Kv, dh, str(dt), causal, window, cap)}")
+        same = same_bits(torch, [t.view(torch.int16) if t.dtype == bf else t
+                                 for t in got],
+                         [t.view(torch.int16) if t.dtype == bf else t
+                          for t in again])
+        check(same, f"flash_attention_bwd same bits twice at case {i}")
+        tag = dict(B=B, S=S, H=H, Kv=Kv, dh=dh, dtype=str(dt), **kw)
+        rows.append({**tag, "max_abs_err": errs, "same_bits_twice": same})
+        if i < 2:
+            timed[i] = (q, k, v, o, do, kw, max(errs.values()))
+    emit("flash_attention_bwd_checks", rows)
+
+    # autograd through the model's entry point launches the kernel once
+    q, k, v, o, do, kw, _ = timed[0]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention_bshd(*leaves, **kw)
+    n0 = fa.bwd_launches
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    direct = fa.flash_attention_bwd_cuda(q, k, v, out.detach(), do, **kw)
+    check(fa.bwd_launches - n0 == 2, "autograd launched the backward kernel "
+          f"once ({fa.bwd_launches - n0 - 1} launches)")
+    check(torch.equal(out.detach(), o), "autograd forward = the kernel's")
+    check(all(torch.equal(a, b) for a, b in zip(grads, direct)),
+          "autograd's gradients = the kernel's direct output")
+
+    row = {}
+    for i, key in ((0, ""), (1, "f32_")):
+        q, k, v, o, do, kw, err = timed[i]
+        elt = q.element_size()
+        nbytes, flops = bwd_cost(q, k, True, 0, elt)
+        peak = BF16_FLOP_PER_S if elt == 2 else FP32_FLOP_PER_S
+        t_ops = flops / peak * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        sq, sk, sv = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        so = torch.nn.functional.scaled_dot_product_attention(
+            sq, sk, sv, is_causal=True, enable_gqa=True)
+        sdo = do.transpose(1, 2)
+        row.update({
+            key + "ms": clock.ms(lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, o, do, **kw)),
+            key + "plain_ms": clock.ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, do, **kw)),
+            key + "bound_ms": max(t_ops, t_bytes),
+            key + "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            key + "library_ms": clock.ms(lambda: torch.autograd.grad(
+                so, (sq, sk, sv), sdo, retain_graph=True)),
+            key + "max_abs_err": err, key + "flops": flops,
+            key + "bytes": nbytes,
+            key + "shape": f"B={q.shape[0]} S={q.shape[1]} H={q.shape[2]} "
+                           f"Kv={k.shape[2]} dh={q.shape[3]} "
+                           f"{'bf16' if elt == 2 else 'f32'} causal"})
+    row["library"] = ("SDPA backward through autograd (backward only, "
+                      "timed with retain_graph)")
+    emit("flash_attention_bwd_time", row)
+    return row
+
+
+# ----------------------------------------------------------------- step 16
+def train_run(torch, dev, argv, on_step=None):
+    """``repro_torch.launch.train.main(argv)`` on ``dev``, its standard
+    output captured: (returned parameters or the SystemExit code, output)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            out = train.main(argv, device=dev, on_step=on_step)
+        except SystemExit as e:           # --kill-at's simulated failure
+            out = e.code
+    sys.stdout.write(buf.getvalue())
+    sys.stdout.flush()
+    return out, buf.getvalue()
+
+
+def replay_train(torch, dev, cfg, *, batch, seq, steps):
+    """``steps`` f32 train steps of the full-width captioner from the same
+    seeded weights on the card and on the CPU port (plain versions)."""
+    from repro_torch import convert
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import model_api
+    from repro_torch.models import common as cm
+    from repro_torch.optim import adamw
+
+    cfg = cfg.replace(dtype=torch.float32)
+    ocfg = adamw.AdamWConfig(warmup_steps=1, total_steps=steps)
+    cpu = model_api(cfg).init(torch.Generator().manual_seed(1), device="cpu")
+    it = batch_iterator(batch, seq, seed=3, vocab_size=cfg.vocab_size)
+    batches = [torch.from_numpy(next(it)["tokens"]) for _ in range(steps)]
+    runs = {}
+    for where, lm in (("card", convert.lm_params_from_numpy(
+            cfg, convert.lm_params_to_tree(cpu), device=dev)), ("cpu", cpu)):
+        lm.requires_grad_(True)
+        opt = adamw.init_opt_state(lm, ocfg)
+        step = build_train_step(cfg, ocfg)
+        t0 = time.perf_counter()
+        hist = []
+        for toks in batches:
+            lm, opt, m = step(lm, opt, {"tokens": toks.to(lm.device)})
+            hist.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+        runs[where] = (hist, dict(cm.leaves(opt.master)),
+                       time.perf_counter() - t0)
+    (gh, gm, gs), (ch, cmast, cs) = runs["card"], runs["cpu"]
+    rel = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(gh, ch))
+           for k in ("loss", "grad_norm")}
+    num = sum(float(((gm[p].cpu() - cmast[p]) ** 2).sum()) for p in cmast)
+    den = sum(float((cmast[p] ** 2).sum()) for p in cmast)
+    master_rel = (num / den) ** 0.5
+    master_max = max(float((gm[p].cpu() - cmast[p]).abs().max())
+                     for p in cmast)
+    check(rel["loss"] <= TRAIN_REPLAY_TOL["loss"],
+          f"train replay loss rel err {rel['loss']}")
+    check(rel["grad_norm"] <= TRAIN_REPLAY_TOL["grad_norm"],
+          f"train replay grad norm rel err {rel['grad_norm']}")
+    check(master_rel <= TRAIN_REPLAY_TOL["master"],
+          f"train replay master rel err {master_rel}")
+    return {"batch": batch, "seq": seq, "steps": steps, "card": gh,
+            "cpu": ch, "rel_err": rel, "master_rel_err_l2": master_rel,
+            "master_max_abs_err": master_max, "card_s_host": gs,
+            "cpu_s_host": cs, "tolerance": TRAIN_REPLAY_TOL}
+
+
+def clip_phase(torch, dev, *, batch, steps, n_objects, scene_seed,
+               eval_batches, cross_steps):
+    """examples/train_perception.py's run on the port: ClipConfig(), AdamW
+    (lr 1e-3, warmup 20, decay 0.01), on the card and, for the first
+    ``cross_steps`` steps, on the CPU port from the same weights."""
+    from repro_torch.data.scenes import N_CLASSES, make_scene
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.perception import clip as clip_mod
+
+    ccfg = clip_mod.ClipConfig()
+    ocfg = adamw.AdamWConfig(lr=1e-3, total_steps=steps, warmup_steps=20,
+                             weight_decay=0.01)
+    scene = make_scene(n_objects=n_objects, seed=scene_seed)
+    classes = {o.oid: o.class_id for o in scene.objects}
+
+    def run(device, n):
+        params = clip_mod.init_clip_params(
+            ccfg, torch.Generator().manual_seed(0), device=device)
+        for p in params.values():
+            p.requires_grad_(True)
+        opt = adamw.init_opt_state(params, ocfg)
+        it = clip_mod.pair_batches(scene, classes, batch=batch,
+                                   device=device)
+        losses = []
+        for _ in range(n):
+            b = next(it)
+            b.pop("class_ids")
+            loss, _ = clip_mod.clip_loss(params, b, ccfg)
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+            params, opt, _ = adamw.adamw_update(grads, opt, params, ocfg)
+            losses.append(loss.detach())
+        return params, [float(x) for x in losses]
+
+    before = dict(ops.launch_counts())
+    t0 = time.perf_counter()
+    params, losses = run(dev, steps)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    eval_it = clip_mod.pair_batches(scene, classes, batch=16, seed=99,
+                                    device=dev)
+    all_toks = torch.from_numpy(np.stack([clip_mod.class_tokens(c)
+                                          for c in range(N_CLASSES)])).to(dev)
+    hits = tot = 0
+    with torch.no_grad():
+        te = clip_mod.encode_text(params, all_toks, ccfg)
+        for _ in range(eval_batches):
+            b = next(eval_it)
+            oe = clip_mod.encode_object(params, b["crops"], b["stats"], ccfg)
+            pred = torch.argmax(oe @ te.T, dim=1).cpu().numpy()
+            hits += int((pred == b["class_ids"]).sum())
+            tot += len(pred)
+    launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    _, cpu_losses = run("cpu", cross_steps)
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses[:cross_steps],
+                                                  cpu_losses))
+    check(all(np.isfinite(losses)), "mini-CLIP losses finite")
+    check(err <= CLIP_CROSS_TOL, f"mini-CLIP card vs CPU loss rel err {err}")
+    check(not any(launched.values()), f"mini-CLIP launched {launched}")
+    check(hits / tot > 1.0 / N_CLASSES, f"retrieval {hits}/{tot} at chance")
+    return {"config": dataclasses.asdict(ccfg), "batch": batch,
+            "steps": steps, "n_objects": n_objects,
+            "loss_at": {s: losses[s - 1] for s in range(50, steps + 1, 50)},
+            "retrieval_top1": hits / tot, "retrieval_hits": [hits, tot],
+            "chance": 1.0 / N_CLASSES, "card_s_host": card_s,
+            "cross_steps": cross_steps, "cross_loss_rel_err": err,
+            "kernels_launched": 0,
+            "note": "no hand-written kernel on this path: the towers are "
+                    "small dense products (torch.matmul)"}
+
+
+def train_phase(torch, dev, *, arch, steps, batch, seq, kill, compress,
+                replay, profile_steps, clip):
+    """(a) the full-width captioner trained by repro_torch.launch.train on
+    the card; (b) kill and resume; (c) --compress-grads; (d) the f32
+    card-vs-CPU replay; (e) a profiler window over train steps; (f) the
+    mini-CLIP towers."""
+    import shutil
+
+    from repro_torch import convert
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import common as cm
+    from repro_torch.optim import adamw
+
+    cfg = get_config(arch)
+    work = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(work, ignore_errors=True)
+    base = ["--arch", arch, "--batch", str(batch), "--seq", str(seq)]
+    out = {}
+
+    # (a) training, counters reset just before and read just after
+    walls, losses, per_step = [], [], []
+    last = {"t": 0.0, "n": (0, 0)}
+
+    def on_step(step, m, params):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls.append((now - last["t"]) * 1e3)
+        last["t"] = now
+        losses.append(float(m["loss"]))
+        c = ops.launch_counts()
+        n = (c["flash_attention"], c["flash_attention_bwd"])
+        per_step.append((n[0] - last["n"][0], n[1] - last["n"][1]))
+        last["n"] = n
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # earlier steps' tensors
+    ops.reset_launch_counts()
+    last["t"] = time.perf_counter()
+    t0 = last["t"]
+    model, log = train_run(torch, dev, base + [
+        "--steps", str(steps), "--ckpt-dir", str(work / "a"),
+        "--ckpt-every", "0", "--log-every", "50"], on_step)
+    total_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)) and len(losses) == steps,
+          "every training loss finite")
+    first, last10 = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(last10 < 0.5 * first, f"loss fell below half its start: mean of "
+          f"the first 10 {first}, of the last 10 {last10}")
+    check(all(n == (cfg.n_layers, cfg.n_layers) for n in per_step),
+          f"{cfg.n_layers} flash forward and backward launches a step: "
+          f"{sorted(set(per_step))}")
+    check("training complete" in log, "the trainer finished")
+    steady = walls[1:]
+    out["train"] = {
+        "config": cfg.name, "dtype": str(cfg.dtype), "batch": batch,
+        "seq": seq, "steps": steps,
+        "params": sum(p.numel() for p in model.parameters()),
+        "step_ms_first": walls[0],
+        "step_ms_p50": float(np.percentile(steady, 50)),
+        "step_ms_p95": float(np.percentile(steady, 95)),
+        "tokens_per_s": batch * seq / float(np.percentile(steady, 50)) * 1e3,
+        "tokens_per_s_overall": batch * seq * steps / total_s,
+        "max_memory_allocated_bytes": peak,
+        "allocated_before_bytes": held,
+        "training_peak_bytes": peak - held,
+        "loss_at": {s: losses[s - 1] for s in (1, 50, 100, steps)
+                    if s <= steps},
+        "mean_loss_first_10": first, "mean_loss_last_10": last10,
+        "flash_launches_per_step": {"flash_attention": per_step[0][0],
+                                    "flash_attention_bwd": per_step[0][1]},
+        "launches": launches}
+    emit("train_phase", out["train"])
+
+    # (b) kill at step 6 of 12, checkpoints every 4; the rerun resumes
+    kdir = work / "b"
+    saved = {}
+
+    def snap(step, m, params):
+        if step == kill["ckpt_every"]:
+            saved["tree"] = convert.lm_params_to_tree(params)
+
+    code, _ = train_run(torch, dev, base + [
+        "--steps", str(kill["steps"]), "--ckpt-dir", str(kdir),
+        "--ckpt-every", str(kill["ckpt_every"]), "--kill-at",
+        str(kill["kill_at"])], snap)
+    check(code == 42, f"--kill-at exits 42 (got {code!r})")
+    ck = kdir / cfg.name
+    check(ckpt_mod.latest_step(ck) == kill["ckpt_every"],
+          f"latest checkpoint after the kill: {ckpt_mod.latest_step(ck)}")
+    back = ckpt_mod.restore(ck, kill["ckpt_every"], saved["tree"],
+                            device=dev)
+    bit_equal = same_bits(
+        torch, [a.cpu().view(torch.int16) for _, a in cm.leaves(back)],
+        [b.view(torch.int16) for _, b in cm.leaves(saved["tree"])])
+    check(bit_equal, "restored parameters bit-equal to the saved ones")
+    seen = []
+    model_b, log = train_run(torch, dev, base + [
+        "--steps", str(kill["steps"]), "--ckpt-dir", str(kdir),
+        "--ckpt-every", str(kill["ckpt_every"])],
+        lambda s, m, p: seen.append((s, float(m["loss"]))))
+    check(f"[restore] resuming from step {kill['ckpt_every']}" in log
+          and "training complete" in log, "the rerun resumed and finished")
+    check([s for s, _ in seen] == list(range(kill["ckpt_every"] + 1,
+                                             kill["steps"] + 1)),
+          f"resumed steps {[s for s, _ in seen]}")
+    check(all(np.isfinite(x) for _, x in seen), "resumed losses finite")
+    out["kill_resume"] = {**kill, "exit_code": code,
+                          "resumed_from": kill["ckpt_every"],
+                          "restored_bit_equal": bit_equal,
+                          "resumed_losses": seen}
+    emit("train_kill_resume", out["kill_resume"])
+
+    # (c) int8 error-feedback compression
+    comp = []
+    train_run(torch, dev, base + [
+        "--steps", str(compress), "--ckpt-dir", str(work / "c"),
+        "--ckpt-every", "0", "--compress-grads"],
+        lambda s, m, p: comp.append(float(m["loss"])))
+    check(len(comp) == compress and all(np.isfinite(comp)),
+          f"--compress-grads losses {comp}")
+    out["compress_grads"] = {"steps": compress, "losses": comp}
+    emit("train_compress_grads", out["compress_grads"])
+
+    # (d) f32 card vs CPU port
+    out["replay"] = replay_train(torch, dev, cfg, **replay)
+    emit("train_replay", out["replay"])
+
+    # (e) where a train step's time goes
+    ocfg = adamw.AdamWConfig(total_steps=profile_steps)
+    opt = adamw.init_opt_state(model, ocfg)
+    step = build_train_step(cfg, ocfg)
+    it = batch_iterator(batch, seq, seed=5, vocab_size=cfg.vocab_size)
+    toks = [torch.from_numpy(next(it)["tokens"]).to(dev)
+            for _ in range(profile_steps + 1)]
+    state = {"lm": model, "opt": opt}
+
+    def steps_fn(ts):
+        for t in ts:
+            state["lm"], state["opt"], _ = step(state["lm"], state["opt"],
+                                                {"tokens": t})
+    steps_fn(toks[:1])                       # warm
+    prof = profiled(torch, lambda: steps_fn(toks[1:]),
+                    kernels=("flash_wgmma", "flash_bwd"))
+    flash = prof["kernel_ms"]
+    prof.update({
+        "steps": profile_steps,
+        "device_busy_ms_per_step": prof["device_busy_ms"] / profile_steps,
+        "cpu_ops_per_step": prof["cpu_ops"] / profile_steps,
+        "host_syncs_per_step": {k: v / profile_steps
+                                for k, v in prof["host_syncs"].items()},
+        "flash_forward_ms": flash["flash_wgmma"],
+        "flash_backward_ms": flash["flash_bwd"],
+        "flash_share_of_device": (flash["flash_wgmma"] + flash["flash_bwd"])
+        / max(prof["device_busy_ms"], 1e-9)})
+    check(flash["flash_bwd"] > 0 and flash["flash_wgmma"] > 0,
+          "the flash kernels ran in the profiled train steps")
+    out["profile"] = prof
+    emit("train_profile", prof)
+
+    # (f) the mini-CLIP towers
+    out["clip"] = clip_phase(torch, dev, **clip)
+    emit("clip_phase", out["clip"])
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def kernel_resources(build) -> dict:
     """{source: {kernel: registers, static shared memory, spills}} from
     ptxas's ``-v`` report in each build log (dynamic shared memory is set
@@ -2676,6 +3139,8 @@ def main() -> int:
     sim = timed("sim_phase", sim_phase, torch, dev, deployment=DEPLOYMENT)
     loop_out = timed("serving_loop_phase", serving_loop_phase, torch, dev,
                      SERVING_LOOP)
+    bwd_row = timed("flash_bwd_checks", flash_bwd_checks, torch, clock, dev)
+    train = timed("train_phase", train_phase, torch, dev, **TRAIN)
     emit("phase_seconds", phase_s)
     print(smi, flush=True)          # again, inside the tail of a long log
 
@@ -2714,7 +3179,16 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:93",
          "launches": serve["launches"]["flash_attention"],
-         "launched_on": "step 7 captioner serving path", **flash_row},
+         "launched_on": "step 7 captioner serving path", **flash_row,
+         "train_launches": train["train"]["launches"]["flash_attention"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:93",
+         "gradient_of": "flash_attention (the JAX package trains through "
+                        "src/repro/models/attention.py:55 under jax.grad)",
+         "launches": train["train"]["launches"]["flash_attention_bwd"],
+         "launched_on": "step 16 captioner training path (12 a step)",
+         **bwd_row},
         {"name": "nearest_dist", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pairwise.cu",
          "replaces": "src/repro/kernels/pairwise.py:59",

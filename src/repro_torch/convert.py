@@ -18,6 +18,7 @@ from repro_torch.device import resolve_device
 from repro_torch.index.cluster import ClusterSummaries
 from repro_torch.models import common as cm
 from repro_torch.models.lm import LM
+from repro_torch.optim.adamw import OptState
 from repro_torch.perception.embedder import OracleEmbedder
 from repro_torch.server.session import FleetSync, SessionManager
 
@@ -106,25 +107,125 @@ def embedder_basis_matches(np_basis, *, seed: int = 7) -> bool:
     return bool(np.array_equal(np_basis, emb.basis_np))
 
 
+def _leaf(x, dtype) -> torch.Tensor:
+    """A reference leaf (numpy, the reference's array, or a tensor) as a
+    new CPU tensor in ``dtype``; numpy leaves go via f32, since numpy has
+    no bf16 that torch reads."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().to(dtype).clone()
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(dtype)
+
+
+def _from_reference(cfg: cm.ArchConfig, tree, leaf) -> dict:
+    """The reference's LM layout (body leaves stacked ``[n_periods, ...]``
+    per period slot, the dense prefix as a list) as the port's per-layer
+    tree: prefix first, then period by period; ``leaf`` converts each."""
+    layers = [cm.map_tree(lambda _, x: leaf(x), p)
+              for p in tree.get("prefix", [])]
+    for i in range(cfg.n_periods):
+        for s in range(cfg.period):
+            layers.append(cm.map_tree(lambda _, x: leaf(x[i]),
+                                      tree["body"][s]))
+    out = {k: leaf(tree[k]) for k in ("embed", "final_scale", "lm_head")
+           if k in tree}
+    out["layers"] = layers
+    return out
+
+
+def _to_reference(cfg: cm.ArchConfig, tree) -> dict:
+    """The inverse of ``_from_reference`` over CPU tensors: body layers
+    stacked ``[n_periods, ...]`` per period slot."""
+    out = {k: tree[k] for k in ("embed", "final_scale", "lm_head")
+           if k in tree}
+    layers = tree["layers"]
+    npre = cfg.n_dense_prefix
+    if npre:
+        out["prefix"] = list(layers[:npre])
+    body = layers[npre:]
+    out["body"] = []
+    for s in range(cfg.period):
+        slot = [dict(cm.leaves(body[i * cfg.period + s]))
+                for i in range(cfg.n_periods)]
+        out["body"].append(cm.map_tree(
+            lambda p, _: torch.stack([t[p] for t in slot]),
+            body[s]))
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor as a new numpy array; bf16 as f32 of the same values
+    (numpy has no bf16)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
 def lm_params_from_numpy(cfg: cm.ArchConfig, tree, *, device="cuda") -> LM:
-    """The reference's LM parameters (``repro.models.lm`` pytree, leaves as
-    numpy) as the port's ``LM`` in ``cfg.dtype`` on ``device``.
+    """The reference's LM parameters (``repro.models.lm`` pytree; leaves
+    numpy, the reference's arrays or tensors) as the port's ``LM`` in
+    ``cfg.dtype`` on ``device``, frozen.
 
     The reference stacks each period slot's body leaves as
     ``[n_periods, ...]`` and keeps the dense prefix as a list; the port
     keeps one tree per layer, prefix first, then period by period.  A tied
     head stays tied: there is no ``lm_head`` and the head reads
     ``embed.T``."""
-    def leaf(x):      # via f32: numpy has no bf16 that torch reads
-        return torch.from_numpy(np.array(x, dtype=np.float32)).to(cfg.dtype)
+    return LM(cfg, _from_reference(cfg, tree, lambda x: _leaf(x, cfg.dtype)),
+              device=device)
 
-    layers = [cm.map_tree(lambda _, x: leaf(x), p)
-              for p in tree.get("prefix", [])]
-    for i in range(cfg.n_periods):
-        for s in range(cfg.period):
-            layers.append(cm.map_tree(lambda _, x: leaf(np.asarray(x)[i]),
-                                      tree["body"][s]))
-    params = {k: leaf(tree[k]) for k in ("embed", "final_scale", "lm_head")
-              if k in tree}
-    params["layers"] = layers
-    return LM(cfg, params, device=device)
+
+def lm_params_to_tree(lm: LM) -> dict:
+    """The port's ``LM`` in the reference's layout (the inverse of
+    ``lm_params_from_numpy``), as new CPU tensors in their own dtype (never
+    views of the parameters, which training writes in place): what a
+    checkpoint of the parameters holds."""
+    return _to_reference(lm.cfg, cm.map_tree(
+        lambda _, p: p.detach().to("cpu", copy=True), lm.tree()))
+
+
+def lm_params_to_numpy(lm: LM) -> dict:
+    """``lm_params_to_tree`` as numpy: bf16 leaves come back as f32 arrays
+    of the same values, which ``lm_params_from_numpy`` reads back
+    exactly."""
+    return cm.map_tree(lambda _, t: _numpy(t), lm_params_to_tree(lm))
+
+
+def opt_state_from_numpy(cfg: cm.ArchConfig, state, *,
+                         device="cuda") -> OptState:
+    """The reference's ``OptState`` (step, and master / m / v in its LM
+    layout) as the port's, f32 trees in the port's per-layer layout on
+    ``device``."""
+    dev = resolve_device(device)
+    src = _fields(state)
+
+    def tree(t):
+        return cm.map_tree(lambda _, x: x.to(dev), _from_reference(
+            cfg, t, lambda x: _leaf(x, torch.float32)))
+
+    step = src["step"]
+    step = (step.detach().cpu() if isinstance(step, torch.Tensor)
+            else torch.from_numpy(np.array(step, dtype=np.int32)))
+    return OptState(step=step.to(torch.int32).to(dev),
+                    master=tree(src["master"]), m=tree(src["m"]),
+                    v=tree(src["v"]))
+
+
+def opt_state_to_numpy(opt: OptState, cfg: cm.ArchConfig) -> OptState:
+    """The port's ``OptState`` in the reference's layout, numpy leaves
+    (step a 0-d int32): the names and bits a checkpoint of it holds."""
+    def tree(t):
+        return cm.map_tree(lambda _, x: _numpy(x), _to_reference(
+            cfg, cm.map_tree(lambda _, x: x.detach().cpu(), t)))
+
+    return OptState(step=_numpy(opt.step), master=tree(opt.master),
+                    m=tree(opt.m), v=tree(opt.v))
+
+
+def clip_params_from_numpy(tree, *, device="cuda") -> dict:
+    """The reference's mini-CLIP parameters (a flat dict, f32) as the
+    port's, copied onto ``device``."""
+    dev = resolve_device(device)
+    return {k: _leaf(v, torch.float32).to(dev) for k, v in tree.items()}
+
+
+def clip_params_to_numpy(params: dict) -> dict:
+    return {k: _numpy(v) for k, v in params.items()}

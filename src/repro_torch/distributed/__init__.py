@@ -1,2 +1,2 @@
-"""Placement helpers for the port's fleet tier (a subset of
+"""Placement helpers of the fleet tier and gradient compression (a subset of
 ``repro.distributed``)."""

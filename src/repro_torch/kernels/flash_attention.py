@@ -24,6 +24,21 @@ Two implementations of the same function:
 
 ``kernels.ops.flash_attention`` (the reference's ``[H, S, dh]`` layout) and
 ``kernels.ops.flash_attention_bshd`` (the model's layout) pick by device.
+
+The gradient (the reference trains through the jnp ``blocked_attention``
+under ``jax.grad``; its Pallas kernel has no backward) is two more
+implementations of one function, ``(q, k, v, o, do) -> (dq, dk, dv)``:
+
+  * ``flash_attention_bwd_cuda`` — the hand-written Hopper kernel
+    (``csrc/flash_attention_bwd.cu``): recomputes each row's softmax
+    statistics, then dq per query tile and dk, dv per key tile, no atomics;
+  * ``flash_attention_bwd_plain`` — plain PyTorch with the gradient written
+    out (not autograd), at the kernel's rounding points.
+
+``FlashAttention`` is the ``torch.autograd.Function`` over the pair: its
+forward runs ``flash_attention_cuda`` or ``flash_attention_plain`` and its
+backward ``flash_attention_bwd_cuda`` or ``flash_attention_bwd_plain``,
+each picked by the tensors' device.
 """
 from __future__ import annotations
 
@@ -41,12 +56,17 @@ HEAD_DIMS = (64, 128)        # head widths the kernel is built for
 DTYPES = (torch.bfloat16, torch.float32)
 
 launches = 0                 # kernel launches made by flash_attention_cuda
+bwd_launches = 0             # calls of flash_attention_bwd_cuda (2 kernels)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "flash_attention_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, ctypes.c_float, _P], _I),
+}
+_BWD_SIGNATURES = {
+    "flash_attention_bwd_launch": ([_P] * 12 + [_I] * 8
+                                   + [ctypes.c_float, _P], _I),
 }
 
 
@@ -204,3 +224,135 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"error {err}")
     launches += 1
     return out
+
+
+# ---------------------------------------------------------------- gradient
+def _bwd_masks(S: int, causal: bool, window: int, device) -> torch.Tensor:
+    """[S, S] bool: query row i keeps key j (keys past S never exist
+    here: the plain gradient works on the unpadded [S, S] block)."""
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(S, device=device)[None, :]
+    keep = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        keep = keep & (kpos <= qpos)
+    if window:
+        keep = keep & (qpos - kpos < window)
+    return keep
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, *, causal: bool = True,
+                              window: int = 0, softcap: float = 0.0):
+    """The gradient of ``flash_attention_plain`` written out: q, o, do
+    [B, S, H, dh], k, v [B, S, Kv, dh] -> (dq, dk, dv) in q's dtype.
+
+    With ``s = softcap(q . k^T * scale)``, ``p = softmax(mask(s))`` and
+    ``D = rowsum(do * o)``: ``dv = round(p)^T . do`` (p rounded to v's
+    dtype, as the forward rounds it before ``p . v``), ``dp = do . v^T``,
+    ``ds = p * (dp - D)``, ``dx = ds * (1 - (s / softcap)^2) * scale``,
+    ``dq = dx . k`` and ``dk = dx^T . q``; dk and dv of kv head j sum over
+    its G query heads.  Every product accumulates in f32 from the
+    operands' own values."""
+    B, S, H, Kv, dh = _shapes(q, k, v)
+    G = H // Kv
+    scale = dh ** -0.5
+    qf = q.float().reshape(B, S, Kv, G, dh)
+    kf, vf = k.float(), v.float()
+    gf = do.float().reshape(B, S, Kv, G, dh)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qf, kf) * scale
+    capfac = None
+    if softcap:
+        t = torch.tanh(s / softcap)
+        s = t * softcap
+        capfac = 1.0 - t * t
+    keep = _bwd_masks(S, causal, window, q.device)
+    s = torch.where(keep, s, NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.where(keep, torch.exp(s - m), 0.0)
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = torch.einsum("bkgqt,bqkgd->btkd", p.to(v.dtype).float(), gf)
+    dp = torch.einsum("bqkgd,btkd->bkgqt", gf, vf)
+    dsum = (do.float() * o.float()).sum(dim=-1)            # [B, S, H]
+    dsum = dsum.reshape(B, S, Kv, G).permute(0, 2, 3, 1)[..., None]
+    ds = p * (dp - dsum)
+    if capfac is not None:
+        ds = ds * capfac
+    ds = ds * scale
+    dq = torch.einsum("bkgqt,btkd->bqkgd", ds, kf).reshape(B, S, H, dh)
+    dk = torch.einsum("bkgqt,bqkgd->btkd", ds, qf)
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0):
+    """The hand-written gradient kernel (same contract as
+    ``flash_attention_bwd_plain``): every tensor on one CUDA device, all
+    bf16 or all f32, dh 64 or 128; dq, dk, dv come back contiguous."""
+    global bwd_launches
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_cuda needs CUDA tensors, got "
+                         f"{dev}")
+    B, S, H, Kv, dh = _shapes(q, k, v)
+    if q.dtype not in DTYPES or dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: unsupported dtype {q.dtype} "
+                         f"or head dim {dh} (kernel takes {DTYPES}, "
+                         f"{HEAD_DIMS})")
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != tuple(q.shape):
+            raise ValueError(f"flash_attention_bwd: {name} "
+                             f"{tuple(t.shape)} != q {tuple(q.shape)}")
+    if B * S * H * dh >= 2 ** 31 or int(window) < 0:
+        raise ValueError(f"flash_attention_bwd: unsupported B={B} S={S} "
+                         f"H={H} window={window}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        _check_layout(name, t, dev, q.dtype)
+    dq = torch.empty((B, S, H, dh), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, S, Kv, dh), dtype=q.dtype, device=dev)
+    dv = torch.empty_like(dk)
+    stats = torch.empty((3, B, H, S), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 15)(*(s for t in (q, k, v, o, do)
+                                         for s in t.stride()[:3]))
+    lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(dev):
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(),
+            strides, B, S, H, Kv, dh, int(q.dtype == torch.bfloat16),
+            int(causal), int(window), float(softcap),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
+                           f"{'shape refused' if err == -1 else 'CUDA error'}"
+                           f" {err}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: forward and backward each run
+    the hand-written kernel on CUDA tensors and the plain version on CPU
+    tensors.  It saves q, k, v and o; the backward recomputes the softmax
+    from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, softcap: float):
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        fwd = (flash_attention_plain if q.device.type == "cpu"
+               else flash_attention_cuda)
+        o = fwd(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        bwd = (flash_attention_bwd_plain if q.device.type == "cpu"
+               else flash_attention_bwd_cuda)
+        dq, dk, dv = bwd(q, k, v, o, do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None

@@ -71,8 +71,15 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          softcap: float = 0.0) -> torch.Tensor:
     """Grouped-query attention in the model's layout: q [B, S, H, dh],
     k, v [B, S, Kv, dh] (any strides with a contiguous head dim) ->
-    [B, S, H, dh]; query head h reads kv head h // (H / Kv)."""
+    [B, S, H, dh]; query head h reads kv head h // (H / Kv).
+
+    With grad enabled and an input that requires grad it goes through
+    ``FlashAttention``, whose backward is the gradient kernel (its plain
+    version on CPU tensors); otherwise it is the forward alone."""
     kw = dict(causal=causal, window=window, softcap=softcap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _fa.FlashAttention.apply(q, k, v, causal, window, softcap)
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, **kw)
     return _fa.flash_attention_cuda(q, k, v, **kw)
@@ -91,11 +98,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def launch_counts() -> dict:
     """{kernel name: CUDA launches since the last reset}."""
     return {"lift_compact": _lc.launches, "query_topk_bias": _qt.launches,
-            "flash_attention": _fa.launches, "nearest_dist": _pw.launches}
+            "flash_attention": _fa.launches,
+            "flash_attention_bwd": _fa.bwd_launches,
+            "nearest_dist": _pw.launches}
 
 
 def reset_launch_counts() -> None:
     _lc.launches = 0
     _qt.launches = 0
     _fa.launches = 0
+    _fa.bwd_launches = 0
     _pw.launches = 0

@@ -3,11 +3,15 @@
 Port of ``repro.models.api`` for decoder-only models:
     api = model_api(cfg)
     api.param_specs() / api.init(generator, device=...)  -> LM
+    api.loss(params, batch, **kw)               -> (scalar, metrics)
+    api.forward(params, batch)                  -> logits [B, S, V]
     api.prefill(params, batch, caches)          -> (logits [B, V], caches)
     api.decode(params, tokens, caches, pos)     -> (logits [B, V], caches)
     api.init_cache(batch, max_len, device=...)  -> [KVCache] per layer
 ``init`` and ``init_cache`` run on the card unless ``device="cpu"`` is
-passed.  The encoder-decoder family and the training loss are not ported.
+passed.  ``init`` returns frozen parameters (serving);
+``.requires_grad_(True)`` on the result trains them.  The encoder-decoder
+family is not ported (ROADMAP.md section 2 item 4).
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ class ModelAPI:
     cfg: cm.ArchConfig
     param_specs: Callable[[], Any]
     init: Callable[..., lm_mod.LM]
+    loss: Callable[..., Any]
+    forward: Callable[..., Any]
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
     init_cache: Callable[..., Any]
@@ -45,10 +51,19 @@ def model_api(cfg: cm.ArchConfig) -> ModelAPI:
             torch.Generator().manual_seed(0)
         return lm_mod.LM(cfg, lm_mod.init_lm_params(cfg, gen), device=dev)
 
+    def _forward(params, batch):
+        if batch.get("extra_embeds") is not None:
+            raise NotImplementedError(f"extra_embeds (frontend tokens): "
+                                      f"{cm.NOT_PORTED}")
+        return lm_mod.forward_logits(params, batch["tokens"], cfg)
+
     return ModelAPI(
         cfg=cfg,
         param_specs=lambda: lm_mod.lm_param_specs(cfg),
         init=_init,
+        loss=lambda params, batch, **kw: lm_mod.lm_loss(params, batch, cfg,
+                                                        **kw),
+        forward=_forward,
         prefill=lambda params, batch, caches: lm_mod.prefill(
             params, batch["tokens"], cfg, caches),
         decode=lambda params, tokens, caches, pos: lm_mod.decode_step(

@@ -37,8 +37,10 @@ class ArchConfig:
     """The fields of ``repro.models.common.ArchConfig`` that the decoder
     path reads.  ``dtype`` is a ``torch.dtype``.  The family sub-configs
     (MLA, Mamba, RWKV, MoE), the encoder-decoder and frontend fields and
-    the JAX execution knobs (scan, remat, sharding, the jnp attention's
-    q-chunk) are not ported."""
+    the JAX execution knobs (scan, sharding, the jnp attention's q-chunk)
+    are not ported.  ``remat`` checkpoints each body period's activations
+    (``torch.utils.checkpoint``) as the reference's ``jax.checkpoint``
+    does; ``grad_accum`` splits a train step's batch into microbatches."""
 
     name: str
     n_layers: int
@@ -69,6 +71,8 @@ class ArchConfig:
     act: str = "silu"                     # mlp activation ("silu"|"gelu")
     dtype: Any = torch.bfloat16
     kv_cache_dtype: str = "bf16"          # "bf16" (the model dtype) only
+    remat: bool = False                   # activation checkpointing per period
+    grad_accum: int = 1                   # microbatches per train step
 
     def __post_init__(self):
         if self.d_head == 0:
@@ -186,14 +190,14 @@ def _leaf_init(gen: torch.Generator, path: str, shape, dtype):
     return (w / math.sqrt(max(fan_in, 1))).to(dtype)
 
 
-def _leaves(tree, prefix=""):
+def leaves(tree, prefix=""):
     """(path, leaf) in sorted-key order, list entries by index."""
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _leaves(tree[k], f"{prefix}{k}/")
+            yield from leaves(tree[k], f"{prefix}{k}/")
     elif isinstance(tree, list):
         for i, t in enumerate(tree):
-            yield from _leaves(t, f"{prefix}{i}/")
+            yield from leaves(t, f"{prefix}{i}/")
     else:
         yield prefix[:-1], tree
 
@@ -211,15 +215,16 @@ def init_from_specs(gen: torch.Generator, specs) -> Any:
     """specs: tree of ``Spec``; returns a tree of tensors, each leaf drawn
     from ``gen`` in sorted path order (numbers differ from JAX's)."""
     values = {p: _leaf_init(gen, p, s.shape, s.dtype)
-              for p, s in _leaves(specs)}
+              for p, s in leaves(specs)}
     return map_tree(lambda p, _: values[p], specs)
 
 
 class ParamTree(nn.Module):
     """A tree of dicts (and lists) of tensors as an ``nn.Module``: dict keys
-    become submodules or frozen parameters, lists ``nn.ModuleList``s, and
+    become submodules or parameters, lists ``nn.ModuleList``s, and
     ``tree["key"]`` reads an entry, so the model's functions take either
-    this or a plain dict."""
+    this or a plain dict.  Parameters are frozen, as serving wants them;
+    ``requires_grad_(True)`` makes them trainable."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -237,3 +242,16 @@ class ParamTree(nn.Module):
 
     def __contains__(self, key: str) -> bool:
         return key in self._parameters or key in self._modules
+
+    def tree(self) -> dict:
+        """The parameters themselves as a tree of dicts and lists."""
+        out = dict(self._parameters)
+        for k, mod in self._modules.items():
+            out[k] = ([m.tree() for m in mod]
+                      if isinstance(mod, nn.ModuleList) else mod.tree())
+        return out
+
+
+def as_tree(params):
+    """A ``ParamTree``'s tree, or ``params`` itself when it is one."""
+    return params.tree() if isinstance(params, ParamTree) else params

@@ -1,16 +1,20 @@
 """Decoder-only language model: embedding -> blocks -> final norm -> head.
 
-Port of the serving half of ``repro.models.lm``: ``_embed``,
-``_run_blocks``, ``forward_logits``, ``prefill`` and ``decode_step``.  The
-reference scans over stacked periods; the port keeps one parameter tree per
-layer (``params["layers"][i]``) and runs them in a plain loop, with no
-remat and no sharding constraint.  ``LM`` holds the parameters as an
-``nn.Module`` on one device.  ``lm_loss`` comes with the training slice.
+Port of ``repro.models.lm`` for the dense decoder: ``_embed``,
+``_run_blocks``, ``forward_logits``, ``prefill``, ``decode_step`` and the
+sequence-chunked training loss ``lm_loss``.  The reference scans over
+stacked periods; the port keeps one parameter tree per layer
+(``params["layers"][i]``) and runs them in a plain loop, with no sharding
+constraint; under ``cfg.remat`` each body period runs under
+``torch.utils.checkpoint`` as the reference's period runs under
+``jax.checkpoint``.  ``LM`` holds the parameters as an ``nn.Module`` on one
+device, frozen for serving; ``LM.requires_grad_(True)`` trains them.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -74,9 +78,26 @@ def _embed(params, tokens: torch.Tensor, cfg: cm.ArchConfig) -> torch.Tensor:
 
 def _run_blocks(params, x: torch.Tensor, cfg: cm.ArchConfig, *,
                 positions: torch.Tensor, caches: list | None = None):
-    """Every layer in order. Returns (hidden, new caches or None)."""
+    """Every layer in order. Returns (hidden, new caches or None).  Under
+    ``cfg.remat``, with grad enabled and no cache, each body period's
+    activations are recomputed in the backward pass (the dense prefix is
+    not, as in the reference)."""
+    kinds = cfg.layer_kinds()
+    if cfg.remat and caches is None and torch.is_grad_enabled():
+        def run(x, lo, hi):
+            for i in range(lo, hi):
+                x = blk.block_apply(params["layers"][i], x, cfg,
+                                    mixer_kind=kinds[i][0],
+                                    mlp_kind=kinds[i][1],
+                                    positions=positions).x
+            return x
+
+        x = run(x, 0, cfg.n_dense_prefix)
+        for lo in range(cfg.n_dense_prefix, len(kinds), cfg.period):
+            x = checkpoint(run, x, lo, lo + cfg.period, use_reentrant=False)
+        return x, None
     new_caches = None if caches is None else []
-    for i, (mk, lk) in enumerate(cfg.layer_kinds()):
+    for i, (mk, lk) in enumerate(kinds):
         out = blk.block_apply(params["layers"][i], x, cfg, mixer_kind=mk,
                               mlp_kind=lk, positions=positions,
                               cache=None if caches is None else caches[i])
@@ -106,6 +127,45 @@ def _head(params, x: torch.Tensor, cfg: cm.ArchConfig) -> torch.Tensor:
 def forward_logits(params, tokens: torch.Tensor,
                    cfg: cm.ArchConfig) -> torch.Tensor:
     return _head(params, forward_hidden(params, tokens, cfg), cfg)
+
+
+# ---------------------------------------------------------------------------
+# Loss (sequence-chunked cross-entropy)
+# ---------------------------------------------------------------------------
+
+def lm_loss(params, batch: dict, cfg: cm.ArchConfig, *,
+            loss_chunk: int = 512, aux_weight: float = 0.01):
+    """Next-token cross-entropy of ``batch["tokens"]`` [B, S]: labels are
+    the tokens shifted left with -1 at the end; the logits are formed
+    ``loss_chunk`` positions at a time (the sequence padded to a multiple
+    with label -1), ``lse - gold`` in f32 masked by ``labels >= 0``, and
+    the loss is ``tot / max(cnt, 1)``.  Returns ``(loss + aux_weight *
+    aux, {"ce", "aux"})``; a dense model's aux is a 0-d f32 zero."""
+    if batch.get("extra_embeds") is not None:
+        raise NotImplementedError(f"extra_embeds (frontend tokens): "
+                                  f"{cm.NOT_PORTED}")
+    tokens = batch["tokens"]
+    x = forward_hidden(params, tokens, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    labels = F.pad(tokens[:, 1:].long(), (0, 1), value=-1)
+    B, S, _ = x.shape
+    loss_chunk = min(loss_chunk, S)
+    pad = (-S) % loss_chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S + pad, loss_chunk):
+        lb = labels[:, c0:c0 + loss_chunk]
+        logits = _head(params, x[:, c0:c0 + loss_chunk], cfg).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lb.clamp(min=0)[..., None])[..., 0]
+        mask = (lb >= 0).float()
+        tot = tot + ((lse - gold) * mask).sum()
+        cnt = cnt + mask.sum()
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,31 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
+TRAINING_MODULES = ("optim/adamw.py", "distributed/collectives.py",
+                    "launch/steps.py", "launch/train.py",
+                    "checkpoint/ckpt.py", "perception/clip.py")
+
+
+def test_training_modules_are_scanned_and_import_alone():
+    """The training slice's modules are among the scanned files, and each
+    imports in a fresh interpreter without ``jax`` or ``repro``."""
+    assert all(PORT / m in PORT_FILES for m in TRAINING_MODULES)
+    mods = ", ".join(repr("repro_torch." + m[:-3].replace("/", "."))
+                     for m in TRAINING_MODULES)
+    code = (
+        "import importlib, sys\n"
+        f"for m in ({mods}):\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
 def _entry_points():
     from repro_torch.core import (CloudService, DeviceClient, Knobs,
                                   MappingServer, init_local_map, init_store)
@@ -69,6 +94,10 @@ def _entry_points():
     from repro_torch.serving.loadgen import LoadGenerator, LoadSpec
     from repro_torch.serving.loop import IngestStream
     from repro_torch.sim import ScenarioEngine, WorldState, churn_scenario
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.convert import clip_params_from_numpy
+    from repro_torch.launch import train
+    from repro_torch.perception.clip import ClipConfig, init_clip_params
     kn = Knobs(server_capacity=8, client_capacity=4,
                max_object_points_server=8, max_object_points_client=4)
     grid = ZoneGrid.for_room(8.0, 2, 2)
@@ -117,6 +146,11 @@ def _entry_points():
         "LoadGenerator": lambda: LoadGenerator(LoadSpec(n_clients=2,
                                                         n_ticks=2),
                                                embed_dim=4),
+        "init_clip_params": lambda: init_clip_params(ClipConfig()),
+        "clip_params_from_numpy": lambda: clip_params_from_numpy({}),
+        "ckpt.restore": lambda: ckpt.restore("absent", 1, {}),
+        "launch.train.main": lambda: train.main(
+            ["--arch", "semanticxr-captioner-110m-smoke", "--steps", "1"]),
     }
 
 
