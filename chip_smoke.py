@@ -123,14 +123,18 @@
     with ``enable_index`` (two-stage), equal to the flat results; and
     ``StageTimes.record`` and the index metrics in an installed registry
     after one mapped keyframe and one two-stage query;
-15. the flash-attention gradient (``flash_bwd_checks``):
-    ``flash_attention_bwd_cuda`` against ``flash_attention_bwd_plain`` on
-    the card at the captioner's training shape (B = 8, S = 256, H = 12,
-    Kv = 4, dh = 64, causal, bf16 and f32) and at S = 200 and 129 (ragged
-    tiles), window 32, softcap 30, non-causal, G = 1, dh = 128 and S = 1024,
-    within ATTN_TOL, with the same bits from two calls; autograd through
-    ``ops.flash_attention_bshd`` launches it once and returns its bits; its
-    time beside its bound, the plain version and SDPA's backward;
+15. the flash-attention gradient (``flash_bwd_checks``): at the
+    captioner's training shape (B = 8, S = 256, H = 12, Kv = 4, dh = 64,
+    causal, bf16 and f32) and at S = 200 and 129 (ragged tiles), window 32,
+    softcap 30, non-causal, G = 1, dh = 128 and S = 1024, the forward
+    kernel's lse against the plain version's and its output bits unchanged
+    by asking for the lse, then ``flash_attention_bwd_cuda`` against
+    ``flash_attention_bwd_plain`` on the same inputs (lse included) within
+    ATTN_TOL, with the same bits from two calls; autograd through
+    ``ops.flash_attention_bshd`` launches it once, saves the forward's lse
+    and returns the kernel's bits; its time (the lse in hand, as SDPA's
+    backward has its statistics) beside its bound, the plain version and
+    SDPA's backward, and the device ms of its dq and dk/dv launches;
 16. training (``train_phase``): (a) ``repro_torch.launch.train.main`` on
     the full-width bf16 captioner, B = 8, S = 256, 200 steps, counters
     reset just before and read just after (12 flash forward and 12
@@ -2588,20 +2592,26 @@ def serving_loop_phase(torch, dev, cfg):
 
 # ----------------------------------------------------------------- step 15
 def bwd_cost(q, k, causal, window, elt):
-    """(bytes, flops) of one attention gradient: q, k, v, o and do read and
-    dq, dk, dv written once; five products of 2 * dh flops for each
-    (query, key) pair the masks keep (the forward's two, times 5 / 2)."""
+    """(bytes, flops) of one attention gradient: q, k, v, o, do and the f32
+    lse [B, H, S] read and dq, dk, dv written once; five products of
+    2 * dh flops for each (query, key) pair the masks keep (the forward's
+    two, times 5 / 2)."""
     _, fwd_flops = attn_cost(q, k, causal, window, elt)
-    return 4 * (q.numel() + k.numel()) * elt, 5 * fwd_flops // 2
+    B, S, H, _ = q.shape
+    return (4 * (q.numel() + k.numel()) * elt + B * H * S * 4,
+            5 * fwd_flops // 2)
 
 
 def flash_bwd_checks(torch, clock, dev):
     """``flash_attention_bwd_cuda`` against ``flash_attention_bwd_plain`` on
     the card: the captioner's training shape in bf16 and f32, ragged S,
-    window, softcap, non-causal, G = 1, dh = 128 and S = 1024; two calls
-    give the same bits; autograd through ``ops.flash_attention_bshd``
-    launches it once and returns its bits; timed beside its bound, the
-    plain version and SDPA's backward."""
+    window, softcap, non-causal, G = 1, dh = 128 and S = 1024, after the
+    forward kernel's lse is held to the plain version's and its output to
+    the bits it has without the lse; two calls give the same bits; autograd
+    through ``ops.flash_attention_bshd`` launches it once, saves the lse
+    and returns its bits; timed beside its bound, the plain version and
+    SDPA's backward, and the bf16 call's two launches under the
+    profiler."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
@@ -2621,14 +2631,27 @@ def flash_bwd_checks(torch, clock, dev):
     for i, (B, S, H, Kv, dh, dt, causal, window, cap) in enumerate(cases):
         q, k, v = attn_inputs(torch, B, S, H, Kv, dh, dt, 100 + i, dev)
         kw = dict(causal=causal, window=window, softcap=cap)
-        o = fa.flash_attention_cuda(q, k, v, **kw)
+        tag = dict(B=B, S=S, H=H, Kv=Kv, dh=dh, dtype=str(dt), **kw)
+        tol = ATTN_TOL[str(dt).split(".")[-1]]
+        bare = fa.flash_attention_cuda(q, k, v, **kw)
+        o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        _, lse_plain = fa.flash_attention_plain(q, k, v, return_lse=True,
+                                                **kw)
+        torch.cuda.synchronize()
+        o_same = torch.equal(o, bare)
+        check(o_same, f"flash_attention output bits unchanged by the lse at "
+              f"{tag}")
+        d = (lse - lse_plain).abs()
+        lse_err = float(d.max())
+        check(bool((d <= tol + tol * lse_plain.abs()).all())
+              and bool(torch.isfinite(lse).all()),
+              f"flash_attention lse err {lse_err} at {tag}")
         g = torch.Generator(device=dev).manual_seed(200 + i)
         do = torch.randn(o.shape, generator=g, device=dev).to(dt)
-        got = fa.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
-        again = fa.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
-        want = fa.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+        got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+        again = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
         torch.cuda.synchronize()
-        tol = ATTN_TOL[str(dt).split(".")[-1]]
         errs = {}
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             d = (a.float() - b.float()).abs()
@@ -2642,20 +2665,24 @@ def flash_bwd_checks(torch, clock, dev):
                          [t.view(torch.int16) if t.dtype == bf else t
                           for t in again])
         check(same, f"flash_attention_bwd same bits twice at case {i}")
-        tag = dict(B=B, S=S, H=H, Kv=Kv, dh=dh, dtype=str(dt), **kw)
-        rows.append({**tag, "max_abs_err": errs, "same_bits_twice": same})
+        rows.append({**tag, "max_abs_err": errs, "same_bits_twice": same,
+                     "lse_max_abs_err": lse_err,
+                     "o_bits_unchanged_by_lse": o_same})
         if i < 2:
-            timed[i] = (q, k, v, o, do, kw, max(errs.values()))
+            timed[i] = (q, k, v, o, do, lse, kw, max(errs.values()))
     emit("flash_attention_bwd_checks", rows)
 
     # autograd through the model's entry point launches the kernel once
-    q, k, v, o, do, kw, _ = timed[0]
+    q, k, v, o, do, lse, kw, _ = timed[0]
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = ops.flash_attention_bshd(*leaves, **kw)
+    check(torch.equal(out.grad_fn.saved_tensors[4], lse),
+          "autograd saved the forward kernel's lse")
     n0 = fa.bwd_launches
     grads = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
-    direct = fa.flash_attention_bwd_cuda(q, k, v, out.detach(), do, **kw)
+    direct = fa.flash_attention_bwd_cuda(q, k, v, out.detach(), do, lse,
+                                         **kw)
     check(fa.bwd_launches - n0 == 2, "autograd launched the backward kernel "
           f"once ({fa.bwd_launches - n0 - 1} launches)")
     check(torch.equal(out.detach(), o), "autograd forward = the kernel's")
@@ -2664,7 +2691,7 @@ def flash_bwd_checks(torch, clock, dev):
 
     row = {}
     for i, key in ((0, ""), (1, "f32_")):
-        q, k, v, o, do, kw, err = timed[i]
+        q, k, v, o, do, lse, kw, err = timed[i]
         elt = q.element_size()
         nbytes, flops = bwd_cost(q, k, True, 0, elt)
         peak = BF16_FLOP_PER_S if elt == 2 else FP32_FLOP_PER_S
@@ -2677,9 +2704,9 @@ def flash_bwd_checks(torch, clock, dev):
         sdo = do.transpose(1, 2)
         row.update({
             key + "ms": clock.ms(lambda: fa.flash_attention_bwd_cuda(
-                q, k, v, o, do, **kw)),
+                q, k, v, o, do, lse, **kw)),
             key + "plain_ms": clock.ms(lambda: fa.flash_attention_bwd_plain(
-                q, k, v, o, do, **kw)),
+                q, k, v, o, do, lse, **kw)),
             key + "bound_ms": max(t_ops, t_bytes),
             key + "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             key + "library_ms": clock.ms(lambda: torch.autograd.grad(
@@ -2691,6 +2718,21 @@ def flash_bwd_checks(torch, clock, dev):
                            f"{'bf16' if elt == 2 else 'f32'} causal"})
     row["library"] = ("SDPA backward through autograd (backward only, "
                       "timed with retain_graph)")
+
+    # the bf16 call's two launches, under the profiler, each call after an
+    # L2 flush as in Clock.ms
+    q, k, v, o, do, lse, kw, _ = timed[0]
+    reps = 10
+
+    def calls():
+        for _ in range(reps):
+            clock.flush.zero_()
+            fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    split = profiled(torch, calls, kernels=("flash_bwd_dq", "flash_bwd_dkdv"))
+    row["launch_ms"] = {name: t / reps
+                        for name, t in split["kernel_ms"].items()}
+    check(all(t > 0 for t in row["launch_ms"].values()),
+          f"both backward launches seen by the profiler: {row['launch_ms']}")
     emit("flash_attention_bwd_time", row)
     return row
 

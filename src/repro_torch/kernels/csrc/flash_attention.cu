@@ -15,7 +15,11 @@
 // kpos < S: the TPU kernel leaves zero-padded keys unmasked when S is not a
 // multiple of its tile, the port masks them as the oracles do), the running
 // (m, l, acc) state in f32, p rounded to v's dtype before the PV product,
-// and the output acc / max(l, 1e-30) in q's dtype.
+// and the output acc / max(l, 1e-30) in q's dtype.  When asked (a non-null
+// lse), it also writes each row's log-sum-exp, lse = log(sum_kept exp(s)),
+// f32 [B, H, S], in the natural log of the scaled, softcapped score: the
+// gradient kernel (csrc/flash_attention_bwd.cu) forms p = exp(s - lse) from
+// it.  Without lse nothing of the forward changes.
 //
 // Design.  The TPU walks an (H, Sq/Bq, Sk/Bk) grid in order and carries
 // (m, l, acc) in VMEM scratch across the key axis.  Here one block owns one
@@ -73,6 +77,7 @@ namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ------------------------------------------------------- bf16 (wgmma)
 constexpr int kTile = 128;             // query rows and keys per tile
@@ -103,6 +108,7 @@ struct Tile {                          // what the consumers need besides TMA
   int B, S, H, Kv, causal, window;
   float scale;                         // dh^-0.5
   float softcap;                       // 0 = off
+  float* lse;                          // [B, H, S] or null
 };
 
 // heaviest query tile first: linear tile i -> (query tile, b, h)
@@ -538,11 +544,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t pa[8][4];
     uint32_t it = 0;                            // K / V tiles consumed
 
-    // the current tile: its Q rows, key tiles, output rows (null past S)
+    // the current tile: its Q rows, key tiles, output rows and lse entries
+    // (null past S, and lse null when not asked for)
     int r = 0, kt_begin = 0, nk = 0, rmin = 0, qpos0 = 0, qpos1 = 0, qb = 0;
     uint64_t dq = 0;
     __nv_bfloat16* out0 = nullptr;
     __nv_bfloat16* out1 = nullptr;
+    float* lse0 = nullptr;
+    float* lse1 = nullptr;
     auto start_tile = [&](int tile) {
       int qt, b, h, kt_end;
       block_tile(tile, n_q, a.B * a.H, a.H, &qt, &b, &h);
@@ -559,6 +568,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                          : nullptr;
       out1 = qpos1 < a.S ? O + static_cast<long long>(qpos1) * a.os_s
                          : nullptr;
+      if (a.lse != nullptr) {
+        float* L = a.lse + (static_cast<long long>(b) * a.H + h) * a.S;
+        lse0 = qpos0 < a.S ? L + qpos0 : nullptr;
+        lse1 = qpos1 < a.S ? L + qpos1 : nullptr;
+      }
       mbar_wait(smem_u32(&bar_q[qb]), (r >> 1) & 1);
       m0 = m1 = kNeg;
       l0 = l1 = 0.f;
@@ -567,13 +581,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       online_softmax(sc, m0, m1, l0, l1, al0, al1, a, kt * kTile, rmin,
                      qpos0, qpos1, t);
     };
-    // o / (la, lb) of a finished tile into its rows
-    auto store = [&](float la, float lb, __nv_bfloat16* r0,
-                     __nv_bfloat16* r1) {
+    // o / (la, lb) of a finished tile into its rows, and where asked its
+    // rows' lse from the maxima (ma, mb) and sums: m is in score units
+    // (times c in base 2), so lse = (m * c + log2(l)) * ln 2
+    auto store = [&](float la, float lb, float ma, float mb,
+                     __nv_bfloat16* r0, __nv_bfloat16* r1, float* e0,
+                     float* e1) {
       la += __shfl_xor_sync(0xffffffffu, la, 1);
       la += __shfl_xor_sync(0xffffffffu, la, 2);
       lb += __shfl_xor_sync(0xffffffffu, lb, 1);
       lb += __shfl_xor_sync(0xffffffffu, lb, 2);
+      const float c = a.softcap > 0.f ? 1.f : a.scale * kLog2e;
+      if (e0 != nullptr && t == 0) *e0 = (ma * c + log2f(la)) * kLn2;
+      if (e1 != nullptr && t == 0) *e1 = (mb * c + log2f(lb)) * kLn2;
       // acc / max(l, 1e-30) as acc times one reciprocal per row: the 32
       // IEEE divisions a thread made took a sixth of the kernel's time
       const float inv0 = 1.f / fmaxf(la, 1e-30f);
@@ -652,12 +672,15 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int p = 0; p < P; ++p) fence_regs(o[p]);
           fence_regs(pa);
           release(&bar_empty[sl], lane);
-          store(l0, l1, out0, out1);
+          store(l0, l1, m0, m1, out0, out1, lse0, lse1);
           break;
         }
         const float lp0 = l0, lp1 = l1;         // the finished tile's
+        const float mp0 = m0, mp1 = m1;
         __nv_bfloat16* const p0 = out0;
         __nv_bfloat16* const p1 = out1;
+        float* const e0 = lse0;
+        float* const e1 = lse1;
         start_tile(tile);
         const uint32_t s = it % kStages;
         mbar_wait(smem_u32(&bar_k[s]), (it / kStages) & 1);
@@ -673,7 +696,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int p = 0; p < P; ++p) fence_regs(o[p]);
         fence_regs(pa);
         release(&bar_empty[sl], lane);
-        store(lp0, lp1, p0, p1);
+        store(lp0, lp1, mp0, mp1, p0, p1, e0, e1);
         zero_o_pack();
       }
     }
@@ -695,6 +718,7 @@ struct Args {
   long long os_b, os_s, os_h;
   int S, H, Kv, causal, window;
   float scale, softcap;
+  float* lse;                          // [B, H, S] or null
 };
 
 // scale, softcap and mask of one score
@@ -815,6 +839,8 @@ __global__ void __launch_bounds__(kF32Threads)
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < D / 4; ++i) O[qpos * a.os_s + c + 4 * i] = acc[i] / den;
+    if (a.lse != nullptr && c == 0)
+      a.lse[(static_cast<long long>(b) * a.H + h) * a.S + qpos] = m + logf(l);
   }
 }
 
@@ -907,13 +933,14 @@ int launch_wgmma(int B, int S, int H, const long long* tma, const void* q,
 
 // q [B, S, H, dh], k / v [B, S, Kv, dh], o [B, S, H, dh], all bf16
 // (is_bf16 = 1) or all f32, the head dim contiguous; strides (in elements)
-// in the order q (b, s, h), k, v, o.  For bf16, tma holds q's, k's and v's
+// in the order q (b, s, h), k, v, o.  lse is null or f32 [B, H, S],
+// contiguous: each row's log-sum-exp.  For bf16, tma holds q's, k's and v's
 // tensor-map layouts (11 values each, see encode).  dh is 64 or 128;
 // H % Kv == 0.  Returns -1 for a shape the kernel does not take, -2 / -3
 // when a tensor map cannot be encoded, else cudaGetLastError() after the
 // launch (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o,
+                                      const void* v, void* o, void* lse,
                                       const long long* strides,
                                       const long long* tma, int B, int S,
                                       int H, int Kv, int dh, int is_bf16,
@@ -929,6 +956,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     t.os_b = strides[9]; t.os_s = strides[10]; t.os_h = strides[11];
     t.B = B; t.S = S; t.H = H; t.Kv = Kv; t.causal = causal;
     t.window = window; t.scale = scale; t.softcap = softcap;
+    t.lse = static_cast<float*>(lse);
     return dh == 64 ? launch_wgmma<64>(B, S, H, tma, q, k, v, t, st)
                     : launch_wgmma<128>(B, S, H, tma, q, k, v, t, st);
   }
@@ -941,6 +969,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   a.S = S; a.H = H; a.Kv = Kv; a.causal = causal; a.window = window;
   a.scale = scale;
   a.softcap = softcap;
+  a.lse = static_cast<float*>(lse);
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   return dh == 64 ? launch(flash_f32_kernel<64>, grid, kF32Threads,
                            f32_smem_bytes<64>(), st, a)

@@ -13,6 +13,10 @@ Masks: causal ``kpos <= qpos``, window ``qpos - kpos < window``, and keys
 past S never count.  The TPU kernel pads S to its tile with zeros and,
 without the causal mask, lets those padded keys into the softmax; the port
 masks them, as ``ref.flash_attention_ref`` and ``blocked_attention`` do.
+With ``return_lse=True`` both implementations also return each row's
+log-sum-exp ``lse = log(sum_kept exp(s))`` (f32 ``[B, H, S]``, the natural
+log of the scaled, softcapped score), which the gradient reads instead of
+recomputing the softmax statistics.
 
 Two implementations of the same function:
 
@@ -27,18 +31,18 @@ Two implementations of the same function:
 
 The gradient (the reference trains through the jnp ``blocked_attention``
 under ``jax.grad``; its Pallas kernel has no backward) is two more
-implementations of one function, ``(q, k, v, o, do) -> (dq, dk, dv)``:
+implementations of one function, ``(q, k, v, o, do, lse) -> (dq, dk, dv)``:
 
   * ``flash_attention_bwd_cuda`` — the hand-written Hopper kernel
-    (``csrc/flash_attention_bwd.cu``): recomputes each row's softmax
-    statistics, then dq per query tile and dk, dv per key tile, no atomics;
+    (``csrc/flash_attention_bwd.cu``): dq per query tile and dk, dv per key
+    tile, no atomics; bf16 on the tensor cores (wgmma), f32 in fp32 FMA;
   * ``flash_attention_bwd_plain`` — plain PyTorch with the gradient written
     out (not autograd), at the kernel's rounding points.
 
 ``FlashAttention`` is the ``torch.autograd.Function`` over the pair: its
-forward runs ``flash_attention_cuda`` or ``flash_attention_plain`` and its
-backward ``flash_attention_bwd_cuda`` or ``flash_attention_bwd_plain``,
-each picked by the tensors' device.
+forward runs ``flash_attention_cuda`` or ``flash_attention_plain`` with
+``return_lse=True`` and its backward ``flash_attention_bwd_cuda`` or
+``flash_attention_bwd_plain``, each picked by the tensors' device.
 """
 from __future__ import annotations
 
@@ -61,11 +65,11 @@ bwd_launches = 0             # calls of flash_attention_bwd_cuda (2 kernels)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "flash_attention_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _I, _I, ctypes.c_float, _P], _I),
+    "flash_attention_launch": ([_P] * 7 + [_I] * 8 + [ctypes.c_float, _P],
+                               _I),
 }
 _BWD_SIGNATURES = {
-    "flash_attention_bwd_launch": ([_P] * 12 + [_I] * 8
+    "flash_attention_bwd_launch": ([_P] * 11 + [_I] * 8
                                    + [ctypes.c_float, _P], _I),
 }
 
@@ -89,8 +93,10 @@ def _shapes(q, k, v):
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
-                          softcap: float = 0.0) -> torch.Tensor:
-    """q [B, S, H, dh]; k, v [B, S, Kv, dh] -> [B, S, H, dh] (q's dtype)."""
+                          softcap: float = 0.0, return_lse: bool = False):
+    """q [B, S, H, dh]; k, v [B, S, Kv, dh] -> [B, S, H, dh] (q's dtype);
+    with ``return_lse``, ``(o, lse)``, lse = m + log(l) of the online
+    state, f32 [B, H, S]."""
     B, S, H, Kv, dh = _shapes(q, k, v)
     G = H // Kv
     scale = dh ** -0.5
@@ -120,7 +126,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "bkgqt,btkd->bkgqd", p.to(v.dtype).float(), vt.float())
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, dh).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, dh).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l)).reshape(B, H, S)
+    return out
 
 
 def _check_layout(name: str, t: torch.Tensor, dev: torch.device,
@@ -184,9 +193,10 @@ def tile_schedule(B: int, S: int, H: int, n_blocks: int):
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         softcap: float = 0.0) -> torch.Tensor:
+                         softcap: float = 0.0, return_lse: bool = False):
     """The hand-written kernel (same contract as ``flash_attention_plain``):
-    q, k, v on one CUDA device, all bf16 or all f32, dh 64 or 128."""
+    q, k, v on one CUDA device, all bf16 or all f32, dh 64 or 128.  The
+    kernel writes lse only when ``return_lse`` asks for it."""
     global launches
     dev = q.device
     if dev.type != "cuda":
@@ -199,6 +209,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: unsupported B={B} S={S} H={H} "
                          f"window={window}")
     out = torch.empty((B, S, H, dh), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
+           if return_lse else None)
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         _check_layout(name, t, dev, q.dtype)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
@@ -211,8 +223,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = build.load("flash_attention", _SIGNATURES)
     with torch.cuda.device(dev):
         err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-            tma, B, S, H, Kv, dh, int(q.dtype == torch.bfloat16), int(causal),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), strides, tma, B, S, H,
+            Kv, dh, int(q.dtype == torch.bfloat16), int(causal),
             int(window), float(softcap),
             torch.cuda.current_stream(dev).cuda_stream)
     if err in (-2, -3):
@@ -223,7 +236,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 # ---------------------------------------------------------------- gradient
@@ -242,18 +255,21 @@ def _bwd_masks(S: int, causal: bool, window: int, device) -> torch.Tensor:
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
-                              do: torch.Tensor, *, causal: bool = True,
-                              window: int = 0, softcap: float = 0.0):
+                              do: torch.Tensor, lse: torch.Tensor, *,
+                              causal: bool = True, window: int = 0,
+                              softcap: float = 0.0):
     """The gradient of ``flash_attention_plain`` written out: q, o, do
-    [B, S, H, dh], k, v [B, S, Kv, dh] -> (dq, dk, dv) in q's dtype.
+    [B, S, H, dh], k, v [B, S, Kv, dh] and the forward's lse [B, H, S] ->
+    (dq, dk, dv) in q's dtype.
 
-    With ``s = softcap(q . k^T * scale)``, ``p = softmax(mask(s))`` and
-    ``D = rowsum(do * o)``: ``dv = round(p)^T . do`` (p rounded to v's
-    dtype, as the forward rounds it before ``p . v``), ``dp = do . v^T``,
-    ``ds = p * (dp - D)``, ``dx = ds * (1 - (s / softcap)^2) * scale``,
-    ``dq = dx . k`` and ``dk = dx^T . q``; dk and dv of kv head j sum over
-    its G query heads.  Every product accumulates in f32 from the
-    operands' own values."""
+    With ``s = softcap(q . k^T * scale)``, ``p = exp(s - lse)`` on the kept
+    keys (0 elsewhere) and ``D = rowsum(do * o)``: ``dv = round(p)^T . do``
+    (p rounded to v's dtype, as the forward rounds it before ``p . v``),
+    ``dp = do . v^T``, ``ds = p * (dp - D) * (1 - (s / softcap)^2) *
+    scale``, rounded to v's dtype (the kernel's tensor cores take bf16
+    operands; a no-op in f32), ``dq = ds . k`` and ``dk = ds^T . q``; dk
+    and dv of kv head j sum over its G query heads.  Every product
+    accumulates in f32 from the operands' own values."""
     B, S, H, Kv, dh = _shapes(q, k, v)
     G = H // Kv
     scale = dh ** -0.5
@@ -267,10 +283,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
         s = t * softcap
         capfac = 1.0 - t * t
     keep = _bwd_masks(S, causal, window, q.device)
-    s = torch.where(keep, s, NEG)
-    m = s.amax(dim=-1, keepdim=True)
-    e = torch.where(keep, torch.exp(s - m), 0.0)
-    p = e / e.sum(dim=-1, keepdim=True)
+    lse = lse.float().reshape(B, Kv, G, S)[..., None]
+    p = torch.where(keep, torch.exp(s - lse), 0.0)
     dv = torch.einsum("bkgqt,bqkgd->btkd", p.to(v.dtype).float(), gf)
     dp = torch.einsum("bqkgd,btkd->bkgqt", gf, vf)
     dsum = (do.float() * o.float()).sum(dim=-1)            # [B, S, H]
@@ -278,7 +292,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     ds = p * (dp - dsum)
     if capfac is not None:
         ds = ds * capfac
-    ds = ds * scale
+    ds = (ds * scale).to(v.dtype).float()
     dq = torch.einsum("bkgqt,btkd->bqkgd", ds, kf).reshape(B, S, H, dh)
     dk = torch.einsum("bkgqt,bqkgd->btkd", ds, qf)
     return tuple(t.to(q.dtype) for t in (dq, dk, dv))
@@ -286,11 +300,13 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
-                             do: torch.Tensor, *, causal: bool = True,
-                             window: int = 0, softcap: float = 0.0):
+                             do: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True, window: int = 0,
+                             softcap: float = 0.0):
     """The hand-written gradient kernel (same contract as
     ``flash_attention_bwd_plain``): every tensor on one CUDA device, all
-    bf16 or all f32, dh 64 or 128; dq, dk, dv come back contiguous."""
+    bf16 or all f32 (lse f32, contiguous), dh 64 or 128; dq, dk, dv come
+    back contiguous."""
     global bwd_launches
     dev = q.device
     if dev.type != "cuda":
@@ -310,20 +326,22 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"H={H} window={window}")
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check_layout(name, t, dev, q.dtype)
+    build.check_arg("flash_attention_bwd", "lse", lse, (torch.float32,),
+                    (B, H, S), dev)
     dq = torch.empty((B, S, H, dh), dtype=q.dtype, device=dev)
     dk = torch.empty((B, S, Kv, dh), dtype=q.dtype, device=dev)
     dv = torch.empty_like(dk)
-    stats = torch.empty((3, B, H, S), dtype=torch.float32, device=dev)
+    dsum = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 15)(*(s for t in (q, k, v, o, do)
                                          for s in t.stride()[:3]))
     lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
     with torch.cuda.device(dev):
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(),
-            strides, B, S, H, Kv, dh, int(q.dtype == torch.bfloat16),
-            int(causal), int(window), float(softcap),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dsum.data_ptr(), strides, B, S, H, Kv, dh,
+            int(q.dtype == torch.bfloat16), int(causal), int(window),
+            float(softcap),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
@@ -336,23 +354,23 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its gradient: forward and backward each run
     the hand-written kernel on CUDA tensors and the plain version on CPU
-    tensors.  It saves q, k, v and o; the backward recomputes the softmax
-    from them."""
+    tensors.  It saves q, k, v, o and the forward's lse (f32 [B, H, S]);
+    the backward forms p from the lse."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, softcap: float):
         kw = dict(causal=causal, window=window, softcap=softcap)
         fwd = (flash_attention_plain if q.device.type == "cpu"
                else flash_attention_cuda)
-        o = fwd(q, k, v, **kw)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = fwd(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.kw = kw
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         bwd = (flash_attention_bwd_plain if q.device.type == "cpu"
                else flash_attention_bwd_cuda)
-        dq, dk, dv = bwd(q, k, v, o, do.contiguous(), **ctx.kw)
+        dq, dk, dv = bwd(q, k, v, o, do.contiguous(), lse, **ctx.kw)
         return dq, dk, dv, None, None, None

@@ -10,7 +10,8 @@ kernel in interpret mode (ints exact, floats rtol/atol 1e-4), and
 valid count included.  ``flash_attention`` against the Pallas kernel in
 interpret mode (f32 2e-5, bf16 2e-2: the reference's own tolerances) and,
 where the Pallas kernel lets zero-padded keys into a non-causal softmax,
-against ``ref.flash_attention_ref``; the bf16 kernel's host-side pieces
+against ``ref.flash_attention_ref``; its log-sum-exp (``return_lse``)
+against ``jax.nn.logsumexp`` of the masked scores (2e-5); the bf16 kernel's host-side pieces
 (its TMA tensor-map layout and its persistent tile schedule) on their
 own; ``nearest_dist`` against the Pallas
 kernel in interpret mode (1e-4), 1e30 for a row with no valid neighbour.
@@ -19,6 +20,7 @@ kernels: their work splits, numpy models of the lift kernel's ranking and
 kept-slot walk (held against the plain version's cumsum and slot rule),
 and the nearest kernel's reordered expansion in f32 (within 1e-4).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -277,6 +279,55 @@ def test_flash_attention_gqa_reads_kv_head_h_over_g(dtype):
             got[b].float().numpy().transpose(1, 0, 2),
             np.asarray(want, np.float32), rtol=ATTN_TOL[dtype],
             atol=ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("h,s,dh,causal,window,softcap,dtype", [
+    (2, 128, 64, True, 0, 0.0, "f32"),
+    (4, 256, 64, True, 64, 0.0, "f32"),
+    (2, 200, 128, True, 0, 50.0, "f32"),
+    (1, 128, 64, False, 0, 0.0, "f32"),
+    (2, 200, 64, True, 0, 0.0, "bf16"),
+    (3, 77, 64, False, 5, 20.0, "bf16"),
+])
+def test_flash_attention_plain_lse_matches_jax_logsumexp(h, s, dh, causal,
+                                                         window, softcap,
+                                                         dtype):
+    """``return_lse=True``: the same output bits, and each row's lse equal
+    (2e-5, f32 scores in another order) to ``jax.nn.logsumexp`` of the
+    masked, softcapped, scaled f32 scores of the same (rounded) inputs."""
+    q, k, v = _attn_inputs([(h, s, dh)] * 3, dtype, 2 * s + h)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    tq, tk, tv = (_to(a, dtype, "torch").transpose(0, 1)[None]
+                  for a in (q, k, v))
+    o, lse = tfa.flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+    assert torch.equal(o, tfa.flash_attention_plain(tq, tk, tv, **kw))
+    assert lse.shape == (1, h, s) and lse.dtype == torch.float32
+
+    sc = jnp.einsum("hqd,hkd->hqk", jnp.asarray(q), jnp.asarray(k)) \
+        * dh ** -0.5
+    if softcap:
+        sc = jnp.tanh(sc / softcap) * softcap
+    qpos, kpos = jnp.arange(s)[:, None], jnp.arange(s)[None, :]
+    keep = jnp.ones((s, s), bool)
+    if causal:
+        keep &= kpos <= qpos
+    if window:
+        keep &= qpos - kpos < window
+    want = jax.nn.logsumexp(jnp.where(keep, sc, -jnp.inf), axis=-1)
+    np.testing.assert_allclose(lse[0].numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_flash_cuda_wrappers_refuse_cpu_tensors():
+    """The kernels' wrappers launch on CUDA tensors or raise: no fallback
+    to the plain version, the lse path included."""
+    q = torch.zeros(1, 64, 2, 64)
+    lse = torch.zeros(1, 2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_cuda(q, q, q, return_lse=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_bwd_cuda(q, q, q, q, q, lse)
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 @pytest.mark.parametrize("bad,match", [

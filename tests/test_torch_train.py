@@ -12,7 +12,9 @@ Tolerances, each with its reason:
     gradient written out by hand rather than JAX's autodiff of a scan;
   * bf16 losses 3e-2 (bf16 rounds at other points in the two frameworks,
     as in ``test_torch_models.py``);
-  * the attention gradient against ``jax.vjp`` 2e-5 (f32, one layer);
+  * the attention gradient against ``jax.vjp`` 2e-5 (f32, one layer), and
+    the forward's log-sum-exp against a float64 numpy ``logsumexp`` with
+    the same bound (f32 scores summed in another order);
   * AdamW and the learning rate 1e-6 relative, 1e-8 absolute: the same
     f32 operations one by one, only the global norm's sum in another
     order (a master that crosses zero is a difference of terms of about
@@ -213,8 +215,8 @@ def test_flash_attention_bwd_plain_matches_jax_vjp(case):
     q, k, v, do = _attn_inputs(Bq, Sq, H, Kv, dh, seed=len(case))
     kw = dict(causal=causal, window=window, softcap=cap)
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
-    o = tfa.flash_attention_plain(tq, tk, tv, **kw)
-    got = tfa.flash_attention_bwd_plain(tq, tk, tv, o, tdo, **kw)
+    o, lse = tfa.flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+    got = tfa.flash_attention_bwd_plain(tq, tk, tv, o, tdo, lse, **kw)
 
     # blocked_attention (GQA, the model layout); q_chunk / k_chunk smaller
     # than S so its padding and masks of keys past S run
@@ -253,13 +255,77 @@ def test_flash_attention_bwd_plain_matches_jax_vjp(case):
 def test_flash_attention_bwd_plain_keeps_the_dtype_and_rounds_p_in_bf16():
     q, k, v, do = (torch.from_numpy(a).bfloat16()
                    for a in _attn_inputs(1, 30, 2, 1, 16, seed=9))
-    o = tfa.flash_attention_plain(q, k, v)
-    got = tfa.flash_attention_bwd_plain(q, k, v, o, do)
+    o, lse = tfa.flash_attention_plain(q, k, v, return_lse=True)
+    got = tfa.flash_attention_bwd_plain(q, k, v, o, do, lse)
     assert all(g.dtype == torch.bfloat16 for g in got)
     f32 = tfa.flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o,
-                                                             do)))
+                                                             do)), lse)
     for g, w in zip(got, f32):
         np.testing.assert_allclose(_np(g), _np(w), rtol=3e-2, atol=3e-2)
+
+
+def test_flash_attention_bwd_plain_rounds_ds_in_bf16():
+    """In bf16, ds is rounded to bf16 before dq and dk (the kernel's
+    tensor cores take bf16 operands): the plain version's dq and dk are,
+    up to f32 against f64 arithmetic, a float64 gradient from the rounded
+    ds, and differ from one without that rounding."""
+    B_, S_, H, Kv, dh = 1, 48, 4, 2, 32
+    q, k, v, do = (torch.from_numpy(a).bfloat16()
+                   for a in _attn_inputs(B_, S_, H, Kv, dh, seed=11))
+    o, lse = tfa.flash_attention_plain(q, k, v, return_lse=True)
+    dq, dk, _ = tfa.flash_attention_bwd_plain(q, k, v, o, do, lse)
+
+    G = H // Kv
+    qd, od, gd = (t.double() for t in (q, o, do))
+    kr, vr = (t.double().repeat_interleave(G, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bthd->bhqt", qd, kr) * dh ** -0.5
+    keep = torch.ones(S_, S_, dtype=torch.bool).tril()
+    p = torch.where(keep, torch.exp(s - lse.double()[..., None]), 0.0)
+    dp = torch.einsum("bqhd,bthd->bhqt", gd, vr)
+    dsum = (gd * od).sum(-1).permute(0, 2, 1)[..., None]
+    ds = p * (dp - dsum) * dh ** -0.5
+
+    def mismatch(got, want):
+        return float((got != want.to(torch.bfloat16)).double().mean())
+
+    for rounded, bound in ((True, 0.02), (False, None)):
+        d = ds.to(torch.bfloat16).double() if rounded else ds
+        dq_ref = torch.einsum("bhqt,bthd->bqhd", d, kr)
+        dk_ref = torch.einsum("bhqt,bqhd->bthd", d, qd).reshape(
+            B_, S_, Kv, G, dh).sum(3)
+        m = mismatch(dq, dq_ref), mismatch(dk, dk_ref)
+        if rounded:
+            assert max(m) <= bound, m
+        else:
+            assert min(m) >= 0.1, m
+
+
+def test_flash_attention_saves_the_lse_only_under_grad(monkeypatch):
+    """Under grad ``FlashAttention`` asks the forward for its lse and
+    saves it beside q, k, v and o; a ``no_grad`` or frozen forward never
+    asks for it."""
+    asked = []
+    real = tfa.flash_attention_plain
+
+    def spy(*args, **kw):
+        asked.append(kw.get("return_lse", False))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tfa, "flash_attention_plain", spy)
+    q, k, v, do = (torch.from_numpy(a) for a in _attn_inputs(2, 20, 4, 2, 16,
+                                                            seed=5))
+    qg = q.clone().requires_grad_()
+    out = ops.flash_attention_bshd(qg, k, v, window=7)
+    assert asked == [True]
+    _, want = real(q, k, v, window=7, return_lse=True)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 5 and saved[4].dtype == torch.float32
+    assert torch.equal(saved[4], want)
+    torch.autograd.grad(out, qg, do)
+    with torch.no_grad():
+        ops.flash_attention_bshd(qg, k, v)
+    ops.flash_attention_bshd(q, k, v)                       # frozen inputs
+    assert asked == [True, False, False]
 
 
 def test_ops_routes_through_the_autograd_function_only_with_grad():
@@ -278,6 +344,36 @@ def test_ops_routes_through_the_autograd_function_only_with_grad():
     torch.autograd.grad(out.sum(), qg)
     assert ops.launch_counts() == before         # CPU tensors launch nothing
     assert "flash_attention_bwd" in before
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_flash_attention_plain_lse_is_the_masked_logsumexp(case, dtype):
+    """``return_lse=True`` leaves o's bits as they are and returns each
+    row's log-sum-exp over the masked, softcapped, scaled scores."""
+    Bq, Sq, H, Kv, dh, causal, window, cap = ATTN_CASES[case]
+    q, k, v, _ = _attn_inputs(Bq, Sq, H, Kv, dh, seed=len(case) + 1)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    tq, tk, tv = (torch.from_numpy(a).to(TDT[dtype]) for a in (q, k, v))
+    o, lse = tfa.flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+    assert torch.equal(o, tfa.flash_attention_plain(tq, tk, tv, **kw))
+    assert lse.shape == (Bq, H, Sq) and lse.dtype == torch.float32
+
+    qd, kd = (t.double().numpy() for t in (tq, tk))
+    s = np.einsum("bqhd,bthd->bhqt", qd,
+                  np.repeat(kd, H // Kv, axis=2)) * dh ** -0.5
+    if cap:
+        s = np.tanh(s / cap) * cap
+    qpos, kpos = np.arange(Sq)[:, None], np.arange(Sq)[None, :]
+    keep = np.ones((Sq, Sq), bool)
+    if causal:
+        keep &= kpos <= qpos
+    if window:
+        keep &= qpos - kpos < window
+    s = np.where(keep, s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    want = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), want, **ATTN_GRAD_TOL)
 
 
 # ------------------------------------------------------------------- AdamW
