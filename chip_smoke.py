@@ -151,6 +151,27 @@
     60-object scene): losses, retrieval top-1 over 6 held-out batches, the
     card's first 10 losses = the CPU port's; no kernel launched.
 
+17. DeepSeek-V3 (MLA + MoE): (a) ``mla_attention_checks``: the flash
+    kernel at MLA's head widths (q / k 192, v 128) against its plain
+    version at (B, S, H) = (1, 1, 1), (1, 129, 4), (2, 200, 4),
+    (1, 1024, 16), (4, 1024, 128), causal, bf16 and f32, and a ragged
+    non-causal S, within ATTN_TOL, the same bits twice; its time at the
+    prefill shape beside its bound (bytes), the plain version's and
+    SDPA's; (b) ``deepseek_serve_phase``: ``deepseek-v3-671b`` at full
+    width cut to 4 layers (3 dense-prefix + 1 MoE, about 30 GB of bf16
+    weights seeded on the card), 4 prompts of 1024 tokens prefilled
+    twice, then 16 greedy steps, in naive and in absorbed decode: prefill
+    and decode ms, tokens/s, peak bytes, the MoE's dropped share and
+    prefill expert load, the modes' greedy agreement; 4 flash launches a
+    prefill and none while decoding, every logit finite, the two
+    prefills' logits the same bits; then a
+    ``torch.profiler`` window over one prefill and 8 decode steps a mode
+    (``deepseek_profile``); (c)
+    ``deepseek_replay_phase``: the same family in f32 at d_model 1024, 16
+    heads, the published MLA widths, 16 experts top-8, card vs CPU port
+    in both modes: the same expert ids at every MoE call, logits within
+    1e-4 of the largest, equal tokens.  ``deepseek_cuts`` prints the cuts.
+
 ``nearest_dist`` has no caller on any system path: its phase drives its
 entry point, ``ops.nearest_dist``, at a chamfer and a centroid shape.
 
@@ -319,6 +340,23 @@ TRAIN = dict(arch="semanticxr-captioner-110m", steps=200, batch=8, seq=256,
 # layers and their gradients; the masters as an L2 norm over every leaf
 TRAIN_REPLAY_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "master": 1e-4}
 CLIP_CROSS_TOL = 1e-4    # mini-CLIP loss, card vs CPU, first 10 steps
+# step 17: DeepSeek-V3 (MLA + MoE).  (a) the flash kernel at MLA's head
+# widths, q / k 192 and v 128, at these (B, S, H) (H = Kv: MLA has no GQA),
+# the last MLA's prefill; (b) the full-width model cut in depth from 61 to
+# 4 layers (its 3 dense-prefix layers and 1 MoE layer), serving B prompts
+# then greedy steps in both decode modes; (c) an f32 replay, card vs CPU
+# port, at the published MLA widths and ranks and narrower elsewhere, so
+# the (192, 128) pair still runs.
+MLA_HEADS = (192, 128)
+MLA_ATTN_SHAPES = ((1, 1, 1), (1, 129, 4), (2, 200, 4), (1, 1024, 16),
+                   (4, 1024, 128))
+DEEPSEEK = dict(arch="deepseek-v3-671b", n_layers=4, batch=4, prompt=1024,
+                new_tokens=16)
+DEEPSEEK_REPLAY = dict(arch="deepseek-v3-671b", n_layers=4, d_model=1024,
+                       n_heads=16, d_ff_dense_prefix=2048, vocab_size=4096,
+                       n_experts=16, top_k=8, d_ff_expert=256, batch=1,
+                       prompt=256, new_tokens=8)
+DEEPSEEK_REPLAY_TOL = 1e-4   # f32 logits: max |card - CPU| / max |logit|
 
 
 def check(cond, what: str) -> None:
@@ -645,10 +683,12 @@ def attn_inputs(torch, B, S, H, Kv, dh, dtype, seed, dev):
             for h in (H, Kv, Kv)]
 
 
-def attn_cost(q, k, causal, window, elt):
+def attn_cost(q, k, causal, window, elt, dv=None):
     """(bytes, flops) of one attention call: q, k, v read and o written
-    once; 4 * dh flops for each (query, key) pair the masks keep."""
+    once; 2 * (dh + dv) flops for each (query, key) pair the masks keep
+    (v and o of head width ``dv``, by default q's dh)."""
     B, S, H, dh = q.shape
+    dv = dh if dv is None else dv
     qp = np.arange(S)[:, None]
     kp = np.arange(S)[None, :]
     keep = np.ones((S, S), bool)
@@ -656,18 +696,21 @@ def attn_cost(q, k, causal, window, elt):
         keep &= kp <= qp
     if window:
         keep &= qp - kp < window
-    return ((2 * q.numel() + 2 * k.numel()) * elt,
-            4 * dh * B * H * int(keep.sum()))
+    return ((q.numel() + k.numel()) * (dh + dv) // dh * elt,
+            2 * (dh + dv) * B * H * int(keep.sum()))
+
+
+def attn_close(got, want, dtype):
+    """(max abs error, within ATTN_TOL as rtol = atol)."""
+    tol = ATTN_TOL[str(dtype).split(".")[-1]]
+    err = (got.float() - want.float()).abs()
+    return float(err.max()), bool(
+        (err <= tol + tol * want.float().abs()).all())
 
 
 def attention_checks(torch, clock, dev):
     from repro_torch.kernels import flash_attention as fa
-
-    def close(got, want, dtype):
-        tol = ATTN_TOL[str(dtype).split(".")[-1]]
-        err = (got.float() - want.float()).abs()
-        return float(err.max()), bool(
-            (err <= tol + tol * want.float().abs()).all())
+    close = attn_close
 
     # (B, S, H, Kv, dh, dtype, causal, window, softcap): the captioner's
     # prefill; tests/test_kernels.py:75-81 and a non-causal ragged S, each
@@ -3050,6 +3093,345 @@ def train_phase(torch, dev, *, arch, steps, batch, seq, kill, compress,
     return out
 
 
+# ----------------------------------------------------------------- step 17
+def mla_inputs(torch, B, S, H, dtype, seed, dev):
+    """q [B, S, H, 192]; k [B, S, H, 192] whose last 64 columns are one
+    rope head broadcast to every head, as MLA's prefill builds it; v
+    [B, S, H, 128]."""
+    dqk, dv = MLA_HEADS
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    rope = rnd(B, S, 1, 64).expand(B, S, H, 64)
+    return (rnd(B, S, H, dqk), torch.cat([rnd(B, S, H, dqk - 64), rope], -1),
+            rnd(B, S, H, dv))
+
+
+def mla_attention_checks(torch, clock, dev):
+    """(a) ``flash_attention_cuda`` at (dqk, dv) = (192, 128) against
+    ``flash_attention_plain``: every MLA_ATTN_SHAPES (B, S, H) causal in
+    bf16 and f32, and a ragged non-causal S in both (the padded keys
+    masked), within ATTN_TOL, the same bits from two calls; then its time
+    at the prefill shape (4, 1024, 128, bf16, causal, cold L2) beside its
+    bound, the plain version's and SDPA's."""
+    from repro_torch.kernels import flash_attention as fa
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(B, S, H, dt, True) for B, S, H in MLA_ATTN_SHAPES
+             for dt in (bf, f32)] + [(2, 200, 4, bf, False),
+                                     (2, 200, 4, f32, False)]
+    for i, (B, S, H, dt, causal) in enumerate(cases):
+        q, k, v = mla_inputs(torch, B, S, H, dt, 100 + i, dev)
+        got = fa.flash_attention_cuda(q, k, v, causal=causal)
+        again = fa.flash_attention_cuda(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err, ok = attn_close(got, want, dt)
+        tag = dict(B=B, S=S, H=H, dqk=MLA_HEADS[0], dv=MLA_HEADS[1],
+                   dtype=str(dt), causal=causal)
+        check(tuple(got.shape) == (B, S, H, MLA_HEADS[1]),
+              f"flash_attention (192, 128) shape at {tag}")
+        check(ok and bool(torch.isfinite(got).all()),
+              f"flash_attention (192, 128) err {err} at {tag}")
+        same = same_bits(torch, [got.float()], [again.float()])
+        check(same, f"flash_attention (192, 128) same bits twice at {tag}")
+        emit("mla_attention_check", {**tag, "max_abs_err": err,
+                                     "same_bits_twice": same})
+    B, S, H = MLA_ATTN_SHAPES[-1]
+    q, k, v = mla_inputs(torch, B, S, H, bf, 7, dev)
+    err, _ = attn_close(fa.flash_attention_cuda(q, k, v),
+                        fa.flash_attention_plain(q, k, v), bf)
+    nbytes, flops = attn_cost(q, k, True, 0, 2, dv=MLA_HEADS[1])
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    sdpa = [t.transpose(1, 2) for t in (q, k, v)]
+    try:
+        lib_ms = clock.ms(lambda: torch.nn.functional.
+                          scaled_dot_product_attention(*sdpa, is_causal=True))
+        lib_note = "torch.nn.functional.scaled_dot_product_attention"
+    except RuntimeError as e:     # no SDPA backend takes this pair
+        lib_ms, lib_note = None, f"SDPA refused dv != dqk: {e}"[:300]
+    row = {"ms": clock.ms(lambda: fa.flash_attention_cuda(q, k, v)),
+           "plain_ms": clock.ms(lambda: fa.flash_attention_plain(q, k, v)),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": lib_ms, "library": lib_note,
+           "max_abs_err": err, "flops": flops, "bytes": nbytes,
+           "shape": f"B={B} S={S} H={H} dqk=192 dv=128 bf16 causal"}
+    row["tflops"] = flops / row["ms"] / 1e9
+    emit("mla_attention_time", row)
+    return row
+
+
+class MoESpy:
+    """While open, records every MoE call of the port: its expert ids
+    (``moe._route``) and its ``MoEStats`` (``moe.moe_apply``)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.ids, self.stats = moe, [], []
+
+    def __enter__(self):
+        moe = self.moe
+        self._route, self._apply = moe._route, moe.moe_apply
+
+        def route(*a, **kw):
+            out = self._route(*a, **kw)
+            self.ids.append(out[1])
+            return out
+
+        def apply(*a, **kw):
+            y, st = self._apply(*a, **kw)
+            self.stats.append(st)
+            return y, st
+
+        moe._route, moe.moe_apply = route, apply
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route, self.moe.moe_apply = self._route, self._apply
+
+
+def deepseek_serve_phase(torch, dev, *, arch, n_layers, batch, prompt,
+                         new_tokens):
+    """(b) ``deepseek-v3-671b`` at full width, ``n_layers`` deep, bf16,
+    weights seeded on the card: ``batch`` prompts of ``prompt`` tokens
+    (prefilled twice), then ``new_tokens`` greedy steps, once with naive
+    and once with absorbed MLA decode, through model_api's entry points.
+    Counters reset just before each mode and read just after: one flash
+    launch per MLA layer per prefill, none while decoding."""
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.api import model_api
+    from repro_torch.models.lm import greedy_token
+
+    full = get_config(arch)
+    cfg = full.replace(n_layers=n_layers)
+    emit("deepseek_cuts", {
+        "serve": f"{arch}: depth {full.n_layers} -> {n_layers} layers "
+                 f"({cfg.n_dense_prefix} dense-prefix + "
+                 f"{n_layers - cfg.n_dense_prefix} MoE); widths as "
+                 "published; random weights seeded on the card",
+        "replay": "d_model 7168 -> 1024, heads 128 -> 16, d_ff_dense_prefix "
+                  "18432 -> 2048, experts 256 -> 16 (top-8 kept), "
+                  "d_ff_expert 2048 -> 256, vocab 129280 -> 4096, depth 61 "
+                  "-> 4; MLA ranks and head widths as published, f32"})
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = model_api(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)).to(dev)
+    E = cfg.moe.n_experts
+    out = {"config": cfg.name, "n_layers": n_layers, "batch": batch,
+           "prompt": prompt, "new_tokens": new_tokens,
+           "params": sum(p.numel() for p in model.parameters()),
+           "weights_bytes": sum(p.numel() * p.element_size()
+                                for p in model.parameters()),
+           "allocated_before_bytes": before, "init_s_host": init_s,
+           "init_peak_bytes": init_peak, "modes": {}}
+    gen = {}
+    for mode, absorb in (("naive", False), ("absorbed", True)):
+        api = model_api(cfg.replace(mla=dataclasses.replace(
+            cfg.mla, absorb=absorb)))
+        caches = api.init_cache(batch, prompt + new_tokens, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        pre_ms, per_prefill, dec_ms, finite = [], [], [], True
+        pre_logits = []
+        with MoESpy() as spy:
+            for _ in range(2):
+                n0 = ops.launch_counts()["flash_attention"]
+                t0 = time.perf_counter()
+                logits, caches = api.prefill(model, {"tokens": tokens},
+                                             caches)
+                torch.cuda.synchronize()
+                pre_ms.append((time.perf_counter() - t0) * 1e3)
+                per_prefill.append(ops.launch_counts()["flash_attention"]
+                                   - n0)
+                finite &= bool(torch.isfinite(logits).all())
+                pre_logits.append(logits.float())
+            n1 = ops.launch_counts()["flash_attention"]
+            tok = greedy_token(logits)
+            toks = [tok]
+            for i in range(new_tokens):
+                t0 = time.perf_counter()
+                logits, caches = api.decode(model, tok, caches, prompt + i)
+                tok = greedy_token(logits)
+                torch.cuda.synchronize()
+                dec_ms.append((time.perf_counter() - t0) * 1e3)
+                finite &= bool(torch.isfinite(logits).all())
+                toks.append(tok)
+            per_decode = ops.launch_counts()["flash_attention"] - n1
+        peak = torch.cuda.max_memory_allocated()
+        n_moe = n_layers - cfg.n_dense_prefix
+        check(per_prefill == [n_layers] * 2,
+              f"{n_layers} flash_attention launches per prefill ({mode}): "
+              f"{per_prefill}")
+        check(per_decode == 0, f"no flash_attention launch while decoding "
+              f"({mode}): {per_decode}")
+        check(finite, f"every DeepSeek logit finite ({mode})")
+        # the MoE adds a token's k contributions in a fixed order (no
+        # index_add_): the same prompt gives the same bits twice
+        same = same_bits(torch, pre_logits[:1], pre_logits[1:])
+        check(same, f"DeepSeek prefill logits the same bits twice ({mode})")
+        check(len(spy.ids) == n_moe * (2 + new_tokens),
+              f"one MoE call per MoE layer and pass ({mode})")
+        check(int(caches[0].length) == prompt + new_tokens,
+              f"MLA cache length ({mode})")
+        load = torch.bincount(spy.ids[-1 - new_tokens].flatten(),
+                              minlength=E).cpu()
+        gen[mode] = torch.cat(toks, dim=1).cpu()
+        dec = float(np.percentile(dec_ms, 50))
+        out["modes"][mode] = {
+            "prefill_ms": pre_ms, "prefill_tokens_per_s":
+                batch * prompt / pre_ms[-1] * 1e3,
+            "decode_ms_per_step_p50": dec,
+            "decode_ms_per_step_p95": float(np.percentile(dec_ms, 95)),
+            "generated_tokens_per_s": batch / dec * 1e3,
+            "max_memory_allocated_bytes": peak,
+            "flash_launches_per_prefill": per_prefill,
+            "flash_launches_decoding": per_decode,
+            "prefill_logits_same_bits_twice": same,
+            "launches": ops.launch_counts(),
+            "moe_dropped_frac_prefill": float(
+                spy.stats[-1 - new_tokens].dropped_frac),
+            "moe_dropped_frac_decode_max": max(
+                float(st.dropped_frac) for st in spy.stats[-new_tokens:]),
+            "prefill_expert_load": {
+                "min": int(load.min()), "max": int(load.max()),
+                "mean": float(load.float().mean()),
+                "idle_experts": int((load == 0).sum()),
+                "capacity": moe.expert_capacity(batch * prompt, cfg)},
+            "first_tokens": gen[mode][0, :8].tolist()}
+        # where the time goes (after the counts: these launches are
+        # extra): the prefill once, PROFILE_DECODE decode steps per mode
+        state = {}
+
+        def prefill_once():
+            state["logits"], state["caches"] = api.prefill(
+                model, {"tokens": tokens}, caches)
+
+        def decode_steps():
+            tok = greedy_token(state["logits"])
+            for i in range(PROFILE_DECODE):
+                logits, _ = api.decode(model, tok, state["caches"],
+                                       prompt + i)
+                tok = greedy_token(logits)
+
+        flash = ("flash_wgmma_kernel<192",)
+        prof = {"prefill": profiled(torch, prefill_once, flash),
+                f"decode_{PROFILE_DECODE}_steps": profiled(torch,
+                                                           decode_steps)}
+        if mode == "naive":
+            check(prof["prefill"]["kernel_ms"][flash[0]] > 0,
+                  "flash_wgmma_kernel<192, 128> ran in the profiled prefill")
+        out["modes"][mode]["profile"] = prof
+        emit("deepseek_profile", {"mode": mode, **prof})
+    out["greedy_agreement_naive_vs_absorbed"] = float(
+        (gen["naive"] == gen["absorbed"]).float().mean())
+    out["flash_launches"] = out["modes"]["absorbed"]["launches"][
+        "flash_attention"]
+    emit("deepseek_serve_phase", out)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def deepseek_replay_phase(torch, dev, *, arch, n_layers, d_model, n_heads,
+                          d_ff_dense_prefix, vocab_size, n_experts, top_k,
+                          d_ff_expert, batch, prompt, new_tokens):
+    """(c) the cut v3 in f32 on the card and on the CPU port, the same
+    seeded weights, in both decode modes: the same expert ids at every
+    MoE call, logits within DEEPSEEK_REPLAY_TOL of the largest, equal
+    greedy tokens, and 4 flash launches (the f32 (192, 128) instance) per
+    prefill on the card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import model_api
+    from repro_torch.models.lm import greedy_token
+
+    base = get_config(arch)
+    cfg = base.replace(
+        n_layers=n_layers, d_model=d_model, n_heads=n_heads,
+        n_kv_heads=n_heads, d_ff_dense_prefix=d_ff_dense_prefix,
+        vocab_size=vocab_size, dtype=torch.float32,
+        moe=dataclasses.replace(base.moe, n_experts=n_experts, top_k=top_k,
+                                d_ff_expert=d_ff_expert))
+    prompt_np = np.random.default_rng(1).integers(
+        0, vocab_size, (batch, prompt)).astype(np.int32)
+    models = {d: model_api(cfg).init(torch.Generator().manual_seed(0),
+                                     device=d) for d in (dev, "cpu")}
+
+    def run(device, absorb):
+        api = model_api(cfg.replace(mla=dataclasses.replace(
+            cfg.mla, absorb=absorb)))
+        model = models[device]
+        caches = api.init_cache(batch, prompt + new_tokens, device=device)
+        ops.reset_launch_counts()
+        with MoESpy() as spy:
+            logits, caches = api.prefill(
+                model, {"tokens": torch.from_numpy(prompt_np).to(device)},
+                caches)
+            flash = ops.launch_counts()["flash_attention"]
+            toks, all_logits = [], [logits.cpu()]
+            tok = greedy_token(logits)
+            for i in range(new_tokens):
+                toks.append(tok.cpu())
+                logits, caches = api.decode(model, tok, caches, prompt + i)
+                all_logits.append(logits.cpu())
+                tok = greedy_token(logits)
+            toks.append(tok.cpu())
+        return (torch.cat(toks, dim=1), torch.stack(all_logits),
+                [i.cpu() for i in spy.ids], flash)
+
+    t0 = time.perf_counter()
+    out = {"config": f"{cfg.name} cut (d_model {d_model}, {n_heads} heads, "
+                     f"{n_experts} experts top-{top_k}, d_ff_expert "
+                     f"{d_ff_expert}, vocab {vocab_size}, {n_layers} "
+                     "layers), f32",
+           "batch": batch, "prompt": prompt, "new_tokens": new_tokens,
+           "modes": {}}
+    for mode, absorb in (("naive", False), ("absorbed", True)):
+        gtok, glog, gids, flash = run(dev, absorb)
+        ctok, clog, cids, _ = run("cpu", absorb)
+        check(len(gids) == len(cids) == 1 + new_tokens,
+              f"replay MoE calls ({mode})")
+        for j, (a, b) in enumerate(zip(gids, cids)):
+            check(torch.equal(a, b), f"replay expert ids at MoE call {j} "
+                  f"({mode})")
+        scale = float(clog.abs().max())
+        err = float((glog - clog).abs().max())
+        check(torch.equal(gtok, ctok), f"replay greedy tokens card "
+              f"{gtok.tolist()} vs CPU {ctok.tolist()} ({mode})")
+        check(err <= DEEPSEEK_REPLAY_TOL * scale,
+              f"replay f32 logits err {err} of {scale} ({mode})")
+        check(flash == n_layers, f"{n_layers} f32 flash launches per "
+              f"prefill on the card ({mode}): {flash}")
+        out["modes"][mode] = {"tokens": gtok[0].tolist(),
+                              "max_abs_logit_err": err,
+                              "max_abs_logit": scale,
+                              "relative_err": err / scale,
+                              "moe_calls_equal_ids": len(gids),
+                              "flash_launches_prefill": flash}
+    out["seconds_host"] = time.perf_counter() - t0
+    emit("deepseek_replay_phase", out)
+    return out
+
+
 def kernel_resources(build) -> dict:
     """{source: {kernel: registers, static shared memory, spills}} from
     ptxas's ``-v`` report in each build log (dynamic shared memory is set
@@ -3183,6 +3565,12 @@ def main() -> int:
                      SERVING_LOOP)
     bwd_row = timed("flash_bwd_checks", flash_bwd_checks, torch, clock, dev)
     train = timed("train_phase", train_phase, torch, dev, **TRAIN)
+    mla_row = timed("mla_attention_checks", mla_attention_checks, torch,
+                    clock, dev)
+    deepseek = timed("deepseek_serve_phase", deepseek_serve_phase, torch,
+                     dev, **DEEPSEEK)
+    timed("deepseek_replay_phase", deepseek_replay_phase, torch, dev,
+          **DEEPSEEK_REPLAY)
     emit("phase_seconds", phase_s)
     print(smi, flush=True)          # again, inside the tail of a long log
 
@@ -3231,6 +3619,14 @@ def main() -> int:
          "launches": train["train"]["launches"]["flash_attention_bwd"],
          "launched_on": "step 16 captioner training path (12 a step)",
          **bwd_row},
+        {"name": "flash_attention_mla", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:93",
+         "instance": "(dqk, dv) = (192, 128): flash_wgmma_kernel<192,128> "
+                     "(bf16), flash_f32_kernel<192,128> (f32)",
+         "launches": deepseek["flash_launches"],
+         "launched_on": "step 17 DeepSeek-V3 serving path (one a layer a "
+                        "prefill, 4 layers, 2 prefills)", **mla_row},
         {"name": "nearest_dist", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pairwise.cu",
          "replaces": "src/repro/kernels/pairwise.py:59",

@@ -5,6 +5,7 @@ whose families the port runs are registered; asking for another raises.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 from repro_torch.models import common as cm
@@ -36,8 +37,9 @@ def list_configs() -> list[str]:
 
 def smoke_config(cfg: cm.ArchConfig) -> cm.ArchConfig:
     """Same family, tiny dims: the reference's shrink for the fields the
-    port has."""
-    return cfg.replace(
+    port has (MoE: 4 experts, top_k <= 2, d_ff_expert 64; MLA: ranks 64 /
+    32, heads 32 + 16 / 32, so d_head 48)."""
+    kw: dict = dict(
         name=cfg.name + "-smoke",
         n_layers=cfg.n_dense_prefix + cfg.period,
         d_model=128,
@@ -50,3 +52,14 @@ def smoke_config(cfg: cm.ArchConfig) -> cm.ArchConfig:
         vocab_size=512,
         sliding_window=32,
     )
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(cfg.moe, n_experts=4,
+                                        top_k=min(cfg.moe.top_k, 2),
+                                        d_ff_expert=64)
+    if cfg.mla is not None:
+        kw["mla"] = dataclasses.replace(
+            cfg.mla, q_lora_rank=(64 if cfg.mla.q_lora_rank else 0),
+            kv_lora_rank=32, qk_nope_head_dim=32, qk_rope_head_dim=16,
+            v_head_dim=32)
+        kw["d_head"] = 48                # nope + rope
+    return cfg.replace(**kw)

@@ -17,7 +17,7 @@ from repro_torch.core.store import ObjectStore
 from repro_torch.device import resolve_device
 from repro_torch.index.cluster import ClusterSummaries
 from repro_torch.models import common as cm
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, lm_param_specs
 from repro_torch.optim.adamw import OptState
 from repro_torch.perception.embedder import OracleEmbedder
 from repro_torch.server.session import FleetSync, SessionManager
@@ -119,14 +119,19 @@ def _leaf(x, dtype) -> torch.Tensor:
 def _from_reference(cfg: cm.ArchConfig, tree, leaf) -> dict:
     """The reference's LM layout (body leaves stacked ``[n_periods, ...]``
     per period slot, the dense prefix as a list) as the port's per-layer
-    tree: prefix first, then period by period; ``leaf`` converts each."""
-    layers = [cm.map_tree(lambda _, x: leaf(x), p)
-              for p in tree.get("prefix", [])]
+    tree: prefix first, then period by period; ``leaf(path, x)`` converts
+    each, ``path`` the leaf's path in the port's tree
+    (``layers/3/mlp/router``)."""
+    npre = len(tree.get("prefix", []))
+    layers = [cm.map_tree(lambda p, x, i=i: leaf(f"layers/{i}/{p}", x), t)
+              for i, t in enumerate(tree.get("prefix", []))]
     for i in range(cfg.n_periods):
         for s in range(cfg.period):
-            layers.append(cm.map_tree(lambda _, x: leaf(x[i]),
-                                      tree["body"][s]))
-    out = {k: leaf(tree[k]) for k in ("embed", "final_scale", "lm_head")
+            n = npre + i * cfg.period + s
+            layers.append(cm.map_tree(
+                lambda p, x, i=i, n=n: leaf(f"layers/{n}/{p}", x[i]),
+                tree["body"][s]))
+    out = {k: leaf(k, tree[k]) for k in ("embed", "final_scale", "lm_head")
            if k in tree}
     out["layers"] = layers
     return out
@@ -161,15 +166,18 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 def lm_params_from_numpy(cfg: cm.ArchConfig, tree, *, device="cuda") -> LM:
     """The reference's LM parameters (``repro.models.lm`` pytree; leaves
-    numpy, the reference's arrays or tensors) as the port's ``LM`` in
-    ``cfg.dtype`` on ``device``, frozen.
+    numpy, the reference's arrays or tensors) as the port's ``LM`` on
+    ``device``, frozen, each leaf in its spec's dtype (``cfg.dtype``, but
+    an MoE router stays f32).
 
     The reference stacks each period slot's body leaves as
     ``[n_periods, ...]`` and keeps the dense prefix as a list; the port
     keeps one tree per layer, prefix first, then period by period.  A tied
     head stays tied: there is no ``lm_head`` and the head reads
     ``embed.T``."""
-    return LM(cfg, _from_reference(cfg, tree, lambda x: _leaf(x, cfg.dtype)),
+    dtypes = {p: s.dtype for p, s in cm.leaves(lm_param_specs(cfg))}
+    return LM(cfg, _from_reference(cfg, tree,
+                                   lambda p, x: _leaf(x, dtypes[p])),
               device=device)
 
 
@@ -199,7 +207,7 @@ def opt_state_from_numpy(cfg: cm.ArchConfig, state, *,
 
     def tree(t):
         return cm.map_tree(lambda _, x: x.to(dev), _from_reference(
-            cfg, t, lambda x: _leaf(x, torch.float32)))
+            cfg, t, lambda _, x: _leaf(x, torch.float32)))
 
     step = src["step"]
     step = (step.detach().cpu() if isinstance(step, torch.Tensor)

@@ -6,8 +6,11 @@
 // jnp oracle.
 //
 // What it computes, per (batch b, query head h):
-//   o = softmax(mask(softcap(q . k^T * dh^-0.5))) . v
-// with q [B, S, H, dh] and k, v [B, S, Kv, dh] read through their strides
+//   o = softmax(mask(softcap(q . k^T * dqk^-0.5))) . v
+// with q, k [B, S, H or Kv, dqk] and v [B, S, Kv, dv] read through their
+// strides, o [B, S, H, dv]; (dqk, dv) is (64, 64), (128, 128) or
+// (192, 128), the last DeepSeek MLA's prefill (a q / k head of qk_nope +
+// qk_rope = 128 + 64, a v head of 128)
 // (the last dimension contiguous); query head h reads kv head h / (H / Kv),
 // so K and V are never repeated in memory.  Arithmetic kept from the TPU
 // kernel: scores in f32 from the input dtype, masked entries set to
@@ -66,7 +69,13 @@
 // peak, against 33.6 MB of q, k, v and o, 10 us at 3.35 TB/s.  At dh = 64
 // a 128 x 128 tile costs as many exponentials (on the 16-per-clock MUFU
 // pipe) as tensor-core clocks, so the two consumer warpgroups overlap one
-// group's softmax with the other's matrix products.
+// group's softmax with the other's matrix products.  At DeepSeek-V3's
+// MLA prefill (B = 4, S = 1024, H = Kv = 128, (192, 128), bf16, causal)
+// it is bytes: 671 MB of q, k, v and o, 0.200 ms at 3.35 TB/s, against
+// 172 GFLOP, 0.174 ms.  There k's 64 rope columns are one head broadcast
+// to all 128 (materialised by the caller and read 128 times), and Q . K^T
+// takes 12 k-steps of 16 where P . V keeps dh = 128's 64 x 128 f32
+// accumulator per warpgroup.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -91,22 +100,30 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 
-// Per head width: panels per row, and ring stages beside two Q tiles (at
-// dh = 64 three timed a little faster than four on an H100; dh = 128 has
-// room for two).
-template <int D>
+// Per (dqk, dv) pair: panels per Q / K row and per V row, Q buffers, and
+// ring stages (at dh = 64 three beside two Q tiles timed a little faster
+// than four on an H100; dh = 128 has room for two).  At (192, 128) two Q
+// buffers and two stages would take 2 x 48 + 2 x (48 + 32) = 256 KB, past
+// the 227 KB a block may use: one Q buffer and two stages take 208 KB.
+// With one Q buffer the next tile's Q loads only once this tile's last
+// Q . K^T is done.
+template <int DQ, int DV>
 struct Cfg {
-  static constexpr int P = D / kPanel;
-  static constexpr int kStages = D == 64 ? 3 : 2;
-  static constexpr int kTileBytes = P * kPanelBytes;   // a Q, K or V tile
-  static constexpr int kSmemBytes = (2 + 2 * kStages) * kTileBytes + 1024;
+  static constexpr int PQ = DQ / kPanel;
+  static constexpr int PV = DV / kPanel;
+  static constexpr int kQBufs = DQ == DV ? 2 : 1;
+  static constexpr int kStages = DQ == 64 ? 3 : 2;
+  static constexpr int kQkBytes = PQ * kPanelBytes;    // a Q or K tile
+  static constexpr int kVBytes = PV * kPanelBytes;     // a V tile
+  static constexpr int kSmemBytes =
+      kQBufs * kQkBytes + kStages * (kQkBytes + kVBytes) + 1024;
 };
 
 struct Tile {                          // what the consumers need besides TMA
   __nv_bfloat16* o;
   long long os_b, os_s, os_h;          // element strides of o
   int B, S, H, Kv, causal, window;
-  float scale;                         // dh^-0.5
+  float scale;                         // dqk^-0.5
   float softcap;                       // 0 = off
   float* lse;                          // [B, H, S] or null
 };
@@ -450,32 +467,40 @@ __device__ __forceinline__ int snake_tile(int r) {
 }
 
 // Persistent: one block per SM walks its tiles (snake_tile).  Shared
-// memory (dynamic, 1024-byte aligned): two Q buffers of [D/64 panels]
-// [128][64], then kStages K tiles and kStages V tiles of the same shape;
-// every panel is one TMA box with the 128-byte swizzle.  The ring's stage
-// and phase run on across tiles; each Q buffer has its own full / empty
-// pair, released once its tile's last Q . K^T is done, so the next tile's
-// Q and first K / V tiles load while this tile still runs.
-template <int D>
+// memory (dynamic, 1024-byte aligned): kQBufs Q buffers of [DQ/64 panels]
+// [128][64], then kStages K tiles of that shape and kStages V tiles of
+// [DV/64][128][64]; every panel is one TMA box with the 128-byte swizzle.
+// The ring's stage and phase run on across tiles; each Q buffer has its
+// own full / empty pair, released once its tile's last Q . K^T is done, so
+// with two buffers the next tile's Q and first K / V tiles load while this
+// tile still runs.
+template <int DQ, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, const Tile a) {
-  constexpr int P = Cfg<D>::P, kStages = Cfg<D>::kStages;
-  constexpr int kTileBytes = Cfg<D>::kTileBytes;
+  using C = Cfg<DQ, DV>;
+  constexpr int PQ = C::PQ, P = C::PV, kStages = C::kStages;
+  constexpr int kQBufs = C::kQBufs;
+  constexpr int kQkBytes = C::kQkBytes, kVBytes = C::kVBytes;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bar_q[2], bar_q_empty[2], bar_k[kStages],
-      bar_v[kStages], bar_empty[kStages];
+  __shared__ __align__(8) uint64_t bar_q[kQBufs], bar_q_empty[kQBufs],
+      bar_k[kStages], bar_v[kStages], bar_empty[kStages];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base;
-  const uint32_t sk = base + 2 * kTileBytes;     // after two Q tiles
-  const uint32_t sv = sk + kStages * kTileBytes;
+  const uint32_t sk = base + kQBufs * kQkBytes;  // after the Q tiles
+  const uint32_t sv = sk + kStages * kQkBytes;
+  // the Q buffer of round r and the phase of its barriers
+  auto q_buf = [](int r) { return kQBufs == 2 ? r & 1 : 0; };
+  auto q_phase = [](int r) {
+    return static_cast<uint32_t>((kQBufs == 2 ? r >> 1 : r) & 1);
+  };
   const int n_q = (a.S + kTile - 1) / kTile;
   const int n_tiles = n_q * a.B * a.H;
   const int G = a.H / a.Kv;
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < kQBufs; ++i) {
       mbar_init(smem_u32(&bar_q[i]), 1);
       mbar_init(smem_u32(&bar_q_empty[i]), kConsumers * 4);  // one per warp
     }
@@ -502,21 +527,21 @@ __global__ void __launch_bounds__(kThreads, 1)
         block_tile(tile, n_q, a.B * a.H, a.H, &qt, &b, &h);
         key_range(a.S, a.causal, a.window, qt * kTile, kTile, kTile,
                   &kt_begin, &kt_end);
-        const int qb = r & 1;                   // Q buffer of this tile
-        mbar_wait(smem_u32(&bar_q_empty[qb]), ((r >> 1) & 1) ^ 1);
-        mbar_expect_tx(smem_u32(&bar_q[qb]), kTileBytes);
-        for (int p = 0; p < P; ++p)
-          tma_load(sq + qb * kTileBytes + p * kPanelBytes, &tq,
+        const int qb = q_buf(r);                // Q buffer of this tile
+        mbar_wait(smem_u32(&bar_q_empty[qb]), q_phase(r) ^ 1);
+        mbar_expect_tx(smem_u32(&bar_q[qb]), kQkBytes);
+        for (int p = 0; p < PQ; ++p)
+          tma_load(sq + qb * kQkBytes + p * kPanelBytes, &tq,
                    smem_u32(&bar_q[qb]), p * kPanel, qt * kTile, h, b);
         for (int kt = kt_begin; kt < kt_end; ++kt, ++it) {
           const int s = it % kStages;
           mbar_wait(smem_u32(&bar_empty[s]), ((it / kStages) & 1) ^ 1);
-          const uint32_t dk = sk + s * kTileBytes, dv = sv + s * kTileBytes;
-          mbar_expect_tx(smem_u32(&bar_k[s]), kTileBytes);
-          for (int p = 0; p < P; ++p)
+          const uint32_t dk = sk + s * kQkBytes, dv = sv + s * kVBytes;
+          mbar_expect_tx(smem_u32(&bar_k[s]), kQkBytes);
+          for (int p = 0; p < PQ; ++p)
             tma_load(dk + p * kPanelBytes, &tk, smem_u32(&bar_k[s]),
                      p * kPanel, kt * kTile, h / G, b);
-          mbar_expect_tx(smem_u32(&bar_v[s]), kTileBytes);
+          mbar_expect_tx(smem_u32(&bar_v[s]), kVBytes);
           for (int p = 0; p < P; ++p)
             tma_load(dv + p * kPanelBytes, &tv, smem_u32(&bar_v[s]),
                      p * kPanel, kt * kTile, h / G, b);
@@ -537,7 +562,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int g = lane / 4, t = lane % 4;
     const uint64_t dk0 = sw128_desc(sk, 16, 1024);          // ring stage 0
     const uint64_t dv0 = sw128_desc(sv, kPanelBytes, 1024);
-    constexpr uint64_t kStageStep = kTileBytes / 16;
+    constexpr uint64_t kStepK = kQkBytes / 16, kStepV = kVBytes / 16;
     float m0, m1, l0, l1, al0, al1;
     float o[P][32];
     float sc[64];
@@ -561,8 +586,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       rmin = qt * kTile + wg * 64;
       qpos0 = rmin + warp * 16 + g;
       qpos1 = qpos0 + 8;
-      qb = r & 1;
-      dq = sw128_desc(sq + qb * kTileBytes + wg * 64 * 128, 16, 1024);
+      qb = q_buf(r);
+      dq = sw128_desc(sq + qb * kQkBytes + wg * 64 * 128, 16, 1024);
       __nv_bfloat16* O = a.o + b * a.os_b + h * a.os_h + 2 * t;
       out0 = qpos0 < a.S ? O + static_cast<long long>(qpos0) * a.os_s
                          : nullptr;
@@ -573,7 +598,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         lse0 = qpos0 < a.S ? L + qpos0 : nullptr;
         lse1 = qpos1 < a.S ? L + qpos1 : nullptr;
       }
-      mbar_wait(smem_u32(&bar_q[qb]), (r >> 1) & 1);
+      mbar_wait(smem_u32(&bar_q[qb]), q_phase(r));
       m0 = m1 = kNeg;
       l0 = l1 = 0.f;
     };
@@ -625,7 +650,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       {                                         // the first Q . K^T alone
         const uint32_t s = it % kStages;
         mbar_wait(smem_u32(&bar_k[s]), (it / kStages) & 1);
-        issue_qk<D>(sc, dq, dk0 + s * kStageStep);
+        issue_qk<DQ>(sc, dq, dk0 + s * kStepK);
         wgmma_wait<0>();
         fence_regs(sc);
         if (nk == 1) release(&bar_q_empty[qb], lane);
@@ -638,8 +663,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           const uint32_t prev = cur - 1, sp = prev % kStages;
           mbar_wait(smem_u32(&bar_k[s]), (cur / kStages) & 1);
           mbar_wait(smem_u32(&bar_v[sp]), (prev / kStages) & 1);
-          issue_qk<D>(sc, dq, dk0 + s * kStageStep);
-          issue_pv<P>(o, pa, dv0 + sp * kStageStep);
+          issue_qk<DQ>(sc, dq, dk0 + s * kStepK);
+          issue_pv<P>(o, pa, dv0 + sp * kStepV);
           wgmma_wait<1>();                      // Q . K^T done, P . V not
           fence_regs(sc);
           if (j == nk - 1) release(&bar_q_empty[qb], lane);
@@ -666,7 +691,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         tile = snake_tile(++r);
         if (tile >= n_tiles) {                  // it goes out alone
           mbar_wait(smem_u32(&bar_v[sl]), (last / kStages) & 1);
-          issue_pv<P>(o, pa, dv0 + sl * kStageStep);
+          issue_pv<P>(o, pa, dv0 + sl * kStepV);
           wgmma_wait<0>();
 #pragma unroll
           for (int p = 0; p < P; ++p) fence_regs(o[p]);
@@ -685,8 +710,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t s = it % kStages;
         mbar_wait(smem_u32(&bar_k[s]), (it / kStages) & 1);
         mbar_wait(smem_u32(&bar_v[sl]), (last / kStages) & 1);
-        issue_qk<D>(sc, dq, dk0 + s * kStageStep);
-        issue_pv<P>(o, pa, dv0 + sl * kStageStep);
+        issue_qk<DQ>(sc, dq, dk0 + s * kStepK);
+        issue_pv<P>(o, pa, dv0 + sl * kStepV);
         wgmma_wait<1>();
         fence_regs(sc);
         if (nk == 1) release(&bar_q_empty[qb], lane);
@@ -734,23 +759,25 @@ __device__ __forceinline__ float score(const Args& a, float dot, int qpos,
 
 constexpr int kF32Threads = 256;       // four threads per query row
 
-template <int D>
-constexpr int f32_smem_bytes() {       // Qs, Ks [64][D+1]; Vs [64][D]; Ps [64][65]
-  return (2 * kBlockQ * (D + 1) + kBlockK * D + kBlockQ * (kBlockK + 1)) *
+// Qs, Ks [64][DQ+1]; Vs [64][DV]; Ps [64][65] (148 KB at (192, 128))
+template <int DQ, int DV>
+constexpr int f32_smem_bytes() {
+  return (2 * kBlockQ * (DQ + 1) + kBlockK * DV + kBlockQ * (kBlockK + 1)) *
          static_cast<int>(sizeof(float));
 }
 
-template <int D>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(kF32Threads)
     flash_f32_kernel(const Args a) {
-  constexpr int LD = D + 1;
+  constexpr int LD = DQ + 1;
   constexpr int LDP = kBlockK + 1;
-  constexpr int C4 = D / 4;            // float4 chunks per row
+  constexpr int C4 = DQ / 4;           // float4 chunks per Q / K row
+  constexpr int C4V = DV / 4;          // and per V row
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + kBlockQ * LD;
   float* Vs = Ks + kBlockK * LD;
-  float* Ps = Vs + kBlockK * D;
+  float* Ps = Vs + kBlockK * DV;
 
   const int q0 = blockIdx.x * kBlockQ, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.Kv);
@@ -771,9 +798,9 @@ __global__ void __launch_bounds__(kF32Threads)
 
   const int qpos = q0 + r;
   float m = kNeg, l = 0.f;
-  float acc[D / 4];                    // output dims c, c + 4, c + 8, ...
+  float acc[DV / 4];                   // output dims c, c + 4, c + 8, ...
 #pragma unroll
-  for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 4; ++i) acc[i] = 0.f;
 
   int kt_begin, kt_end;
   key_range(a.S, a.causal, a.window, q0, kBlockQ, kBlockK, &kt_begin,
@@ -783,14 +810,18 @@ __global__ void __launch_bounds__(kF32Threads)
     __syncthreads();
     for (int i = tid; i < kBlockK * C4; i += kF32Threads) {
       const int row = i / C4, c4 = i % C4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (k0 + row < a.S) {
+      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 + row < a.S)
         kx = *reinterpret_cast<const float4*>(K + (k0 + row) * a.ks_s + c4 * 4);
-        vx = *reinterpret_cast<const float4*>(V + (k0 + row) * a.vs_s + c4 * 4);
-      }
       float* dst = &Ks[row * LD + c4 * 4];
       dst[0] = kx.x; dst[1] = kx.y; dst[2] = kx.z; dst[3] = kx.w;
-      *reinterpret_cast<float4*>(&Vs[row * D + c4 * 4]) = vx;
+    }
+    for (int i = tid; i < kBlockK * C4V; i += kF32Threads) {
+      const int row = i / C4V, c4 = i % C4V;
+      float4 vx = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 + row < a.S)
+        vx = *reinterpret_cast<const float4*>(V + (k0 + row) * a.vs_s + c4 * 4);
+      *reinterpret_cast<float4*>(&Vs[row * DV + c4 * 4]) = vx;
     }
     __syncthreads();
 
@@ -798,7 +829,7 @@ __global__ void __launch_bounds__(kF32Threads)
     float s[kBlockK / 4];
 #pragma unroll
     for (int j = 0; j < kBlockK / 4; ++j) s[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQ; ++d) {
       const float qd = Qs[r * LD + d];
 #pragma unroll
       for (int j = 0; j < kBlockK / 4; ++j)
@@ -826,19 +857,19 @@ __global__ void __launch_bounds__(kF32Threads)
     l = l * alpha + rs;
     __syncwarp();                      // row r's P is written by its own warp
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i) acc[i] *= alpha;
+    for (int i = 0; i < DV / 4; ++i) acc[i] *= alpha;
     for (int j = 0; j < kBlockK; ++j) {
       const float pj = Ps[r * LDP + j];
 #pragma unroll
-      for (int i = 0; i < D / 4; ++i)
-        acc[i] = fmaf(pj, Vs[j * D + c + 4 * i], acc[i]);
+      for (int i = 0; i < DV / 4; ++i)
+        acc[i] = fmaf(pj, Vs[j * DV + c + 4 * i], acc[i]);
     }
   }
 
   if (qpos < a.S) {
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i) O[qpos * a.os_s + c + 4 * i] = acc[i] / den;
+    for (int i = 0; i < DV / 4; ++i) O[qpos * a.os_s + c + 4 * i] = acc[i] / den;
     if (a.lse != nullptr && c == 0)
       a.lse[(static_cast<long long>(b) * a.H + h) * a.S + qpos] = m + logf(l);
   }
@@ -909,7 +940,7 @@ int encode(CUtensorMap* map, const void* ptr, const long long* L) {
   return r == CUDA_SUCCESS ? 0 : -2;
 }
 
-template <int D>
+template <int DQ, int DV>
 int launch_wgmma(int B, int S, int H, const long long* tma, const void* q,
                  const void* k, const void* v, const Tile& t,
                  cudaStream_t st) {
@@ -925,29 +956,32 @@ int launch_wgmma(int B, int S, int H, const long long* tma, const void* q,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles = ((S + kTile - 1) / kTile) * B * H;
   const dim3 grid(tiles < sms ? tiles : sms);      // persistent blocks
-  return launch(flash_wgmma_kernel<D>, grid, kThreads, Cfg<D>::kSmemBytes,
-                st, tq, tk, tv, t);
+  return launch(flash_wgmma_kernel<DQ, DV>, grid, kThreads,
+                Cfg<DQ, DV>::kSmemBytes, st, tq, tk, tv, t);
 }
 
 }  // namespace
 
-// q [B, S, H, dh], k / v [B, S, Kv, dh], o [B, S, H, dh], all bf16
-// (is_bf16 = 1) or all f32, the head dim contiguous; strides (in elements)
-// in the order q (b, s, h), k, v, o.  lse is null or f32 [B, H, S],
-// contiguous: each row's log-sum-exp.  For bf16, tma holds q's, k's and v's
-// tensor-map layouts (11 values each, see encode).  dh is 64 or 128;
-// H % Kv == 0.  Returns -1 for a shape the kernel does not take, -2 / -3
-// when a tensor map cannot be encoded, else cudaGetLastError() after the
-// launch (0 = launched).
+// q [B, S, H, dh], k [B, S, Kv, dh], v [B, S, Kv, dv], o [B, S, H, dv],
+// all bf16 (is_bf16 = 1) or all f32, the head dim contiguous; strides (in
+// elements) in the order q (b, s, h), k, v, o.  lse is null or f32
+// [B, H, S], contiguous: each row's log-sum-exp.  For bf16, tma holds q's,
+// k's and v's tensor-map layouts (11 values each, see encode).  (dh, dv)
+// is (64, 64), (128, 128) or (192, 128); H % Kv == 0.  Returns -1 for a
+// shape the kernel does not take, -2 / -3 when a tensor map cannot be
+// encoded, else cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       const long long* strides,
                                       const long long* tma, int B, int S,
-                                      int H, int Kv, int dh, int is_bf16,
-                                      int causal, int window, float softcap,
-                                      void* stream) {
-  if (B < 1 || S < 1 || Kv < 1 || H % Kv != 0 || (dh != 64 && dh != 128))
-    return -1;
+                                      int H, int Kv, int dh, int dv,
+                                      int is_bf16, int causal, int window,
+                                      float softcap, void* stream) {
+  const int pair = dh == 64 && dv == 64     ? 0
+                   : dh == 128 && dv == 128 ? 1
+                   : dh == 192 && dv == 128 ? 2
+                                            : -1;
+  if (B < 1 || S < 1 || Kv < 1 || H % Kv != 0 || pair < 0) return -1;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(dh)));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
@@ -957,8 +991,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     t.B = B; t.S = S; t.H = H; t.Kv = Kv; t.causal = causal;
     t.window = window; t.scale = scale; t.softcap = softcap;
     t.lse = static_cast<float*>(lse);
-    return dh == 64 ? launch_wgmma<64>(B, S, H, tma, q, k, v, t, st)
-                    : launch_wgmma<128>(B, S, H, tma, q, k, v, t, st);
+    return pair == 0   ? launch_wgmma<64, 64>(B, S, H, tma, q, k, v, t, st)
+           : pair == 1 ? launch_wgmma<128, 128>(B, S, H, tma, q, k, v, t, st)
+                       : launch_wgmma<192, 128>(B, S, H, tma, q, k, v, t, st);
   }
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
@@ -971,8 +1006,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   a.softcap = softcap;
   a.lse = static_cast<float*>(lse);
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  return dh == 64 ? launch(flash_f32_kernel<64>, grid, kF32Threads,
-                           f32_smem_bytes<64>(), st, a)
-                  : launch(flash_f32_kernel<128>, grid, kF32Threads,
-                           f32_smem_bytes<128>(), st, a);
+  return pair == 0   ? launch(flash_f32_kernel<64, 64>, grid, kF32Threads,
+                              f32_smem_bytes<64, 64>(), st, a)
+         : pair == 1 ? launch(flash_f32_kernel<128, 128>, grid, kF32Threads,
+                              f32_smem_bytes<128, 128>(), st, a)
+                     : launch(flash_f32_kernel<192, 128>, grid, kF32Threads,
+                              f32_smem_bytes<192, 128>(), st, a);
 }

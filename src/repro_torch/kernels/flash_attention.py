@@ -3,9 +3,12 @@
 Port of ``repro.kernels.flash_attention.flash_attention_pallas``, which is
 also the kernel form of the model's prefill attention
 (``repro.models.attention.blocked_attention``):
-``o = softmax(mask(softcap(q . k^T * dh^-0.5))) . v`` for q ``[B, S, H, dh]``
-and k, v ``[B, S, Kv, dh]``, query head h reading kv head ``h // (H / Kv)``
-(grouped-query attention).  Scores and the running (m, l, acc) state are
+``o = softmax(mask(softcap(q . k^T * dh^-0.5))) . v`` for q ``[B, S, H, dh]``,
+k ``[B, S, Kv, dh]`` and v ``[B, S, Kv, dv]`` -> ``[B, S, H, dv]``, query
+head h reading kv head ``h // (H / Kv)`` (grouped-query attention).  v may
+have its own head width, as DeepSeek's MLA prefill has (q / k 192, v 128);
+the scale stays ``dh ** -0.5`` of q's width, as the reference's
+``blocked_attention`` has it.  Scores and the running (m, l, acc) state are
 f32, masked scores are ``NEG``, p is rounded to v's dtype before the PV
 product, and the output is ``acc / max(l, 1e-30)`` in q's dtype.
 
@@ -56,7 +59,10 @@ NEG = -1e30
 BLOCK_K = 128                # keys per online-softmax step (kernel, plain)
 TILE = 128                   # the bf16 kernel's query and key tile
 PANEL = 64                   # bf16 columns of one 128-byte TMA box row
-HEAD_DIMS = (64, 128)        # head widths the kernel is built for
+# (q / k, v) head widths the forward kernel is built for, and the head
+# widths of the gradient kernel (dv = dh only)
+HEAD_PAIRS = ((64, 64), (128, 128), (192, 128))
+HEAD_DIMS = (64, 128)
 DTYPES = (torch.bfloat16, torch.float32)
 
 launches = 0                 # kernel launches made by flash_attention_cuda
@@ -65,7 +71,7 @@ bwd_launches = 0             # calls of flash_attention_bwd_cuda (2 kernels)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "flash_attention_launch": ([_P] * 7 + [_I] * 8 + [ctypes.c_float, _P],
+    "flash_attention_launch": ([_P] * 7 + [_I] * 9 + [ctypes.c_float, _P],
                                _I),
 }
 _BWD_SIGNATURES = {
@@ -75,35 +81,43 @@ _BWD_SIGNATURES = {
 
 
 def _shapes(q, k, v):
-    """(B, S, H, Kv, dh) of q [B, S, H, dh] and k, v [B, S, Kv, dh]."""
+    """(B, S, H, Kv, dh, dv) of q [B, S, H, dh], k [B, S, Kv, dh] and v
+    [B, S, Kv, dv]."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be 4-D "
-                         "([B, S, H, dh] and [B, S, Kv, dh])")
+                         "([B, S, H, dh], [B, S, Kv, dh], [B, S, Kv, dv])")
     B, S, H, dh = q.shape
-    Kv = k.shape[2]
-    if tuple(k.shape) != (B, S, Kv, dh) or tuple(v.shape) != tuple(k.shape):
+    Kv, dv = k.shape[2], v.shape[3]
+    if tuple(k.shape) != (B, S, Kv, dh) or tuple(v.shape) != (B, S, Kv, dv):
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} must be [B, S, Kv, dh] for q "
-                         f"{tuple(q.shape)}")
+                         f"{tuple(v.shape)} must be [B, S, Kv, dh] and "
+                         f"[B, S, Kv, dv] for q {tuple(q.shape)}")
     if Kv < 1 or H % Kv:
         raise ValueError(f"flash_attention: {H} query heads are not a "
                          f"multiple of {Kv} kv heads")
-    return B, S, H, Kv, dh
+    return B, S, H, Kv, dh, dv
+
+
+def _same_width(what: str, dh: int, dv: int) -> None:
+    """The gradient takes one head width for q, k and v."""
+    if dv != dh:
+        raise ValueError(f"{what}: v's head width {dv} differs from q's "
+                         f"{dh}; the gradient takes dv = dh only")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
                           softcap: float = 0.0, return_lse: bool = False):
-    """q [B, S, H, dh]; k, v [B, S, Kv, dh] -> [B, S, H, dh] (q's dtype);
-    with ``return_lse``, ``(o, lse)``, lse = m + log(l) of the online
-    state, f32 [B, H, S]."""
-    B, S, H, Kv, dh = _shapes(q, k, v)
+    """q [B, S, H, dh]; k [B, S, Kv, dh]; v [B, S, Kv, dv] -> [B, S, H, dv]
+    (q's dtype); with ``return_lse``, ``(o, lse)``, lse = m + log(l) of
+    the online state, f32 [B, H, S]."""
+    B, S, H, Kv, dh, dv = _shapes(q, k, v)
     G = H // Kv
     scale = dh ** -0.5
     qg = q.reshape(B, S, Kv, G, dh).float()
     m = torch.full((B, Kv, G, S), NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros((B, Kv, G, S, dh), dtype=torch.float32,
+    acc = torch.zeros((B, Kv, G, S, dv), dtype=torch.float32,
                       device=q.device)
     qpos = torch.arange(S, device=q.device)[:, None]
     for k0 in range(0, S, BLOCK_K):
@@ -126,7 +140,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "bkgqt,btkd->bkgqd", p.to(v.dtype).float(), vt.float())
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, dh).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, dv).to(q.dtype)
     if return_lse:
         return out, (m + torch.log(l)).reshape(B, H, S)
     return out
@@ -195,20 +209,22 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0, return_lse: bool = False):
     """The hand-written kernel (same contract as ``flash_attention_plain``):
-    q, k, v on one CUDA device, all bf16 or all f32, dh 64 or 128.  The
-    kernel writes lse only when ``return_lse`` asks for it."""
+    q, k, v on one CUDA device, all bf16 or all f32, (dh, dv) one of
+    ``HEAD_PAIRS``.  The kernel writes lse only when ``return_lse`` asks
+    for it."""
     global launches
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
-    B, S, H, Kv, dh = _shapes(q, k, v)
-    if q.dtype not in DTYPES or dh not in HEAD_DIMS:
+    B, S, H, Kv, dh, dv = _shapes(q, k, v)
+    if q.dtype not in DTYPES or (dh, dv) not in HEAD_PAIRS:
         raise ValueError(f"flash_attention: unsupported dtype {q.dtype} or "
-                         f"head dim {dh} (kernel takes {DTYPES}, {HEAD_DIMS})")
+                         f"head widths (q/k {dh}, v {dv}) (kernel takes "
+                         f"{DTYPES}, {HEAD_PAIRS})")
     if B * S * H * dh >= 2 ** 31 or int(window) < 0:
         raise ValueError(f"flash_attention: unsupported B={B} S={S} H={H} "
                          f"window={window}")
-    out = torch.empty((B, S, H, dh), dtype=q.dtype, device=dev)
+    out = torch.empty((B, S, H, dv), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
            if return_lse else None)
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
@@ -225,7 +241,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), strides, tma, B, S, H,
-            Kv, dh, int(q.dtype == torch.bfloat16), int(causal),
+            Kv, dh, dv, int(q.dtype == torch.bfloat16), int(causal),
             int(window), float(softcap),
             torch.cuda.current_stream(dev).cuda_stream)
     if err in (-2, -3):
@@ -270,7 +286,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     operands; a no-op in f32), ``dq = ds . k`` and ``dk = ds^T . q``; dk
     and dv of kv head j sum over its G query heads.  Every product
     accumulates in f32 from the operands' own values."""
-    B, S, H, Kv, dh = _shapes(q, k, v)
+    B, S, H, Kv, dh, dv_ = _shapes(q, k, v)
+    _same_width("flash_attention_bwd_plain", dh, dv_)
     G = H // Kv
     scale = dh ** -0.5
     qf = q.float().reshape(B, S, Kv, G, dh)
@@ -312,7 +329,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_bwd_cuda needs CUDA tensors, got "
                          f"{dev}")
-    B, S, H, Kv, dh = _shapes(q, k, v)
+    B, S, H, Kv, dh, dv_ = _shapes(q, k, v)
+    _same_width("flash_attention_bwd", dh, dv_)
     if q.dtype not in DTYPES or dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: unsupported dtype {q.dtype} "
                          f"or head dim {dh} (kernel takes {DTYPES}, "
@@ -355,10 +373,17 @@ class FlashAttention(torch.autograd.Function):
     """Flash attention with its gradient: forward and backward each run
     the hand-written kernel on CUDA tensors and the plain version on CPU
     tensors.  It saves q, k, v, o and the forward's lse (f32 [B, H, S]);
-    the backward forms p from the lse."""
+    the backward forms p from the lse.  v's head width must equal q's on
+    either device: the gradient at another width (MLA's 192 / 128) is not
+    built yet."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, softcap: float):
+        if v.shape[-1] != q.shape[-1]:
+            raise NotImplementedError(
+                f"the attention gradient at q / k {q.shape[-1]}, v "
+                f"{v.shape[-1]} (MLA training): not ported yet: ROADMAP.md "
+                f"section 2 item 4 lists it")
         kw = dict(causal=causal, window=window, softcap=softcap)
         fwd = (flash_attention_plain if q.device.type == "cpu"
                else flash_attention_cuda)

@@ -70,8 +70,9 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0) -> torch.Tensor:
     """Grouped-query attention in the model's layout: q [B, S, H, dh],
-    k, v [B, S, Kv, dh] (any strides with a contiguous head dim) ->
-    [B, S, H, dh]; query head h reads kv head h // (H / Kv).
+    k [B, S, Kv, dh], v [B, S, Kv, dv] (any strides with a contiguous head
+    dim) -> [B, S, H, dv]; query head h reads kv head h // (H / Kv).  On
+    the card (dh, dv) is one of ``flash_attention.HEAD_PAIRS``.
 
     With grad enabled and an input that requires grad it goes through
     ``FlashAttention``, whose backward is the gradient kernel (its plain

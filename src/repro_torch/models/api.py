@@ -7,7 +7,7 @@ Port of ``repro.models.api`` for decoder-only models:
     api.forward(params, batch)                  -> logits [B, S, V]
     api.prefill(params, batch, caches)          -> (logits [B, V], caches)
     api.decode(params, tokens, caches, pos)     -> (logits [B, V], caches)
-    api.init_cache(batch, max_len, device=...)  -> [KVCache] per layer
+    api.init_cache(batch, max_len, device=...)  -> a KVCache / MLACache a layer
 ``init`` and ``init_cache`` run on the card unless ``device="cpu"`` is
 passed.  ``init`` returns frozen parameters (serving);
 ``.requires_grad_(True)`` on the result trains them.  The encoder-decoder

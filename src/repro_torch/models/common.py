@@ -1,9 +1,10 @@
 """Shared building blocks of the port's language model.
 
-Port of the parts of ``repro.models.common`` that the dense-attention
-decoder path reads: the architecture config, the numerics (``rms_norm``,
-``softcap``, ``act_fn``, rotary embeddings) and parameter initialisation by
-naming rule.  Parameters are nested dicts (lists for the layer stack) of
+Port of the parts of ``repro.models.common`` that the decoder paths read
+(dense attention, and DeepSeek's MLA + MoE): the architecture config with
+its MLA and MoE sub-configs, the numerics (``rms_norm``, ``softcap``,
+``act_fn``, rotary embeddings) and parameter initialisation by naming
+rule.  Parameters are nested dicts (lists for the layer stack) of
 tensors; ``ParamTree`` registers such a tree on an ``nn.Module``.
 """
 from __future__ import annotations
@@ -33,12 +34,43 @@ NOT_PORTED = "not ported yet: ROADMAP.md section 2 item 4 lists it"
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek multi-head latent attention (V2 / V3) widths."""
+    q_lora_rank: int = 1536          # 0 => no query compression
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    # decode scores queries against the latent cache (W_UK folded into the
+    # query, W_UV into the output) instead of re-expanding K / V
+    absorb: bool = False
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Shared + routed top-k experts.  ``router_dtype`` is the router's
+    parameter dtype.  ``dispatch`` ("dense" / "ragged") is carried for
+    config equality only: the reference's ``moe_apply`` never reads it."""
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 1
+    capacity_factor: float = 1.25
+    router_dtype: Any = torch.float32
+    dispatch: str = "dense"
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     """The fields of ``repro.models.common.ArchConfig`` that the decoder
-    path reads.  ``dtype`` is a ``torch.dtype``.  The family sub-configs
-    (MLA, Mamba, RWKV, MoE), the encoder-decoder and frontend fields and
-    the JAX execution knobs (scan, sharding, the jnp attention's q-chunk)
-    are not ported.  ``remat`` checkpoints each body period's activations
+    paths read.  ``dtype`` is a ``torch.dtype``.  ``mla`` and ``moe`` are
+    DeepSeek's sub-configs; ``moe_groups`` is the least number of MoE
+    dispatch groups.  ``moe_weight_shard`` and ``act_shard`` (the mesh's
+    expert and activation shardings) are accepted and have no effect, as
+    ``donate=`` has none: the port runs on one device.  The Mamba and RWKV
+    sub-configs, the encoder-decoder and frontend fields and the other JAX
+    execution knobs (scan, the jnp attention's q-chunk) are not ported.
+    ``remat`` checkpoints each body period's activations
     (``torch.utils.checkpoint``) as the reference's ``jax.checkpoint``
     does; ``grad_accum`` splits a train step's batch into microbatches."""
 
@@ -65,6 +97,10 @@ class ArchConfig:
     final_logit_softcap: float = 0.0
     qk_norm: bool = False
 
+    # family sub-configs
+    mla: MLAConfig | None = None
+    moe: MoEConfig | None = None
+
     encdec: bool = False
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
@@ -73,6 +109,9 @@ class ArchConfig:
     kv_cache_dtype: str = "bf16"          # "bf16" (the model dtype) only
     remat: bool = False                   # activation checkpointing per period
     grad_accum: int = 1                   # microbatches per train step
+    moe_groups: int = 1                   # MoE dispatch groups (at least)
+    moe_weight_shard: str = "2d"          # no effect: one device
+    act_shard: tuple | None = None        # no effect: one device
 
     def __post_init__(self):
         if self.d_head == 0:
@@ -181,13 +220,15 @@ def spec(shape, dtype) -> Spec:
 def _leaf_init(gen: torch.Generator, path: str, shape, dtype):
     """Init rule by naming convention: *scale -> zeros (rms uses 1+scale),
     *bias -> zeros, embeddings & matmuls -> truncated normal / sqrt(fan_in).
-    Drawn in f32 on the generator's device, then cast."""
+    Drawn in f32 on the generator's device, scaled in place (one f32
+    temporary: DeepSeek-V3's [256, 7168, 2048] expert leaf is 15 GB in
+    f32), then cast."""
     if path.endswith("scale") or path.endswith("bias"):
         return torch.zeros(shape, dtype=dtype, device=gen.device)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w / math.sqrt(max(fan_in, 1))).to(dtype)
+    return w.div_(math.sqrt(max(fan_in, 1))).to(dtype)
 
 
 def leaves(tree, prefix=""):

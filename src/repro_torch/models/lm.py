@@ -1,6 +1,7 @@
 """Decoder-only language model: embedding -> blocks -> final norm -> head.
 
-Port of ``repro.models.lm`` for the dense decoder: ``_embed``,
+Port of ``repro.models.lm`` for the dense and the DeepSeek (MLA + MoE)
+decoders: ``_embed``,
 ``_run_blocks``, ``forward_logits``, ``prefill``, ``decode_step`` and the
 sequence-chunked training loss ``lm_loss``.  The reference scans over
 stacked periods; the port keeps one parameter tree per layer
@@ -17,7 +18,6 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention as attn
 from repro_torch.models import blocks as blk
 from repro_torch.models import common as cm
 
@@ -55,7 +55,8 @@ class LM(cm.ParamTree):
 
 def init_lm_cache(cfg: cm.ArchConfig, batch: int, max_len: int, *,
                   device="cuda") -> list:
-    """One ``KVCache`` per layer, zero-filled on ``device``."""
+    """One cache per layer, zero-filled on ``device``: a ``KVCache`` for an
+    attention layer, an ``MLACache`` for an MLA layer."""
     dev = resolve_device(device)
     return [blk.init_block_cache(cfg, mk, batch, max_len, device=dev)
             for mk, _ in cfg.layer_kinds()]
@@ -78,41 +79,44 @@ def _embed(params, tokens: torch.Tensor, cfg: cm.ArchConfig) -> torch.Tensor:
 
 def _run_blocks(params, x: torch.Tensor, cfg: cm.ArchConfig, *,
                 positions: torch.Tensor, caches: list | None = None):
-    """Every layer in order. Returns (hidden, new caches or None).  Under
-    ``cfg.remat``, with grad enabled and no cache, each body period's
-    activations are recomputed in the backward pass (the dense prefix is
-    not, as in the reference)."""
+    """Every layer in order. Returns (hidden, the summed MoE aux loss (f32
+    0-d), new caches or None).  Under ``cfg.remat``, with grad enabled and
+    no cache, each body period's activations are recomputed in the
+    backward pass (the dense prefix is not, as in the reference)."""
     kinds = cfg.layer_kinds()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.remat and caches is None and torch.is_grad_enabled():
-        def run(x, lo, hi):
+        def run(x, aux, lo, hi):
             for i in range(lo, hi):
-                x = blk.block_apply(params["layers"][i], x, cfg,
-                                    mixer_kind=kinds[i][0],
-                                    mlp_kind=kinds[i][1],
-                                    positions=positions).x
-            return x
+                out = blk.block_apply(params["layers"][i], x, cfg,
+                                      mixer_kind=kinds[i][0],
+                                      mlp_kind=kinds[i][1],
+                                      positions=positions)
+                x, aux = out.x, aux + out.aux_loss
+            return x, aux
 
-        x = run(x, 0, cfg.n_dense_prefix)
+        x, aux = run(x, aux, 0, cfg.n_dense_prefix)
         for lo in range(cfg.n_dense_prefix, len(kinds), cfg.period):
-            x = checkpoint(run, x, lo, lo + cfg.period, use_reentrant=False)
-        return x, None
+            x, aux = checkpoint(run, x, aux, lo, lo + cfg.period,
+                                use_reentrant=False)
+        return x, aux, None
     new_caches = None if caches is None else []
     for i, (mk, lk) in enumerate(kinds):
         out = blk.block_apply(params["layers"][i], x, cfg, mixer_kind=mk,
                               mlp_kind=lk, positions=positions,
                               cache=None if caches is None else caches[i])
-        x = out.x
+        x, aux = out.x, aux + out.aux_loss
         if caches is not None:
             new_caches.append(out.cache)
-    return x, new_caches
+    return x, aux, new_caches
 
 
-def forward_hidden(params, tokens: torch.Tensor,
-                   cfg: cm.ArchConfig) -> torch.Tensor:
+def forward_hidden(params, tokens: torch.Tensor, cfg: cm.ArchConfig):
+    """(final-normed hidden [B, S, d], the MoE aux loss)."""
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, _ = _run_blocks(params, x, cfg, positions=positions)
-    return cm.rms_norm(x, params["final_scale"], cfg.norm_eps)
+    x, aux, _ = _run_blocks(params, x, cfg, positions=positions)
+    return cm.rms_norm(x, params["final_scale"], cfg.norm_eps), aux
 
 
 def _head(params, x: torch.Tensor, cfg: cm.ArchConfig) -> torch.Tensor:
@@ -126,7 +130,7 @@ def _head(params, x: torch.Tensor, cfg: cm.ArchConfig) -> torch.Tensor:
 
 def forward_logits(params, tokens: torch.Tensor,
                    cfg: cm.ArchConfig) -> torch.Tensor:
-    return _head(params, forward_hidden(params, tokens, cfg), cfg)
+    return _head(params, forward_hidden(params, tokens, cfg)[0], cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -140,13 +144,13 @@ def lm_loss(params, batch: dict, cfg: cm.ArchConfig, *,
     ``loss_chunk`` positions at a time (the sequence padded to a multiple
     with label -1), ``lse - gold`` in f32 masked by ``labels >= 0``, and
     the loss is ``tot / max(cnt, 1)``.  Returns ``(loss + aux_weight *
-    aux, {"ce", "aux"})``; a dense model's aux is a 0-d f32 zero."""
+    aux, {"ce", "aux"})``, aux the MoE layers' summed load-balance loss
+    (a 0-d f32 zero for a dense model)."""
     if batch.get("extra_embeds") is not None:
         raise NotImplementedError(f"extra_embeds (frontend tokens): "
                                   f"{cm.NOT_PORTED}")
     tokens = batch["tokens"]
-    x = forward_hidden(params, tokens, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = forward_hidden(params, tokens, cfg)
     labels = F.pad(tokens[:, 1:].long(), (0, 1), value=-1)
     B, S, _ = x.shape
     loss_chunk = min(loss_chunk, S)
@@ -172,26 +176,25 @@ def lm_loss(params, batch: dict, cfg: cm.ArchConfig, *,
 # Serving entry points
 # ---------------------------------------------------------------------------
 
-def prefill(params, tokens: torch.Tensor, cfg: cm.ArchConfig,
-            caches: list[attn.KVCache]):
+def prefill(params, tokens: torch.Tensor, cfg: cm.ArchConfig, caches: list):
     """Fill caches from a prompt [B, S]; returns (last-token logits [B, V],
     caches).  The caches are written in place."""
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, new_caches = _run_blocks(params, x, cfg, positions=positions,
-                                caches=caches)
+    x, _, new_caches = _run_blocks(params, x, cfg, positions=positions,
+                                   caches=caches)
     x = cm.rms_norm(x[:, -1:], params["final_scale"], cfg.norm_eps)
     return _head(params, x, cfg)[:, 0], new_caches
 
 
 def decode_step(params, tokens: torch.Tensor, cfg: cm.ArchConfig,
-                caches: list[attn.KVCache], *, pos: int):
+                caches: list, *, pos: int):
     """One decode step. tokens: [B,1]; pos: absolute position.
     Returns (logits [B,V], caches written in place)."""
     x = _embed(params, tokens, cfg)
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
-    x, new_caches = _run_blocks(params, x, cfg, positions=positions,
-                                caches=caches)
+    x, _, new_caches = _run_blocks(params, x, cfg, positions=positions,
+                                   caches=caches)
     x = cm.rms_norm(x, params["final_scale"], cfg.norm_eps)
     return _head(params, x, cfg)[:, 0], new_caches
 

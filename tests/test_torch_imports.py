@@ -56,14 +56,16 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
 TRAINING_MODULES = ("optim/adamw.py", "distributed/collectives.py",
                     "launch/steps.py", "launch/train.py",
                     "checkpoint/ckpt.py", "perception/clip.py")
+MODEL_MODULES = ("models/mla.py", "models/moe.py",
+                 "configs/deepseek_v3_671b.py", "configs/deepseek_v2_236b.py")
 
 
-def test_training_modules_are_scanned_and_import_alone():
-    """The training slice's modules are among the scanned files, and each
-    imports in a fresh interpreter without ``jax`` or ``repro``."""
-    assert all(PORT / m in PORT_FILES for m in TRAINING_MODULES)
+def _scanned_and_import_alone(modules) -> None:
+    """``modules`` are among the scanned files, and each imports in a
+    fresh interpreter without ``jax`` or ``repro``."""
+    assert all(PORT / m in PORT_FILES for m in modules)
     mods = ", ".join(repr("repro_torch." + m[:-3].replace("/", "."))
-                     for m in TRAINING_MODULES)
+                     for m in modules)
     code = (
         "import importlib, sys\n"
         f"for m in ({mods}):\n"
@@ -76,6 +78,14 @@ def test_training_modules_are_scanned_and_import_alone():
                        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_training_modules_are_scanned_and_import_alone():
+    _scanned_and_import_alone(TRAINING_MODULES)
+
+
+def test_deepseek_modules_are_scanned_and_import_alone():
+    _scanned_and_import_alone(MODEL_MODULES)
 
 
 def _entry_points():
@@ -124,6 +134,10 @@ def _entry_points():
             embed_dim=4).embed_text(0),
         "model_api.init": lambda: model_api(get_config(
             "semanticxr-captioner-110m-smoke")).init(),
+        "model_api.init(deepseek)": lambda: model_api(get_config(
+            "deepseek-v3-671b-smoke")).init(),
+        "model_api.init_cache(deepseek)": lambda: model_api(get_config(
+            "deepseek-v3-671b-smoke")).init_cache(1, 8),
         "ClientSession": lambda: ClientSession(
             dev=DeviceClient(knobs=kn, embed_dim=4), net=NetworkModel(),
             knobs=kn),

@@ -83,7 +83,8 @@ def _kv_from_jax(c, layer=None):
 
 # ------------------------------------------------------------- configs, data
 def test_configs_match_the_reference():
-    assert list_configs() == ["semanticxr-captioner-110m"]
+    assert list_configs() == ["deepseek-v2-236b", "deepseek-v3-671b",
+                              "semanticxr-captioner-110m"]
     for name in ("semanticxr-captioner-110m", SMOKE):
         j, t = jget_config(name), get_config(name)
         for f in ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
@@ -200,7 +201,7 @@ def test_block_apply_matches(dtype):
 def test_unported_families_raise_naming_the_roadmap():
     cfg = get_config(SMOKE)
     for kinds in ((tcm.MIXER_MAMBA, tcm.MLP_DENSE),
-                  (tcm.MIXER_FULL, tcm.MLP_MOE)):
+                  (tcm.MIXER_RWKV6, tcm.MLP_DENSE)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tblk.block_param_specs(cfg, *kinds)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -1,0 +1,108 @@
+#!/usr/bin/env python3
+"""A/B of the flash-attention forward kernel between two checkouts, on one
+GPU.
+
+    python3 tools/flash_ab.py run --src DIR --out FILE
+    python3 tools/flash_ab.py compare A B [C ...]
+
+``run`` imports ``repro_torch`` from ``DIR`` (a checkout's ``src``),
+builds its kernel, calls ``flash_attention_cuda`` (with and without
+``return_lse``) on fixed seeded inputs at the head widths every checkout
+since the lse was added takes, (64, 64) and (128, 128): the captioner's
+prefill and training shapes, ragged S, window, softcap, non-causal, MQA,
+bf16 and f32; and times the captioner's prefill call and a dh = 128 call
+with a cold L2 (``chip_smoke.Clock``).  It saves the outputs and times to
+``FILE`` (``torch.save``).  ``compare`` prints, for each file after the
+first, whether every output has the first file's bits, and every file's
+times: run the two checkouts in turns (A, B, B, A) in one call, so the
+times share a card.  It exits non-zero when the bits differ.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# (B, S, H, Kv, dh, dtype, causal, window, softcap)
+CASES = ((8, 1024, 12, 4, 64, "bf16", True, 0, 0.0),
+         (8, 1024, 12, 4, 64, "f32", True, 0, 0.0),
+         (8, 256, 12, 4, 64, "bf16", True, 0, 0.0),
+         (1, 200, 2, 2, 128, "f32", True, 0, 50.0),
+         (2, 333, 12, 4, 128, "bf16", True, 100, 30.0),
+         (2, 17, 12, 4, 64, "bf16", True, 0, 0.0),
+         (1, 1025, 12, 4, 64, "bf16", True, 0, 0.0),
+         (2, 1024, 12, 1, 64, "bf16", True, 0, 0.0),
+         (1, 300, 4, 4, 64, "bf16", True, 1, 0.0),
+         (1, 2048, 4, 2, 128, "bf16", False, 0, 0.0),
+         (1, 200, 2, 2, 64, "f32", False, 0, 0.0))
+TIMED = ((0, True), (9, False))          # (case, causal) timed cold
+
+
+def run(src: str, out: str) -> None:
+    import torch
+
+    sys.path.insert(0, str(Path(src).resolve()))
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = resolve_device("cuda")
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    outputs = []
+    for i, (B, S, H, Kv, dh, dt, causal, window, cap) in enumerate(CASES):
+        q, k, v = cs.attn_inputs(torch, B, S, H, Kv, dh, dts[dt], i, dev)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        outputs.append((o.cpu(), lse.cpu(),
+                        fa.flash_attention_cuda(q, k, v, **kw).cpu()))
+    clock = cs.Clock(torch)
+    times = {}
+    for i, causal in TIMED:
+        B, S, H, Kv, dh, dt = CASES[i][:6]
+        q, k, v = cs.attn_inputs(torch, B, S, H, Kv, dh, dts[dt], i, dev)
+        times[f"B={B} S={S} H={H} Kv={Kv} dh={dh} {dt} causal={causal}"] = \
+            clock.ms(lambda: fa.flash_attention_cuda(q, k, v, causal=causal))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    torch.save({"src": str(src), "card": smi, "outputs": outputs,
+                "times_ms": times}, out)
+    print(json.dumps({"src": str(src), "card": smi, "times_ms": times}))
+
+
+def compare(files) -> int:
+    import torch
+
+    runs = [torch.load(f) for f in files]
+    same_all = True
+    for f, r in zip(files, runs):
+        same = all(torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                               else a.view(torch.int32),
+                               b.view(torch.int16) if b.dtype == torch.bfloat16
+                               else b.view(torch.int32))
+                   for ra, rb in zip(runs[0]["outputs"], r["outputs"])
+                   for a, b in zip(ra, rb))
+        same_all &= same
+        print(json.dumps({"file": f, "src": r["src"], "card": r["card"],
+                          "same_bits_as_first": same,
+                          "times_ms": r["times_ms"]}))
+    return 0 if same_all else 1
+
+
+def main(argv) -> int:
+    if len(argv) >= 1 and argv[0] == "run" and len(argv) == 5 \
+            and argv[1] == "--src" and argv[3] == "--out":
+        run(argv[2], argv[4])
+        return 0
+    if len(argv) >= 3 and argv[0] == "compare":
+        return compare(argv[1:])
+    print(__doc__, file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
