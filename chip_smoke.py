@@ -171,6 +171,28 @@
     heads, the published MLA widths, 16 experts top-8, card vs CPU port
     in both modes: the same expert ids at every MoE call, logits within
     1e-4 of the largest, equal tokens.  ``deepseek_cuts`` prints the cuts.
+18. DeepSeek-V3 training: (a) ``mla_bwd_checks``: the flash gradient
+    kernel at (192, 128) against its plain version at (B, S, H) =
+    (1, 1, 1), (1, 129, 4), (2, 200, 4), (1, 1024, 16) and the training
+    shape (2, 512, 128), causal, bf16 and f32, and a ragged non-causal S,
+    on the forward kernel's lse (itself held to the plain version's, the
+    output bits unchanged by asking for it), within ATTN_TOL, the same
+    bits twice, autograd = the direct call; its time at the training shape
+    beside its bound (bytes), the plain version's and SDPA's backward, and
+    its two launches' device ms; (b) ``deepseek_train_phase``:
+    ``deepseek-v3-671b`` at full width cut to 1 dense-prefix and 1 MoE
+    layer and 16 routed experts (top-8, 1 shared; 3.37 B parameters),
+    bf16, 30 steps of ``launch.train.main`` at B x S = 2 x 512, counters
+    reset just before and read just after (2 flash forward and 2 gradient
+    launches every step; every loss finite, the mean of the last 5 under
+    that of the first 5): step ms p50 / p95, tokens/s, peak bytes beside
+    their reckoning, the MoE's dropped share and aux loss; two gradients
+    of one batch with the same bits; a ``torch.profiler`` window over one
+    step; (c) ``deepseek_train_replay``: 3 f32 train steps at step 17c's
+    width, card vs CPU port, the same expert ids at every MoE call, loss,
+    grad norm and masters within TRAIN_REPLAY_TOL; (d)
+    ``deepseek_kill_resume``: that width in bf16, ``--kill-at 3`` of 6
+    with checkpoints every 2 exits 42, restores bit-equal and resumes.
 
 ``nearest_dist`` has no caller on any system path: its phase drives its
 entry point, ``ops.nearest_dist``, at a chamfer and a centroid shape.
@@ -185,6 +207,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -357,6 +380,21 @@ DEEPSEEK_REPLAY = dict(arch="deepseek-v3-671b", n_layers=4, d_model=1024,
                        n_experts=16, top_k=8, d_ff_expert=256, batch=1,
                        prompt=256, new_tokens=8)
 DEEPSEEK_REPLAY_TOL = 1e-4   # f32 logits: max |card - CPU| / max |logit|
+# step 18: DeepSeek-V3 training.  (a) the flash gradient kernel at (192,
+# 128) against its plain version at MLA_ATTN_SHAPES' small shapes and the
+# training shape; (b) ``deepseek-v3-671b`` at full width, cut to what one
+# card trains (one dense-prefix and one MoE layer, 16 routed experts of
+# top-8), 30 steps of ``launch.train.main`` at B x S = 2 x 512; (c)
+# DEEPSEEK_REPLAY's width in f32, 3 train steps, card vs CPU port; (d)
+# kill / resume at (c)'s width in bf16 (full-width checkpoints would be
+# about 47 GB).
+MLA_TRAIN_SHAPE = (2, 512, 128)
+MLA_BWD_SHAPES = MLA_ATTN_SHAPES[:-1] + (MLA_TRAIN_SHAPE,)
+DEEPSEEK_TRAIN = dict(arch="deepseek-v3-671b", name="deepseek-v3-671b-train-cut",
+                      n_layers=2, n_dense_prefix=1, n_experts=16, steps=30,
+                      batch=2, seq=512)
+DEEPSEEK_TRAIN_REPLAY = dict(batch=1, seq=256, steps=3)
+DEEPSEEK_KILL = dict(steps=6, ckpt_every=2, kill_at=3, batch=1, seq=128)
 
 
 def check(cond, what: str) -> None:
@@ -491,8 +529,10 @@ def bound(nbytes, flops):
 def same_bits(torch, xs, ys) -> bool:
     """Every tensor of ``xs`` equal to its partner in ``ys`` bit for bit."""
     def bits(t):
-        return t.view(torch.int32) if t.dtype == torch.float32 else t
-    return all(torch.equal(bits(x), bits(y)) for x, y in zip(xs, ys))
+        return (t.view(torch.int32) if t.dtype == torch.float32 else
+                t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+    return all(x.dtype == y.dtype and torch.equal(bits(x), bits(y))
+               for x, y in zip(xs, ys))
 
 
 def kernel_checks(torch, clock, dev):
@@ -2634,15 +2674,66 @@ def serving_loop_phase(torch, dev, cfg):
 
 
 # ----------------------------------------------------------------- step 15
-def bwd_cost(q, k, causal, window, elt):
+def bwd_cost(q, k, causal, window, elt, dv=None):
     """(bytes, flops) of one attention gradient: q, k, v, o, do and the f32
-    lse [B, H, S] read and dq, dk, dv written once; five products of
-    2 * dh flops for each (query, key) pair the masks keep (the forward's
-    two, times 5 / 2)."""
-    _, fwd_flops = attn_cost(q, k, causal, window, elt)
-    B, S, H, _ = q.shape
-    return (4 * (q.numel() + k.numel()) * elt + B * H * S * 4,
-            5 * fwd_flops // 2)
+    lse [B, H, S] read and dq, dk, dv written once (v, o, do and dv at v's
+    head width ``dv``, by default q's dh); five products for each (query,
+    key) pair the masks keep, three over dh (S = Q . K^T, dQ = dS . K,
+    dK = dS^T . Q) and two over dv (dP = dO . V^T, dV = P^T . dO), 2 flops
+    a multiply-add."""
+    B, S, H, dh = q.shape
+    dv = dh if dv is None else dv
+    _, fwd_flops = attn_cost(q, k, causal, window, elt, dv=dv)
+    pairs = fwd_flops // (2 * (dh + dv))
+    narrow = dv / dh                    # v, o, do, dv against q's width
+    nbytes = (2 * (q.numel() + k.numel())
+              + round(2 * narrow * (k.numel() + q.numel()))) * elt
+    return nbytes + B * H * S * 4, 2 * (3 * dh + 2 * dv) * pairs
+
+
+def hold_bwd(torch, dev, q, k, v, kw, tag, seed):
+    """The forward kernel's lse against the plain version's and its output
+    bits unchanged by asking for it; then ``flash_attention_bwd_cuda``
+    against ``flash_attention_bwd_plain`` on the same inputs and lse
+    (do drawn from ``seed``), within ATTN_TOL and in the input shapes, the
+    same bits from two calls.  Returns (the check's row, (o, do, lse),
+    the largest gradient error)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    tol = ATTN_TOL[str(q.dtype).split(".")[-1]]
+    bare = fa.flash_attention_cuda(q, k, v, **kw)
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    _, lse_plain = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    o_same = torch.equal(o, bare)
+    check(o_same, f"flash_attention output bits unchanged by the lse at "
+          f"{tag}")
+    d = (lse - lse_plain).abs()
+    lse_err = float(d.max())
+    check(bool((d <= tol + tol * lse_plain.abs()).all())
+          and bool(torch.isfinite(lse).all()),
+          f"flash_attention lse err {lse_err} at {tag}")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    do = torch.randn(o.shape, generator=g, device=dev).to(q.dtype)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    check([tuple(t.shape) for t in got]
+          == [tuple(q.shape), tuple(k.shape), tuple(v.shape)],
+          f"flash_attention_bwd shapes at {tag}")
+    errs = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        d = (a.float() - b.float()).abs()
+        errs[name] = float(d.max())
+        check(bool((d <= tol + tol * b.float().abs()).all())
+              and bool(torch.isfinite(a).all()),
+              f"flash_attention_bwd {name} err {errs[name]} at {tag}")
+    same = same_bits(torch, got, again)
+    check(same, f"flash_attention_bwd same bits twice at {tag}")
+    return ({**tag, "max_abs_err": errs, "same_bits_twice": same,
+             "lse_max_abs_err": lse_err, "o_bits_unchanged_by_lse": o_same},
+            (o, do, lse), max(errs.values()))
 
 
 def flash_bwd_checks(torch, clock, dev):
@@ -2675,44 +2766,11 @@ def flash_bwd_checks(torch, clock, dev):
         q, k, v = attn_inputs(torch, B, S, H, Kv, dh, dt, 100 + i, dev)
         kw = dict(causal=causal, window=window, softcap=cap)
         tag = dict(B=B, S=S, H=H, Kv=Kv, dh=dh, dtype=str(dt), **kw)
-        tol = ATTN_TOL[str(dt).split(".")[-1]]
-        bare = fa.flash_attention_cuda(q, k, v, **kw)
-        o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
-        _, lse_plain = fa.flash_attention_plain(q, k, v, return_lse=True,
-                                                **kw)
-        torch.cuda.synchronize()
-        o_same = torch.equal(o, bare)
-        check(o_same, f"flash_attention output bits unchanged by the lse at "
-              f"{tag}")
-        d = (lse - lse_plain).abs()
-        lse_err = float(d.max())
-        check(bool((d <= tol + tol * lse_plain.abs()).all())
-              and bool(torch.isfinite(lse).all()),
-              f"flash_attention lse err {lse_err} at {tag}")
-        g = torch.Generator(device=dev).manual_seed(200 + i)
-        do = torch.randn(o.shape, generator=g, device=dev).to(dt)
-        got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
-        again = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
-        want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
-        torch.cuda.synchronize()
-        errs = {}
-        for name, a, b in zip(("dq", "dk", "dv"), got, want):
-            d = (a.float() - b.float()).abs()
-            errs[name] = float(d.max())
-            check(bool((d <= tol + tol * b.float().abs()).all())
-                  and bool(torch.isfinite(a).all()),
-                  f"flash_attention_bwd {name} err {errs[name]} at "
-                  f"{(B, S, H, Kv, dh, str(dt), causal, window, cap)}")
-        same = same_bits(torch, [t.view(torch.int16) if t.dtype == bf else t
-                                 for t in got],
-                         [t.view(torch.int16) if t.dtype == bf else t
-                          for t in again])
-        check(same, f"flash_attention_bwd same bits twice at case {i}")
-        rows.append({**tag, "max_abs_err": errs, "same_bits_twice": same,
-                     "lse_max_abs_err": lse_err,
-                     "o_bits_unchanged_by_lse": o_same})
+        row, (o, do, lse), err = hold_bwd(torch, dev, q, k, v, kw, tag,
+                                          200 + i)
+        rows.append(row)
         if i < 2:
-            timed[i] = (q, k, v, o, do, lse, kw, max(errs.values()))
+            timed[i] = (q, k, v, o, do, lse, kw, err)
     emit("flash_attention_bwd_checks", rows)
 
     # autograd through the model's entry point launches the kernel once
@@ -3359,18 +3417,15 @@ def deepseek_replay_phase(torch, dev, *, arch, n_layers, d_model, n_heads,
     MoE call, logits within DEEPSEEK_REPLAY_TOL of the largest, equal
     greedy tokens, and 4 flash launches (the f32 (192, 128) instance) per
     prefill on the card."""
-    from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.api import model_api
     from repro_torch.models.lm import greedy_token
 
-    base = get_config(arch)
-    cfg = base.replace(
-        n_layers=n_layers, d_model=d_model, n_heads=n_heads,
-        n_kv_heads=n_heads, d_ff_dense_prefix=d_ff_dense_prefix,
-        vocab_size=vocab_size, dtype=torch.float32,
-        moe=dataclasses.replace(base.moe, n_experts=n_experts, top_k=top_k,
-                                d_ff_expert=d_ff_expert))
+    cfg = deepseek_replay_cut(
+        torch, torch.float32, arch=arch, n_layers=n_layers, d_model=d_model,
+        n_heads=n_heads, d_ff_dense_prefix=d_ff_dense_prefix,
+        vocab_size=vocab_size, n_experts=n_experts, top_k=top_k,
+        d_ff_expert=d_ff_expert)
     prompt_np = np.random.default_rng(1).integers(
         0, vocab_size, (batch, prompt)).astype(np.int32)
     models = {d: model_api(cfg).init(torch.Generator().manual_seed(0),
@@ -3429,6 +3484,369 @@ def deepseek_replay_phase(torch, dev, *, arch, n_layers, d_model, n_heads,
                               "flash_launches_prefill": flash}
     out["seconds_host"] = time.perf_counter() - t0
     emit("deepseek_replay_phase", out)
+    return out
+
+
+# ----------------------------------------------------------------- step 18
+def mla_bwd_checks(torch, clock, dev):
+    """(a) ``flash_attention_bwd_cuda`` at (dqk, dv) = (192, 128) against
+    ``flash_attention_bwd_plain``: every MLA_BWD_SHAPES (B, S, H) causal
+    in bf16 and f32 and a ragged non-causal S in both, after the forward
+    kernel's lse at (192, 128) is held to the plain version's and its
+    output to the bits it has without the lse; the same inputs and lse to
+    both, within ATTN_TOL, the same bits from two calls; autograd through
+    ``ops.flash_attention_bshd`` at the training shape launches it once
+    and returns the direct call's bits on the lse it saved; its time at
+    the training shape (cold L2) beside its bound, the plain version and
+    SDPA's backward, and its two launches under the profiler."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    bf, f32 = torch.bfloat16, torch.float32
+    dqk, dvw = MLA_HEADS
+    cases = [(B, S, H, dt, True) for B, S, H in MLA_BWD_SHAPES
+             for dt in (bf, f32)] + [(2, 200, 4, bf, False),
+                                     (2, 200, 4, f32, False)]
+    rows, timed = [], {}
+    for i, (B, S, H, dt, causal) in enumerate(cases):
+        q, k, v = mla_inputs(torch, B, S, H, dt, 300 + i, dev)
+        tag = dict(B=B, S=S, H=H, dqk=dqk, dv=dvw, dtype=str(dt),
+                   causal=causal)
+        row, (o, do, lse), err = hold_bwd(torch, dev, q, k, v,
+                                          dict(causal=causal), tag, 400 + i)
+        rows.append(row)
+        if (B, S, H) == MLA_TRAIN_SHAPE and causal:
+            timed[dt] = (q, k, v, o, do, lse, err)
+    emit("mla_attention_bwd_checks", rows)
+
+    # autograd through the model's entry point at the training shape
+    q, k, v, o, do, lse, _ = timed[bf]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention_bshd(*leaves, causal=True)
+    check(torch.equal(out.grad_fn.saved_tensors[4], lse),
+          "autograd saved the (192, 128) forward kernel's lse")
+    n0 = fa.bwd_launches
+    grads = torch.autograd.grad(out, leaves, do)
+    direct = fa.flash_attention_bwd_cuda(q, k, v, out.detach(), do, lse)
+    torch.cuda.synchronize()
+    check(fa.bwd_launches - n0 == 2, "autograd launched the (192, 128) "
+          f"backward once ({fa.bwd_launches - n0 - 1} launches)")
+    check(all(torch.equal(a, b) for a, b in zip(grads, direct)),
+          "autograd's (192, 128) gradients = the kernel's direct output")
+
+    row = {}
+    for dt, key in ((bf, ""), (f32, "f32_")):
+        q, k, v, o, do, lse, err = timed[dt]
+        elt = q.element_size()
+        nbytes, flops = bwd_cost(q, k, True, 0, elt, dv=dvw)
+        peak = BF16_FLOP_PER_S if elt == 2 else FP32_FLOP_PER_S
+        t_ops = flops / peak * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        row.update({
+            key + "ms": clock.ms(lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, o, do, lse)),
+            key + "plain_ms": clock.ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, do, lse), reps=5),
+            key + "bound_ms": max(t_ops, t_bytes),
+            key + "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            key + "max_abs_err": err, key + "flops": flops,
+            key + "bytes": nbytes,
+            key + "shape": f"B={q.shape[0]} S={q.shape[1]} H={q.shape[2]} "
+                           f"dqk={dqk} dv={dvw} "
+                           f"{'bf16' if elt == 2 else 'f32'} causal"})
+        sq, sk, sv = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        try:        # SDPA's backward at dv != dqk, if a backend takes it
+            so = torch.nn.functional.scaled_dot_product_attention(
+                sq, sk, sv, is_causal=True)
+            sdo = do.transpose(1, 2)
+            lib = clock.ms(lambda: torch.autograd.grad(
+                so, (sq, sk, sv), sdo, retain_graph=True))
+            note = ("SDPA backward through autograd (backward only, timed "
+                    "with retain_graph)")
+        except RuntimeError as e:
+            lib, note = None, f"SDPA refused the backward at dv != dqk: " \
+                              f"{e}"[:300]
+        row[key + "library_ms"], row[key + "library"] = lib, note
+    row["tflops"] = row["flops"] / row["ms"] / 1e9
+
+    q, k, v, o, do, lse, _ = timed[bf]
+    reps = 10
+
+    def calls():
+        for _ in range(reps):
+            clock.flush.zero_()
+            fa.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+    split = profiled(torch, calls, kernels=("flash_bwd_dq_kernel<192",
+                                            "flash_bwd_dkdv_kernel<192"))
+    row["launch_ms"] = {name: t / reps
+                        for name, t in split["kernel_ms"].items()}
+    check(all(t > 0 for t in row["launch_ms"].values()),
+          f"both (192, 128) backward launches seen by the profiler: "
+          f"{row['launch_ms']}")
+    emit("mla_attention_bwd_time", row)
+    return row
+
+
+def train_cut(torch, *, arch, name, n_layers, n_dense_prefix, n_experts,
+              **_):
+    """``arch`` cut in depth to ``n_layers`` (``n_dense_prefix`` of them
+    dense) and to ``n_experts`` routed experts, registered as ``name`` so
+    ``launch.train.main --arch name`` trains it."""
+    from repro_torch.configs.base import get_config, register
+
+    full = get_config(arch)
+    cut = full.replace(name=name, n_layers=n_layers,
+                       n_dense_prefix=n_dense_prefix,
+                       moe=dataclasses.replace(full.moe, n_experts=n_experts))
+    register(name)(lambda: cut)
+    return full, cut
+
+
+def deepseek_train_phase(torch, dev, *, steps, batch, seq, **cut_kw):
+    """(b) the full-width ``deepseek-v3-671b`` cut to ``cut_kw``, bf16,
+    trained by ``repro_torch.launch.train.main`` for ``steps`` steps at the
+    trainer's defaults (no checkpoints), counters reset just before and
+    read just after: one flash forward and one gradient launch per MLA
+    layer every step, every loss finite and the mean of the last 5 under
+    that of the first 5; step ms, tokens/s, peak bytes, the MoE's dropped
+    share and aux loss; then, on the trained weights, two gradients of one
+    batch with the same bits (the MoE's backward adds in a fixed order)
+    and a ``torch.profiler`` window over one train step."""
+    import gc
+    import shutil
+
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_train_step, loss_and_grads
+    from repro_torch.models import common as cm
+    from repro_torch.models.api import model_api
+    from repro_torch.optim import adamw
+
+    full, cfg = train_cut(torch, **cut_kw)
+    n_moe = cfg.n_layers - cfg.n_dense_prefix
+    n_params = sum(math.prod(s.shape) for _, s in
+                   cm.leaves(model_api(cfg).param_specs()))
+    largest = max(math.prod(s.shape) for _, s in
+                  cm.leaves(model_api(cfg).param_specs()))
+    # bf16 parameters and gradients, f32 masters and two moments, three
+    # f32 temporaries of the largest leaf in AdamW's update
+    reckoned = n_params * (2 + 2 + 3 * 4) + 3 * 4 * largest
+    emit("deepseek_train_cuts", {
+        "config": cfg.name,
+        "cuts": [f"depth {full.n_layers} -> {cfg.n_layers} "
+                 f"({cfg.n_dense_prefix} dense-prefix layer, d_ff "
+                 f"{cfg.d_ff_dense_prefix}, and {n_moe} MoE layer)",
+                 f"routed experts {full.moe.n_experts} -> "
+                 f"{cfg.moe.n_experts} (top-{cfg.moe.top_k} and "
+                 f"{cfg.moe.n_shared} shared expert kept)",
+                 f"B x S = {batch} x {seq}"],
+        "widths": "as published: d_model 7168, 128 heads, MLA ranks 1536 / "
+                  "512, heads 128 + 64 / 128, d_ff_expert 2048, vocab "
+                  "129280, untied",
+        "params": n_params, "reckoned_peak_bytes": reckoned,
+        "card_bytes": torch.cuda.get_device_properties(0).total_memory})
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(reckoned < torch.cuda.get_device_properties(0).total_memory,
+          f"the cut's reckoned peak {reckoned} fits the card")
+
+    walls, losses, auxes, per_step = [], [], [], []
+    last = {"t": 0.0, "n": (0, 0)}
+
+    def on_step(step, m, params):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls.append((now - last["t"]) * 1e3)
+        last["t"] = now
+        losses.append(float(m["loss"]))
+        auxes.append(float(m["aux"]))
+        c = ops.launch_counts()
+        n = (c["flash_attention"], c["flash_attention_bwd"])
+        per_step.append((n[0] - last["n"][0], n[1] - last["n"][1]))
+        last["n"] = n
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    work = ROOT / "build" / "chip_smoke_ckpt" / "deepseek"
+    shutil.rmtree(work, ignore_errors=True)
+    with MoESpy() as spy:
+        ops.reset_launch_counts()
+        last["t"] = time.perf_counter()
+        t0 = last["t"]
+        model, log = train_run(torch, dev, [
+            "--arch", cfg.name, "--steps", str(steps), "--batch", str(batch),
+            "--seq", str(seq), "--ckpt-dir", str(work), "--ckpt-every", "0",
+            "--log-every", "10"], on_step)
+        total_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_mla = cfg.n_layers
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          "every DeepSeek training loss finite")
+    first, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last5 < first, f"DeepSeek loss fell: mean of the first 5 {first}, "
+          f"of the last 5 {last5}")
+    check(all(n == (n_mla, n_mla) for n in per_step),
+          f"{n_mla} flash forward and gradient launches a step: "
+          f"{sorted(set(per_step))}")
+    check("training complete" in log, "the DeepSeek trainer finished")
+    check(len(spy.stats) == steps * n_moe, "one MoE call a MoE layer a step")
+    dropped = [float(st.dropped_frac) for st in spy.stats]
+    steady = walls[1:]
+    out = {
+        "config": cfg.name, "dtype": str(cfg.dtype), "batch": batch,
+        "seq": seq, "steps": steps,
+        "params": sum(p.numel() for p in model.parameters()),
+        "step_ms_first": walls[0],
+        "step_ms_p50": float(np.percentile(steady, 50)),
+        "step_ms_p95": float(np.percentile(steady, 95)),
+        "tokens_per_s": batch * seq / float(np.percentile(steady, 50)) * 1e3,
+        "tokens_per_s_overall": batch * seq * steps / total_s,
+        "max_memory_allocated_bytes": peak,
+        "allocated_before_bytes": held, "training_peak_bytes": peak - held,
+        "reckoned_peak_bytes": reckoned,
+        "losses": losses, "mean_loss_first_5": first,
+        "mean_loss_last_5": last5,
+        "aux_first": auxes[0], "aux_last": auxes[-1],
+        "moe_dropped_frac_first": dropped[0],
+        "moe_dropped_frac_last": dropped[-1],
+        "moe_dropped_frac_mean": float(np.mean(dropped)),
+        "flash_launches_per_step": {"flash_attention": per_step[0][0],
+                                    "flash_attention_bwd": per_step[0][1]},
+        "launches": launches}
+
+    # the same batch twice: the same gradient bits
+    api = model_api(cfg)
+    it = batch_iterator(batch, seq, seed=7, vocab_size=cfg.vocab_size)
+    toks = [torch.from_numpy(next(it)["tokens"]).to(dev) for _ in range(2)]
+    twice = [dict(cm.leaves(loss_and_grads(api.loss, model,
+                                           {"tokens": toks[0]})[2]))
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    out["grads_same_bits_twice"] = sorted(twice[0]) == sorted(twice[1]) \
+        and same_bits(torch, [twice[0][p] for p in twice[0]],
+                      [twice[1][p] for p in twice[0]])
+    check(out["grads_same_bits_twice"],
+          "two DeepSeek gradients of one batch have the same bits")
+    del twice
+    gc.collect()
+
+    # where a train step's time goes
+    ocfg = adamw.AdamWConfig(total_steps=2)
+    state = {"lm": model, "opt": adamw.init_opt_state(model, ocfg)}
+    step = build_train_step(cfg, ocfg)
+
+    def one(t):
+        state["lm"], state["opt"], _ = step(state["lm"], state["opt"],
+                                            {"tokens": t})
+    one(toks[0])                              # warm
+    flash = ("flash_wgmma_kernel<192", "flash_bwd_dq_kernel<192",
+             "flash_bwd_dkdv_kernel<192")
+    # and the device time by kind: elementwise passes (AdamW's per-leaf
+    # update, the norms), reductions, cuBLAS products (gemm / nvjet)
+    prof = profiled(torch, lambda: one(toks[1]),
+                    kernels=flash + ("elementwise", "reduce", "gemm",
+                                     "nvjet"))
+    check(all(prof["kernel_ms"][k] > 0 for k in flash),
+          f"the (192, 128) flash kernels ran in the profiled step: "
+          f"{prof['kernel_ms']}")
+    out["profile"] = prof
+    emit("deepseek_train_phase", out)
+    emit("deepseek_train_profile", prof)
+    del state, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def deepseek_replay_cut(torch, dtype, *, arch, n_layers, d_model, n_heads,
+                        d_ff_dense_prefix, vocab_size, n_experts, top_k,
+                        d_ff_expert, **_):
+    """DEEPSEEK_REPLAY's cut of ``arch`` in ``dtype``."""
+    from repro_torch.configs.base import get_config
+
+    base = get_config(arch)
+    return base.replace(
+        n_layers=n_layers, d_model=d_model, n_heads=n_heads,
+        n_kv_heads=n_heads, d_ff_dense_prefix=d_ff_dense_prefix,
+        vocab_size=vocab_size, dtype=dtype,
+        moe=dataclasses.replace(base.moe, n_experts=n_experts, top_k=top_k,
+                                d_ff_expert=d_ff_expert))
+
+
+def deepseek_train_replay(torch, dev, *, batch, seq, steps):
+    """(c) ``steps`` f32 train steps of DEEPSEEK_REPLAY's cut on the card
+    and on the CPU port from the same weights: the same expert ids at every
+    MoE call of every step, loss, grad norm and masters within
+    TRAIN_REPLAY_TOL (``replay_train``)."""
+    cfg = deepseek_replay_cut(torch, torch.float32, **DEEPSEEK_REPLAY)
+    with MoESpy() as spy:
+        out = replay_train(torch, dev, cfg, batch=batch, seq=seq,
+                           steps=steps)
+    n = steps * (cfg.n_layers - cfg.n_dense_prefix)
+    check(len(spy.ids) == 2 * n, f"replay MoE calls {len(spy.ids)}")
+    for j, (a, b) in enumerate(zip(spy.ids[:n], spy.ids[n:])):
+        check(torch.equal(a.cpu(), b.cpu()),
+              f"DeepSeek train replay expert ids at MoE call {j}")
+    out.update({"config": f"{cfg.name} cut as DEEPSEEK_REPLAY, f32",
+                "moe_calls_equal_ids": n})
+    emit("deepseek_train_replay", out)
+    return out
+
+
+def deepseek_kill_resume(torch, dev, *, steps, ckpt_every, kill_at, batch,
+                         seq):
+    """(d) DEEPSEEK_REPLAY's cut in bf16 through ``launch.train.main``:
+    ``--kill-at`` exits 42, the checkpoint restores bit-equal to the
+    parameters saved, and the rerun resumes and finishes."""
+    import shutil
+
+    from repro_torch import convert
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+    from repro_torch.configs.base import register
+    from repro_torch.models import common as cm
+
+    cfg = deepseek_replay_cut(torch, torch.bfloat16, **DEEPSEEK_REPLAY)
+    cfg = cfg.replace(name=cfg.name + "-replay-cut")
+    register(cfg.name)(lambda: cfg)
+    kdir = ROOT / "build" / "chip_smoke_ckpt" / "deepseek_kill"
+    shutil.rmtree(kdir, ignore_errors=True)
+    base = ["--arch", cfg.name, "--batch", str(batch), "--seq", str(seq),
+            "--steps", str(steps), "--ckpt-dir", str(kdir), "--ckpt-every",
+            str(ckpt_every)]
+    saved = {}
+
+    def snap(step, m, params):
+        if step == ckpt_every:
+            saved["tree"] = convert.lm_params_to_tree(params)
+
+    code, _ = train_run(torch, dev, base + ["--kill-at", str(kill_at)], snap)
+    check(code == 42, f"DeepSeek --kill-at exits 42 (got {code!r})")
+    ck = kdir / cfg.name
+    check(ckpt_mod.latest_step(ck) == ckpt_every,
+          f"latest DeepSeek checkpoint after the kill: "
+          f"{ckpt_mod.latest_step(ck)}")
+    back = ckpt_mod.restore(ck, ckpt_every, saved["tree"], device=dev)
+    bit_equal = same_bits(torch, [a.cpu() for _, a in cm.leaves(back)],
+                          [b for _, b in cm.leaves(saved["tree"])])
+    check(bit_equal, "restored DeepSeek parameters bit-equal to the saved")
+    seen = []
+    _, log = train_run(torch, dev, base,
+                       lambda s, m, p: seen.append((s, float(m["loss"]))))
+    check(f"[restore] resuming from step {ckpt_every}" in log
+          and "training complete" in log,
+          "the DeepSeek rerun resumed and finished")
+    check([s for s, _ in seen] == list(range(ckpt_every + 1, steps + 1)),
+          f"resumed steps {[s for s, _ in seen]}")
+    check(all(np.isfinite(x) for _, x in seen), "resumed losses finite")
+    out = {"config": f"{cfg.name} (DEEPSEEK_REPLAY's cut), bf16",
+           "steps": steps, "ckpt_every": ckpt_every, "kill_at": kill_at,
+           "exit_code": code, "resumed_from": ckpt_every,
+           "restored_bit_equal": bit_equal, "resumed_losses": seen}
+    emit("deepseek_train_kill_resume", out)
+    shutil.rmtree(kdir, ignore_errors=True)
     return out
 
 
@@ -3530,10 +3948,10 @@ def main() -> int:
     emit("clock", {"empty_kernel_ms": clock.ms(lambda: one.fill_(0.0))})
     phase_s = {}
 
-    def timed(name, fn, *a, **kw):
+    def timed(phase, fn, /, *a, **kw):
         t0 = time.perf_counter()
         out = fn(*a, **kw)
-        phase_s[name] = time.perf_counter() - t0
+        phase_s[phase] = time.perf_counter() - t0
         return out
     lift_row, topk_row = timed("kernel_checks", kernel_checks, torch, clock,
                                dev)
@@ -3571,6 +3989,13 @@ def main() -> int:
                      dev, **DEEPSEEK)
     timed("deepseek_replay_phase", deepseek_replay_phase, torch, dev,
           **DEEPSEEK_REPLAY)
+    mla_bwd_row = timed("mla_bwd_checks", mla_bwd_checks, torch, clock, dev)
+    ds_train = timed("deepseek_train_phase", deepseek_train_phase, torch,
+                     dev, **DEEPSEEK_TRAIN)
+    timed("deepseek_train_replay", deepseek_train_replay, torch, dev,
+          **DEEPSEEK_TRAIN_REPLAY)
+    timed("deepseek_kill_resume", deepseek_kill_resume, torch, dev,
+          **DEEPSEEK_KILL)
     emit("phase_seconds", phase_s)
     print(smi, flush=True)          # again, inside the tail of a long log
 
@@ -3617,8 +4042,18 @@ def main() -> int:
          "gradient_of": "flash_attention (the JAX package trains through "
                         "src/repro/models/attention.py:55 under jax.grad)",
          "launches": train["train"]["launches"]["flash_attention_bwd"],
-         "launched_on": "step 16 captioner training path (12 a step)",
-         **bwd_row},
+         "launched_on": "step 16 captioner training path (12 a step); "
+                        "step 18 DeepSeek training path (2 a step, the "
+                        "(192, 128) instance)",
+         **bwd_row,
+         "deepseek_train_launches":
+             ds_train["launches"]["flash_attention_bwd"],
+         "mla_instance": {
+             "instance": "(dqk, dv) = (192, 128): flash_bwd_dq_kernel<192,"
+                         "128> and flash_bwd_dkdv_kernel<192,128> (bf16), "
+                         "the f32 pair <192,128>",
+             "launches": ds_train["launches"]["flash_attention_bwd"],
+             **mla_bwd_row}},
         {"name": "flash_attention_mla", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:93",
@@ -3626,7 +4061,8 @@ def main() -> int:
                      "(bf16), flash_f32_kernel<192,128> (f32)",
          "launches": deepseek["flash_launches"],
          "launched_on": "step 17 DeepSeek-V3 serving path (one a layer a "
-                        "prefill, 4 layers, 2 prefills)", **mla_row},
+                        "prefill, 4 layers, 2 prefills)", **mla_row,
+         "deepseek_train_launches": ds_train["launches"]["flash_attention"]},
         {"name": "nearest_dist", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pairwise.cu",
          "replaces": "src/repro/kernels/pairwise.py:59",

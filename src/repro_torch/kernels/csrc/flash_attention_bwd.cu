@@ -8,24 +8,28 @@
 // this one.
 //
 // What it computes, per (batch b, query head h), for
-//   s = softcap(q . k^T * dh^-0.5),  p = softmax(mask(s)),  o = p . v,
+//   s = softcap(q . k^T * dqk^-0.5),  p = softmax(mask(s)),  o = p . v,
 // given the forward's per-row log-sum-exp lse = log(sum_kept exp(s)) (the
 // natural log over the scaled, softcapped score; csrc/flash_attention.cu
 // writes it when asked), so p = exp(s - lse) on the kept keys:
 //   dv = p~^T . do        (p~ = p rounded to v's dtype, as the forward
 //                           rounds p before p . v)
 //   dp = do . v^T,   D = rowsum(do * o)
-//   ds = p * (dp - D) * (1 - t^2) * dh^-0.5   (t = s / softcap = tanh(...);
+//   ds = p * (dp - D) * (1 - t^2) * dqk^-0.5  (t = s / softcap = tanh(...);
 //                                              1 without a softcap)
 //   dq = ds . k,     dk = ds^T . q
 // In bf16, ds is rounded to bf16 before dq and dk (the tensor cores take
-// bf16 operands); scores, dp, D and every accumulator stay f32.  q, o, do
-// [B, S, H, dh] and k, v [B, S, Kv, dh] are read through their strides (the
-// head dim contiguous), query head h reading kv head h / (H / Kv); dk and dv
-// of kv head j sum over its G = H / Kv query heads.  dq, dk and dv are
-// written contiguous in q's dtype.  Masks as the forward: causal
-// kpos <= qpos, window qpos - kpos < window, and keys at or past S never
-// count.
+// bf16 operands); scores, dp, D and every accumulator stay f32.  q
+// [B, S, H, dqk], k [B, S, Kv, dqk], v [B, S, Kv, dv] and o, do
+// [B, S, H, dv] are read through their strides (the head dim contiguous),
+// query head h reading kv head h / (H / Kv); dk and dv of kv head j sum
+// over its G = H / Kv query heads.  dq, dk [.., dqk] and dv [.., dv] are
+// written contiguous in q's dtype.  (dqk, dv) is (64, 64), (128, 128) or
+// (192, 128), DeepSeek MLA's prefill (a q / k head of qk_nope + qk_rope =
+// 128 + 64, a v head of 128): S = Q . K^T contracts over dqk and
+// dP = dO . V^T over dv; Q, K, dQ and dK are dqk / 64 panels of 64 columns,
+// V, dO and dV dv / 64.  Masks as the forward: causal kpos <= qpos, window
+// qpos - kpos < window, and keys at or past S never count.
 //
 // Design: two launches, no float atomics, so two calls give the same bits.
 // The forward's lse replaces a statistics pass, so the scores are formed
@@ -34,7 +38,9 @@
 //   bf16 (tensor cores, wgmma m64n64k16, f32 accumulators):
 //   1. flash_bwd_dq_kernel, one warpgroup per (b, h, 64-query tile), tiles
 //      numbered latest query tile (the longest causal walk) first, three
-//      blocks an SM (the training shape's 384 blocks in one wave).  It
+//      blocks an SM at (64, 64) (the captioner's training shape's 384
+//      blocks in one wave), two at (128, 128) and one at (192, 128), whose
+//      Q, dO and two stages of K and V take 121 KB.  It
 //      forms D = rowsum(do * o) and writes D * scale for launch 2, then
 //      walks the key tiles the masks let in: S = Q . K^T and dP = dO . V^T
 //      with both operands in shared memory (K-major, 128-byte swizzle), ds
@@ -50,8 +56,12 @@
 //      end warpgroup 1 adds its dk, dv into warpgroup 0's through shared
 //      memory, always in that order.  So the G heads of a kv head share
 //      the block without a [G, ...] scratch, a second pass or atomics; at
-//      the training shape the 128 blocks fit the card's 132 SMs in one
-//      wave.  It is launched as a programmatic dependent of launch 1: its
+//      the captioner's training shape the 128 blocks fit the card's 132
+//      SMs in one wave.  At (192, 128) the block holds K and V (40 KB) and
+//      per warpgroup two stages of Q, dO and stats (81 KB), 203 KB in all,
+//      and a thread keeps dK (96 f32) and dV (64) with S^T and dP^T (32 +
+//      32) live: 224 of its 255 registers before addresses.
+//      It is launched as a programmatic dependent of launch 1: its
 //      blocks load K and V while launch 1 finishes and wait
 //      (griddepcontrol.wait) only before they read D.
 //   Each warpgroup loads its next Q / dO (or K / V) tiles with cp.async
@@ -147,14 +157,19 @@ constexpr int kPanelBytes = kRows * 128;   // [64 rows, 64 bf16 cols]
 // dh = 64 three groups time the same on an H100 and spill.
 constexpr int kGroups = 2;
 
-template <int D>
+// Per (dqk, dv) pair: 64-column panels of a Q / K row and of a V / dO row,
+// the bytes of a [64, dqk] and a [64, dv] tile, and shared memory (a
+// [Q or K, dO or V] pair of tiles is kPair bytes)
+template <int DQK, int DV>
 struct Bwd {
-  static constexpr int P = D / 64;                  // 64-column panels
-  static constexpr int kTileBytes = P * kPanelBytes;
-  static constexpr int kDqSmem = 6 * kTileBytes + 1024;
+  static constexpr int PQ = DQK / 64, PV = DV / 64;
+  static constexpr int kQkBytes = PQ * kPanelBytes;
+  static constexpr int kVBytes = PV * kPanelBytes;
+  static constexpr int kPair = kQkBytes + kVBytes;
+  static constexpr int kDqSmem = 3 * kPair + 1024;
   static constexpr int kStatBytes = 2 * 2 * kRows * 4;  // [stage][lse, D]
   static int dkdv_smem(int groups) {
-    return 2 * kTileBytes + groups * (4 * kTileBytes + kStatBytes) + 1024;
+    return kPair + groups * (2 * kPair + kStatBytes) + 1024;
   }
 };
 
@@ -393,16 +408,18 @@ __device__ __forceinline__ void form_ds(const Args& a, float (&sc)[32],
 }
 
 // three blocks an SM at dh = 64 (168 registers): the 384 blocks of the
-// training shape then run in one wave on 132 SMs
-template <int D>
-__global__ void __launch_bounds__(128, D == 64 ? 3 : 2)
+// captioner's training shape then run in one wave on 132 SMs; one at
+// (192, 128), whose 121 KB of shared memory leave no room for a second
+template <int DQK, int DV>
+__global__ void __launch_bounds__(128, DQK == 64 ? 3 : DQK == 128 ? 2 : 1)
     flash_bwd_dq_kernel(const Args a) {
-  constexpr int P = Bwd<D>::P, TB = Bwd<D>::kTileBytes;
+  using C = Bwd<DQK, DV>;
+  constexpr int PQ = C::PQ, QB = C::kQkBytes, VB = C::kVBytes;
   extern __shared__ uint8_t smem_raw[];
   __shared__ float s_d[kRows];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sq = base, sg = base + TB;
-  const uint32_t sk = base + 2 * TB, sv = sk + 2 * TB;   // two stages each
+  const uint32_t sq = base, sg = base + QB;
+  const uint32_t sk = sg + VB, sv = sk + 2 * QB;         // two stages each
 
   const int n_q = (a.S + kRows - 1) / kRows, BH = a.B * a.H;
   const int i = static_cast<int>(blockIdx.x);
@@ -426,10 +443,10 @@ __global__ void __launch_bounds__(128, D == 64 ? 3 : 2)
 
   // the dk/dv launch may start its prologue now (programmatic launch)
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  load_tile<D>(sq, Q, a.qs_s, q0, a.S, tid, 128);
-  load_tile<D>(sg, G, a.gs_s, q0, a.S, tid, 128);
-  load_tile<D>(sk, K, a.ks_s, kt_begin * kRows, a.S, tid, 128);
-  load_tile<D>(sv, V, a.vs_s, kt_begin * kRows, a.S, tid, 128);
+  load_tile<DQK>(sq, Q, a.qs_s, q0, a.S, tid, 128);
+  load_tile<DV>(sg, G, a.gs_s, q0, a.S, tid, 128);
+  load_tile<DQK>(sk, K, a.ks_s, kt_begin * kRows, a.S, tid, 128);
+  load_tile<DV>(sv, V, a.vs_s, kt_begin * kRows, a.S, tid, 128);
   cp_async_commit();
 
   // D = rowsum(do * o) in f32, two threads a row, while the tiles load;
@@ -438,10 +455,10 @@ __global__ void __launch_bounds__(128, D == 64 ? 3 : 2)
     const int r = tid / 2, half = tid % 2;
     float acc = 0.f;
     if (q0 + r < a.S) {
-      const bf16* orow = O + (q0 + r) * a.os_s + half * (D / 2);
-      const bf16* grow = G + (q0 + r) * a.gs_s + half * (D / 2);
+      const bf16* orow = O + (q0 + r) * a.os_s + half * (DV / 2);
+      const bf16* grow = G + (q0 + r) * a.gs_s + half * (DV / 2);
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
+      for (int c = 0; c < DV / 16; ++c) {
         const uint4 uo = *reinterpret_cast<const uint4*>(orow + 8 * c);
         const uint4 ug = *reinterpret_cast<const uint4*>(grow + 8 * c);
         const __nv_bfloat162* ho = reinterpret_cast<const __nv_bfloat162*>(&uo);
@@ -469,11 +486,11 @@ __global__ void __launch_bounds__(128, D == 64 ? 3 : 2)
   const uint64_t dk_b = sw128_desc(sk, 16, 1024);          // stage 0
   const uint64_t dv_b = sw128_desc(sv, 16, 1024);
   const uint64_t dk_t = sw128_desc(sk, kPanelBytes, 1024);  // transposed
-  constexpr uint64_t kStage = TB / 16;
+  constexpr uint64_t kStageK = QB / 16, kStageV = VB / 16;
 
-  float acc[P][32];
+  float acc[PQ][32];
 #pragma unroll
-  for (int p = 0; p < P; ++p)
+  for (int p = 0; p < PQ; ++p)
 #pragma unroll
     for (int r = 0; r < 32; ++r) acc[p][r] = 0.f;
   float sc[32], dp[32];
@@ -482,8 +499,10 @@ __global__ void __launch_bounds__(128, D == 64 ? 3 : 2)
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int st = (kt - kt_begin) & 1, k0 = kt * kRows;
     if (kt + 1 < kt_end) {           // the next K, V tiles into the other stage
-      load_tile<D>(sk + (st ^ 1) * TB, K, a.ks_s, k0 + kRows, a.S, tid, 128);
-      load_tile<D>(sv + (st ^ 1) * TB, V, a.vs_s, k0 + kRows, a.S, tid, 128);
+      load_tile<DQK>(sk + (st ^ 1) * QB, K, a.ks_s, k0 + kRows, a.S, tid,
+                     128);
+      load_tile<DV>(sv + (st ^ 1) * VB, V, a.vs_s, k0 + kRows, a.S, tid,
+                    128);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -491,8 +510,8 @@ __global__ void __launch_bounds__(128, D == 64 ? 3 : 2)
     }
     fence_proxy_async();
     __syncthreads();
-    issue_ss<D>(sc, dq_a, dk_b + st * kStage);     // S = Q . K^T
-    issue_ss<D>(dp, dg_a, dv_b + st * kStage);     // dP = dO . V^T
+    issue_ss<DQK>(sc, dq_a, dk_b + st * kStageK);  // S = Q . K^T
+    issue_ss<DV>(dp, dg_a, dv_b + st * kStageV);   // dP = dO . V^T
     wgmma_wait<0>();
     fence_regs(sc);
     fence_regs(dp);
@@ -505,27 +524,49 @@ __global__ void __launch_bounds__(128, D == 64 ? 3 : 2)
           return allowed(a, e < 2 ? qpos0 : qpos1, kc + 8 * j + (e & 1));
         });
     pack_a(dp, fa);
-    issue_rs<P>(acc, fa, dk_t + st * kStage);     // dQ += dS . K
+    issue_rs<PQ>(acc, fa, dk_t + st * kStageK);   // dQ += dS . K
     wgmma_wait<0>();
 #pragma unroll
-    for (int p = 0; p < P; ++p) fence_regs(acc[p]);
+    for (int p = 0; p < PQ; ++p) fence_regs(acc[p]);
     __syncthreads();                  // stage st is free for the next load
   }
 
   bf16* dQ = static_cast<bf16*>(a.dq) +
-             (static_cast<long long>(b) * a.S * a.H + h) * D + 2 * t;
+             (static_cast<long long>(b) * a.S * a.H + h) * DQK + 2 * t;
 #pragma unroll
-  for (int p = 0; p < P; ++p)
+  for (int p = 0; p < PQ; ++p)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int d = p * 64 + 8 * j;
       if (qpos0 < a.S)
         *reinterpret_cast<__nv_bfloat162*>(
-            dQ + static_cast<long long>(qpos0) * a.H * D + d) =
+            dQ + static_cast<long long>(qpos0) * a.H * DQK + d) =
             __floats2bfloat162_rn(acc[p][4 * j], acc[p][4 * j + 1]);
       if (qpos1 < a.S)
         *reinterpret_cast<__nv_bfloat162*>(
-            dQ + static_cast<long long>(qpos1) * a.H * D + d) =
+            dQ + static_cast<long long>(qpos1) * a.H * DQK + d) =
+            __floats2bfloat162_rn(acc[p][4 * j + 2], acc[p][4 * j + 3]);
+    }
+}
+
+// a warpgroup's [64 rows, P * 64] f32 accumulator as bf16 rows of an
+// output whose row r0 + i starts at out + i * stride (this thread's rows
+// r0 and r0 + 8, its column 2t already in out); rows at or past S are
+// skipped
+template <int P>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
+                                           long long stride, int r0, int S,
+                                           const float (&acc)[P][32]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int d = p * 64 + 8 * j;
+      if (r0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(out + r0 * stride + d) =
+            __floats2bfloat162_rn(acc[p][4 * j], acc[p][4 * j + 1]);
+      if (r0 + 8 < S)
+        *reinterpret_cast<__nv_bfloat162*>(out + (r0 + 8) * stride + d) =
             __floats2bfloat162_rn(acc[p][4 * j + 2], acc[p][4 * j + 3]);
     }
 }
@@ -533,19 +574,21 @@ __global__ void __launch_bounds__(128, D == 64 ? 3 : 2)
 // Shared memory (dynamic, 1024-byte aligned): the K and V tiles, then for
 // each warpgroup two stages of [Q tile, dO tile], then for each warpgroup
 // two stages of [lse, D] (64 floats each).  At the end a warpgroup's Q / dO
-// stages (4 tiles) hold its f32 dk and dv for the fixed-order sum.
-template <int D>
+// stages (2 * kPair bytes, (PQ + PV) * 16 KB) hold its f32 dk and dv for
+// the fixed-order sum.
+template <int DQK, int DV>
 __global__ void __launch_bounds__(128 * kGroups, 1)
     flash_bwd_dkdv_kernel(const Args a) {
-  constexpr int P = Bwd<D>::P, TB = Bwd<D>::kTileBytes;
+  using C = Bwd<DQK, DV>;
+  constexpr int PQ = C::PQ, PV = C::PV, QB = C::kQkBytes, PAIR = C::kPair;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - smem_u32(smem_raw));
   const int W = blockDim.x / 128;
   const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;
-  const uint32_t sk = base, sv = base + TB;
-  const uint32_t mine = base + 2 * TB + wg * 4 * TB;     // [stage][Q, dO]
-  float* const stats = reinterpret_cast<float*>(gbase + 2 * TB + W * 4 * TB) +
+  const uint32_t sk = base, sv = base + QB;
+  const uint32_t mine = base + PAIR + wg * 2 * PAIR;     // [stage][Q, dO]
+  float* const stats = reinterpret_cast<float*>(gbase + PAIR + W * 2 * PAIR) +
                        wg * 4 * kRows;                    // [stage][lse, D]
 
   const int BK = a.B * a.Kv;
@@ -569,12 +612,13 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
   };
   auto load_item = [&](int n, int st) {
     const int h = head(n), q0 = first_row(n);
-    const uint32_t dst = mine + st * 2 * TB;
-    load_tile<D>(dst, static_cast<const bf16*>(a.q) + b * a.qs_b + h * a.qs_h,
-                 a.qs_s, q0, a.S, lt, 128);
-    load_tile<D>(dst + TB,
-                 static_cast<const bf16*>(a.g) + b * a.gs_b + h * a.gs_h,
-                 a.gs_s, q0, a.S, lt, 128);
+    const uint32_t dst = mine + st * PAIR;
+    load_tile<DQK>(dst,
+                   static_cast<const bf16*>(a.q) + b * a.qs_b + h * a.qs_h,
+                   a.qs_s, q0, a.S, lt, 128);
+    load_tile<DV>(dst + QB,
+                  static_cast<const bf16*>(a.g) + b * a.gs_b + h * a.gs_h,
+                  a.gs_s, q0, a.S, lt, 128);
     // lse (threads 0..63) and D (64..127) of the 64 query rows, 0 past S
     const int r = lt % kRows;
     const bool ok = q0 + r < a.S;
@@ -584,8 +628,8 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
     cp_async4(smem_u32(stats + st * 2 * kRows + lt), src, ok ? 4 : 0);
   };
 
-  load_tile<D>(sk, K, a.ks_s, k0, a.S, threadIdx.x, blockDim.x);
-  load_tile<D>(sv, V, a.vs_s, k0, a.S, threadIdx.x, blockDim.x);
+  load_tile<DQK>(sk, K, a.ks_s, k0, a.S, threadIdx.x, blockDim.x);
+  load_tile<DV>(sv, V, a.vs_s, k0, a.S, threadIdx.x, blockDim.x);
   cp_async_commit();
   // D comes from launch 1: wait for it to finish (and its writes)
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -601,16 +645,17 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
   const uint64_t dv_a = sw128_desc(sv, 16, 1024);
   const uint64_t dq_b = sw128_desc(mine, 16, 1024);        // stage 0, Q
   const uint64_t dq_t = sw128_desc(mine, kPanelBytes, 1024);
-  constexpr uint64_t kTile = TB / 16;
+  constexpr uint64_t kStage = PAIR / 16, kQ = QB / 16;
 
-  float dk[P][32], dv[P][32];
+  float dk[PQ][32], dv[PV][32];
 #pragma unroll
-  for (int p = 0; p < P; ++p)
+  for (int p = 0; p < PQ; ++p)
 #pragma unroll
-    for (int r = 0; r < 32; ++r) {
-      dk[p][r] = 0.f;
-      dv[p][r] = 0.f;
-    }
+    for (int r = 0; r < 32; ++r) dk[p][r] = 0.f;
+#pragma unroll
+  for (int p = 0; p < PV; ++p)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) dv[p][r] = 0.f;
   float sc[32], dp[32];
   uint32_t fp[4][4], fs[4][4];
 
@@ -626,9 +671,9 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
     fence_proxy_async();
     group_sync(wg);
     const int q0 = first_row(n);
-    const uint64_t q_b = dq_b + st * 2 * kTile, g_b = q_b + kTile;
-    issue_ss<D>(sc, dk_a, q_b);                 // S^T = K . Q^T
-    issue_ss<D>(dp, dv_a, g_b);                 // dP^T = V . dO^T
+    const uint64_t q_b = dq_b + st * kStage, g_b = q_b + kQ;
+    issue_ss<DQK>(sc, dk_a, q_b);               // S^T = K . Q^T
+    issue_ss<DV>(dp, dv_a, g_b);                // dP^T = V . dO^T
     wgmma_wait<0>();
     fence_regs(sc);
     fence_regs(dp);
@@ -646,68 +691,52 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
         });
     pack_a(sc, fp);                             // p~ (bf16)
     pack_a(dp, fs);                             // ds (bf16)
-    const uint64_t q_t = dq_t + st * 2 * kTile, g_t = q_t + kTile;
-    issue_rs<P>(dv, fp, g_t);                   // dV += P~^T . dO
-    issue_rs<P>(dk, fs, q_t);                   // dK += dS^T . Q
+    const uint64_t q_t = dq_t + st * kStage, g_t = q_t + kQ;
+    issue_rs<PV>(dv, fp, g_t);                  // dV += P~^T . dO
+    issue_rs<PQ>(dk, fs, q_t);                  // dK += dS^T . Q
     wgmma_wait<0>();
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      fence_regs(dk[p]);
-      fence_regs(dv[p]);
-    }
+    for (int p = 0; p < PQ; ++p) fence_regs(dk[p]);
+#pragma unroll
+    for (int p = 0; p < PV; ++p) fence_regs(dv[p]);
     group_sync(wg);                   // stage st is free for the next load
   }
 
   // warpgroups 1.. hand their sums to warpgroup 0 through their own stages
-  // (4 tiles = 2 * P * 32 * 128 floats), which adds them in order
+  // ((PQ + PV) * 32 * 128 floats), which adds them in order
   __syncthreads();
-  float* red = reinterpret_cast<float*>(gbase + 2 * TB + wg * 4 * TB);
+  float* red = reinterpret_cast<float*>(gbase + PAIR + wg * 2 * PAIR);
   if (wg > 0) {
 #pragma unroll
-    for (int p = 0; p < P; ++p)
+    for (int p = 0; p < PQ; ++p)
 #pragma unroll
-      for (int r = 0; r < 32; ++r) {
-        red[(p * 32 + r) * 128 + lt] = dk[p][r];
-        red[((P + p) * 32 + r) * 128 + lt] = dv[p][r];
-      }
+      for (int r = 0; r < 32; ++r) red[(p * 32 + r) * 128 + lt] = dk[p][r];
+#pragma unroll
+    for (int p = 0; p < PV; ++p)
+#pragma unroll
+      for (int r = 0; r < 32; ++r)
+        red[((PQ + p) * 32 + r) * 128 + lt] = dv[p][r];
   }
   __syncthreads();
   if (wg != 0) return;
   for (int w = 1; w < W; ++w) {
-    const float* src = reinterpret_cast<const float*>(gbase + 2 * TB +
-                                                      w * 4 * TB);
+    const float* src = reinterpret_cast<const float*>(gbase + PAIR +
+                                                      w * 2 * PAIR);
 #pragma unroll
-    for (int p = 0; p < P; ++p)
+    for (int p = 0; p < PQ; ++p)
 #pragma unroll
-      for (int r = 0; r < 32; ++r) {
-        dk[p][r] += src[(p * 32 + r) * 128 + lt];
-        dv[p][r] += src[((P + p) * 32 + r) * 128 + lt];
-      }
+      for (int r = 0; r < 32; ++r) dk[p][r] += src[(p * 32 + r) * 128 + lt];
+#pragma unroll
+    for (int p = 0; p < PV; ++p)
+#pragma unroll
+      for (int r = 0; r < 32; ++r)
+        dv[p][r] += src[((PQ + p) * 32 + r) * 128 + lt];
   }
-  const long long row0 =
-      (static_cast<long long>(b) * a.S * a.Kv + kvh) * D + 2 * t;
-  bf16* dK = static_cast<bf16*>(a.dk) + row0;
-  bf16* dV = static_cast<bf16*>(a.dv) + row0;
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int d = p * 64 + 8 * j;
-      if (kpos0 < a.S) {
-        const long long at = static_cast<long long>(kpos0) * a.Kv * D + d;
-        *reinterpret_cast<__nv_bfloat162*>(dK + at) =
-            __floats2bfloat162_rn(dk[p][4 * j], dk[p][4 * j + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dV + at) =
-            __floats2bfloat162_rn(dv[p][4 * j], dv[p][4 * j + 1]);
-      }
-      if (kpos1 < a.S) {
-        const long long at = static_cast<long long>(kpos1) * a.Kv * D + d;
-        *reinterpret_cast<__nv_bfloat162*>(dK + at) =
-            __floats2bfloat162_rn(dk[p][4 * j + 2], dk[p][4 * j + 3]);
-        *reinterpret_cast<__nv_bfloat162*>(dV + at) =
-            __floats2bfloat162_rn(dv[p][4 * j + 2], dv[p][4 * j + 3]);
-      }
-    }
+  const long long row = static_cast<long long>(b) * a.S * a.Kv + kvh;
+  store_rows<PQ>(static_cast<bf16*>(a.dk) + row * DQK + 2 * t,
+                 static_cast<long long>(a.Kv) * DQK, kpos0, a.S, dk);
+  store_rows<PV>(static_cast<bf16*>(a.dv) + row * DV + 2 * t,
+                 static_cast<long long>(a.Kv) * DV, kpos0, a.S, dv);
 }
 
 // ----------------------------------------------------------------- f32
@@ -790,28 +819,30 @@ __device__ __forceinline__ float score(const Args& a, float dot,
   return x;
 }
 
-template <int D>
-constexpr int dq_f32_smem() {          // Q, dO, K, V [64][D+1]; ds; D
-  return (4 * kRows * (D + 1) + kRows * kLdw + kRows) *
-         static_cast<int>(sizeof(float));
+// Q, K [64][DQK + 1] and dO, V [64][DV + 1] (rows of 193 and 129 floats
+// at (192, 128): 181 KB in launch 1, 199 KB in launch 2)
+template <int DQK, int DV>
+constexpr int dq_f32_smem() {          // Q, dO, K, V; ds; D
+  return (2 * kRows * (DQK + 1) + 2 * kRows * (DV + 1) + kRows * kLdw +
+          kRows) * static_cast<int>(sizeof(float));
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr int dkdv_f32_smem() {        // K, V, Q, dO; p, ds; lse, D
-  return (4 * kRows * (D + 1) + 2 * kRows * kLdw + 2 * kRows) *
-         static_cast<int>(sizeof(float));
+  return (2 * kRows * (DQK + 1) + 2 * kRows * (DV + 1) + 2 * kRows * kLdw +
+          2 * kRows) * static_cast<int>(sizeof(float));
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_f32_kernel(const Args a) {
-  constexpr int LD = D + 1;
+  constexpr int LQ = DQK + 1, LV = DV + 1;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* Gs = Qs + kRows * LD;
-  float* Ks = Gs + kRows * LD;
-  float* Vs = Ks + kRows * LD;
-  float* Ws = Vs + kRows * LD;
+  float* Gs = Qs + kRows * LQ;
+  float* Ks = Gs + kRows * LV;
+  float* Vs = Ks + kRows * LQ;
+  float* Ws = Vs + kRows * LV;
   float* Dsh = Ws + kRows * kLdw;
 
   const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
@@ -824,14 +855,14 @@ __global__ void __launch_bounds__(kThreads)
   const float* G = static_cast<const float*>(a.g) + b * a.gs_b + h * a.gs_h;
   const long long srow = (static_cast<long long>(b) * a.H + h) * a.S;
 
-  load_f32<D>(Qs, Q, a.qs_s, q0, a.S);
-  load_f32<D>(Gs, G, a.gs_s, q0, a.S);
-  load_f32<D>(Vs, O, a.os_s, q0, a.S);          // o, for D only
+  load_f32<DQK>(Qs, Q, a.qs_s, q0, a.S);
+  load_f32<DV>(Gs, G, a.gs_s, q0, a.S);
+  load_f32<DV>(Vs, O, a.os_s, q0, a.S);         // o, for D only
   __syncthreads();
   if (tid < kRows) {
     float acc = 0.f;
-    for (int d = 0; d < D; ++d) acc = fmaf(Gs[tid * LD + d], Vs[tid * LD + d],
-                                           acc);
+    for (int d = 0; d < DV; ++d) acc = fmaf(Gs[tid * LV + d],
+                                            Vs[tid * LV + d], acc);
     Dsh[tid] = acc;
     if (q0 + tid < a.S) a.dsum[srow + q0 + tid] = acc;
   }
@@ -844,20 +875,20 @@ __global__ void __launch_bounds__(kThreads)
 
   int kt_begin, kt_end;
   key_tiles(a, q0, &kt_begin, &kt_end);
-  float dq[4][D / 16];
+  float dq[4][DQK / 16];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) dq[r][c] = 0.f;
+    for (int c = 0; c < DQK / 16; ++c) dq[r][c] = 0.f;
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kRows;
     __syncthreads();
-    load_f32<D>(Ks, K, a.ks_s, k0, a.S);
-    load_f32<D>(Vs, V, a.vs_s, k0, a.S);
+    load_f32<DQK>(Ks, K, a.ks_s, k0, a.S);
+    load_f32<DV>(Vs, V, a.vs_s, k0, a.S);
     __syncthreads();
     float s[4][4], dp[4][4];
-    tile_dot<D>(Qs, Ks, ty, tx, s);
-    tile_dot<D>(Gs, Vs, ty, tx, dp);
+    tile_dot<DQK>(Qs, Ks, ty, tx, s);
+    tile_dot<DV>(Gs, Vs, ty, tx, dp);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int qpos = q0 + ty + 16 * r;
@@ -873,7 +904,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    tile_acc<D>(Ws, Ks, ty, tx, dq);
+    tile_acc<DQK>(Ws, Ks, ty, tx, dq);
   }
 
   float* dQ = static_cast<float*>(a.dq);
@@ -882,22 +913,22 @@ __global__ void __launch_bounds__(kThreads)
     const int qpos = q0 + ty + 16 * r;
     if (qpos >= a.S) continue;
     const long long row = ((static_cast<long long>(b) * a.S + qpos) * a.H + h)
-                          * D;
+                          * DQK;
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) dQ[row + tx + 16 * c] = dq[r][c];
+    for (int c = 0; c < DQK / 16; ++c) dQ[row + tx + 16 * c] = dq[r][c];
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkdv_f32_kernel(const Args a) {
-  constexpr int LD = D + 1;
+  constexpr int LQ = DQK + 1, LV = DV + 1;
   extern __shared__ float smem[];
   float* Ks = smem;
-  float* Vs = Ks + kRows * LD;
-  float* Qs = Vs + kRows * LD;
-  float* Gs = Qs + kRows * LD;
-  float* Ps = Gs + kRows * LD;
+  float* Vs = Ks + kRows * LQ;
+  float* Qs = Vs + kRows * LV;
+  float* Gs = Qs + kRows * LQ;
+  float* Ps = Gs + kRows * LV;
   float* Ws = Ps + kRows * kLdw;
   float* lsh = Ws + kRows * kLdw;
   float* Dsh = lsh + kRows;
@@ -907,17 +938,20 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const float* K = static_cast<const float*>(a.k) + b * a.ks_b + kvh * a.ks_h;
   const float* V = static_cast<const float*>(a.v) + b * a.vs_b + kvh * a.vs_h;
-  load_f32<D>(Ks, K, a.ks_s, k0, a.S);
-  load_f32<D>(Vs, V, a.vs_s, k0, a.S);
+  load_f32<DQK>(Ks, K, a.ks_s, k0, a.S);
+  load_f32<DV>(Vs, V, a.vs_s, k0, a.S);
 
   int qt_begin, qt_end;
   query_tiles(a, k0, &qt_begin, &qt_end);
 
-  float dk[4][D / 16], dv[4][D / 16];
+  float dk[4][DQK / 16], dv[4][DV / 16];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < 4; ++r) {
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) { dk[r][c] = 0.f; dv[r][c] = 0.f; }
+    for (int c = 0; c < DQK / 16; ++c) dk[r][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DV / 16; ++c) dv[r][c] = 0.f;
+  }
 
   for (int gi = 0; gi < G; ++gi) {
     const int h = kvh * G + gi;
@@ -927,8 +961,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * kRows;
       __syncthreads();
-      load_f32<D>(Qs, Q, a.qs_s, q0, a.S);
-      load_f32<D>(Gs, Gd, a.gs_s, q0, a.S);
+      load_f32<DQK>(Qs, Q, a.qs_s, q0, a.S);
+      load_f32<DV>(Gs, Gd, a.gs_s, q0, a.S);
       if (tid < kRows) {
         const int qpos = q0 + tid;
         const long long at = (static_cast<long long>(b) * a.H + h) * a.S +
@@ -939,8 +973,8 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
       // keys as rows (ty + 16 r), queries as columns (tx + 16 c)
       float s[4][4], dp[4][4];
-      tile_dot<D>(Ks, Qs, ty, tx, s);
-      tile_dot<D>(Vs, Gs, ty, tx, dp);
+      tile_dot<DQK>(Ks, Qs, ty, tx, s);
+      tile_dot<DV>(Vs, Gs, ty, tx, dp);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int kpos = k0 + ty + 16 * r;
@@ -957,8 +991,8 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
       __syncthreads();
-      tile_acc<D>(Ps, Gs, ty, tx, dv);
-      tile_acc<D>(Ws, Qs, ty, tx, dk);
+      tile_acc<DV>(Ps, Gs, ty, tx, dv);
+      tile_acc<DQK>(Ws, Qs, ty, tx, dk);
     }
   }
 
@@ -968,13 +1002,13 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < 4; ++r) {
     const int kpos = k0 + ty + 16 * r;
     if (kpos >= a.S) continue;
-    const long long row =
-        ((static_cast<long long>(b) * a.S + kpos) * a.Kv + kvh) * D;
+    const long long row = (static_cast<long long>(b) * a.S + kpos) * a.Kv +
+                          kvh;
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      dK[row + tx + 16 * c] = dk[r][c];
-      dV[row + tx + 16 * c] = dv[r][c];
-    }
+    for (int c = 0; c < DQK / 16; ++c)
+      dK[row * DQK + tx + 16 * c] = dk[r][c];
+#pragma unroll
+    for (int c = 0; c < DV / 16; ++c) dV[row * DV + tx + 16 * c] = dv[r][c];
   }
 }
 
@@ -988,18 +1022,19 @@ int launch(Kernel kernel, dim3 grid, int threads, int smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int DQK, int DV>
 int run_bf16(const Args& a, cudaStream_t st) {
+  using C = Bwd<DQK, DV>;
   const int tiles = (a.S + kRows - 1) / kRows;
-  int err = launch(flash_bwd_dq_kernel<D>, dim3(tiles * a.B * a.H), 128,
-                   Bwd<D>::kDqSmem, st, a);
+  int err = launch(flash_bwd_dq_kernel<DQK, DV>, dim3(tiles * a.B * a.H),
+                   128, C::kDqSmem, st, a);
   if (err != 0) return err;
   const int pairs = (a.H / a.Kv) * tiles;      // most (head, tile) pairs
   const int groups = pairs < kGroups ? pairs : kGroups;
-  const int smem = Bwd<D>::dkdv_smem(groups);
+  const int smem = C::dkdv_smem(groups);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_dkdv_kernel<DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles * a.B * a.Kv);
@@ -1011,37 +1046,44 @@ int run_bf16(const Args& a, cudaStream_t st) {
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_kernel<D>, a);
+  e = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_kernel<DQK, DV>, a);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int DQK, int DV>
 int run_f32(const Args& a, cudaStream_t st) {
   const int tiles = (a.S + kRows - 1) / kRows;
-  int err = launch(flash_bwd_dq_f32_kernel<D>, dim3(tiles, a.H, a.B),
-                   kThreads, dq_f32_smem<D>(), st, a);
+  int err = launch(flash_bwd_dq_f32_kernel<DQK, DV>, dim3(tiles, a.H, a.B),
+                   kThreads, dq_f32_smem<DQK, DV>(), st, a);
   if (err != 0) return err;
-  return launch(flash_bwd_dkdv_f32_kernel<D>, dim3(tiles, a.Kv, a.B),
-                kThreads, dkdv_f32_smem<D>(), st, a);
+  return launch(flash_bwd_dkdv_f32_kernel<DQK, DV>, dim3(tiles, a.Kv, a.B),
+                kThreads, dkdv_f32_smem<DQK, DV>(), st, a);
 }
 
 }  // namespace
 
-// q, o, do [B, S, H, dh] and k, v [B, S, Kv, dh], all bf16 (is_bf16 = 1)
-// or all f32, the head dim contiguous, rows 16-byte aligned; strides (in
-// elements) in the order q (b, s, h), k, v, o, do.  lse [B, H, S] f32 is
-// the forward's log-sum-exp.  dq [B, S, H, dh] and dk, dv [B, S, Kv, dh] are
-// contiguous in the same dtype; dsum is [B, H, S] f32 scratch.  dh is 64 or
-// 128; H % Kv == 0.  Returns -1 for a shape the kernels do not take, else
+// q [B, S, H, dh], k [B, S, Kv, dh], v [B, S, Kv, dv] and o, do
+// [B, S, H, dv], all bf16 (is_bf16 = 1) or all f32, the head dim
+// contiguous, rows 16-byte aligned; strides (in elements) in the order
+// q (b, s, h), k, v, o, do.  lse [B, H, S] f32 is the forward's
+// log-sum-exp.  dq [B, S, H, dh], dk [B, S, Kv, dh] and dv [B, S, Kv, dv]
+// are contiguous in the same dtype; dsum is [B, H, S] f32 scratch.
+// (dh, dv) is (64, 64), (128, 128) or (192, 128); the scale is dh^-0.5;
+// H % Kv == 0.  Returns -1 for a shape the kernels do not take, else
 // cudaGetLastError() after the launches (0 = both launched).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
     void* dsum, const long long* strides, int B, int S, int H, int Kv, int dh,
-    int is_bf16, int causal, int window, float softcap, void* stream) {
-  if (B < 1 || S < 1 || Kv < 1 || H % Kv != 0 || (dh != 64 && dh != 128) ||
-      window < 0 || H > 65535 || B > 65535)
+    int dv_width, int is_bf16, int causal, int window, float softcap,
+    void* stream) {
+  const int pair = dh == 64 && dv_width == 64     ? 0
+                   : dh == 128 && dv_width == 128 ? 1
+                   : dh == 192 && dv_width == 128 ? 2
+                                                  : -1;
+  if (B < 1 || S < 1 || Kv < 1 || H % Kv != 0 || pair < 0 || window < 0 ||
+      H > 65535 || B > 65535)
     return -1;
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.g = dout;
@@ -1057,6 +1099,11 @@ extern "C" int flash_attention_bwd_launch(
   a.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(dh)));
   a.softcap = softcap;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return dh == 64 ? run_bf16<64>(a, st) : run_bf16<128>(a, st);
-  return dh == 64 ? run_f32<64>(a, st) : run_f32<128>(a, st);
+  if (is_bf16)
+    return pair == 0   ? run_bf16<64, 64>(a, st)
+           : pair == 1 ? run_bf16<128, 128>(a, st)
+                       : run_bf16<192, 128>(a, st);
+  return pair == 0   ? run_f32<64, 64>(a, st)
+         : pair == 1 ? run_f32<128, 128>(a, st)
+                     : run_f32<192, 128>(a, st);
 }

@@ -42,10 +42,14 @@ implementations of one function, ``(q, k, v, o, do, lse) -> (dq, dk, dv)``:
   * ``flash_attention_bwd_plain`` — plain PyTorch with the gradient written
     out (not autograd), at the kernel's rounding points.
 
+The gradient takes v, o and do at v's own width, as the forward does:
+dq and dk come back at q's width and dv at v's.
+
 ``FlashAttention`` is the ``torch.autograd.Function`` over the pair: its
 forward runs ``flash_attention_cuda`` or ``flash_attention_plain`` with
 ``return_lse=True`` and its backward ``flash_attention_bwd_cuda`` or
-``flash_attention_bwd_plain``, each picked by the tensors' device.
+``flash_attention_bwd_plain``, each picked by the tensors' device, at any
+of the kernels' head-width pairs (MLA's 192 / 128 included).
 """
 from __future__ import annotations
 
@@ -59,10 +63,10 @@ NEG = -1e30
 BLOCK_K = 128                # keys per online-softmax step (kernel, plain)
 TILE = 128                   # the bf16 kernel's query and key tile
 PANEL = 64                   # bf16 columns of one 128-byte TMA box row
-# (q / k, v) head widths the forward kernel is built for, and the head
-# widths of the gradient kernel (dv = dh only)
+# (q / k, v) head widths the forward kernel is built for, and those of the
+# gradient kernel
 HEAD_PAIRS = ((64, 64), (128, 128), (192, 128))
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 DTYPES = (torch.bfloat16, torch.float32)
 
 launches = 0                 # kernel launches made by flash_attention_cuda
@@ -75,7 +79,7 @@ _SIGNATURES = {
                                _I),
 }
 _BWD_SIGNATURES = {
-    "flash_attention_bwd_launch": ([_P] * 11 + [_I] * 8
+    "flash_attention_bwd_launch": ([_P] * 11 + [_I] * 9
                                    + [ctypes.c_float, _P], _I),
 }
 
@@ -96,13 +100,6 @@ def _shapes(q, k, v):
         raise ValueError(f"flash_attention: {H} query heads are not a "
                          f"multiple of {Kv} kv heads")
     return B, S, H, Kv, dh, dv
-
-
-def _same_width(what: str, dh: int, dv: int) -> None:
-    """The gradient takes one head width for q, k and v."""
-    if dv != dh:
-        raise ValueError(f"{what}: v's head width {dv} differs from q's "
-                         f"{dh}; the gradient takes dv = dh only")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -274,9 +271,11 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               do: torch.Tensor, lse: torch.Tensor, *,
                               causal: bool = True, window: int = 0,
                               softcap: float = 0.0):
-    """The gradient of ``flash_attention_plain`` written out: q, o, do
-    [B, S, H, dh], k, v [B, S, Kv, dh] and the forward's lse [B, H, S] ->
-    (dq, dk, dv) in q's dtype.
+    """The gradient of ``flash_attention_plain`` written out: q [B, S, H,
+    dh], k [B, S, Kv, dh], v [B, S, Kv, dv], o and do [B, S, H, dv] and the
+    forward's lse [B, H, S] -> (dq, dk, dv) in q's dtype, dq and dk at
+    width dh and dv at width dv; the scale is ``dh ** -0.5``, as the
+    forward's.
 
     With ``s = softcap(q . k^T * scale)``, ``p = exp(s - lse)`` on the kept
     keys (0 elsewhere) and ``D = rowsum(do * o)``: ``dv = round(p)^T . do``
@@ -287,12 +286,11 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     and dv of kv head j sum over its G query heads.  Every product
     accumulates in f32 from the operands' own values."""
     B, S, H, Kv, dh, dv_ = _shapes(q, k, v)
-    _same_width("flash_attention_bwd_plain", dh, dv_)
     G = H // Kv
     scale = dh ** -0.5
     qf = q.float().reshape(B, S, Kv, G, dh)
     kf, vf = k.float(), v.float()
-    gf = do.float().reshape(B, S, Kv, G, dh)
+    gf = do.float().reshape(B, S, Kv, G, dv_)
     s = torch.einsum("bqkgd,btkd->bkgqt", qf, kf) * scale
     capfac = None
     if softcap:
@@ -322,23 +320,22 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              softcap: float = 0.0):
     """The hand-written gradient kernel (same contract as
     ``flash_attention_bwd_plain``): every tensor on one CUDA device, all
-    bf16 or all f32 (lse f32, contiguous), dh 64 or 128; dq, dk, dv come
-    back contiguous."""
+    bf16 or all f32 (lse f32, contiguous), (dh, dv) one of ``HEAD_DIMS``;
+    dq, dk, dv come back contiguous."""
     global bwd_launches
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_bwd_cuda needs CUDA tensors, got "
                          f"{dev}")
     B, S, H, Kv, dh, dv_ = _shapes(q, k, v)
-    _same_width("flash_attention_bwd", dh, dv_)
-    if q.dtype not in DTYPES or dh not in HEAD_DIMS:
+    if q.dtype not in DTYPES or (dh, dv_) not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: unsupported dtype {q.dtype} "
-                         f"or head dim {dh} (kernel takes {DTYPES}, "
-                         f"{HEAD_DIMS})")
+                         f"or head widths (q/k {dh}, v {dv_}) (kernel takes "
+                         f"{DTYPES}, {HEAD_DIMS})")
     for name, t in (("o", o), ("do", do)):
-        if tuple(t.shape) != tuple(q.shape):
+        if tuple(t.shape) != (B, S, H, dv_):
             raise ValueError(f"flash_attention_bwd: {name} "
-                             f"{tuple(t.shape)} != q {tuple(q.shape)}")
+                             f"{tuple(t.shape)} != {(B, S, H, dv_)}")
     if B * S * H * dh >= 2 ** 31 or int(window) < 0:
         raise ValueError(f"flash_attention_bwd: unsupported B={B} S={S} "
                          f"H={H} window={window}")
@@ -348,7 +345,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                     (B, H, S), dev)
     dq = torch.empty((B, S, H, dh), dtype=q.dtype, device=dev)
     dk = torch.empty((B, S, Kv, dh), dtype=q.dtype, device=dev)
-    dv = torch.empty_like(dk)
+    dv = torch.empty((B, S, Kv, dv_), dtype=q.dtype, device=dev)
     dsum = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 15)(*(s for t in (q, k, v, o, do)
                                          for s in t.stride()[:3]))
@@ -357,7 +354,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dsum.data_ptr(), strides, B, S, H, Kv, dh,
+            dv.data_ptr(), dsum.data_ptr(), strides, B, S, H, Kv, dh, dv_,
             int(q.dtype == torch.bfloat16), int(causal), int(window),
             float(softcap),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -373,17 +370,11 @@ class FlashAttention(torch.autograd.Function):
     """Flash attention with its gradient: forward and backward each run
     the hand-written kernel on CUDA tensors and the plain version on CPU
     tensors.  It saves q, k, v, o and the forward's lse (f32 [B, H, S]);
-    the backward forms p from the lse.  v's head width must equal q's on
-    either device: the gradient at another width (MLA's 192 / 128) is not
-    built yet."""
+    the backward forms p from the lse.  v may have its own head width (MLA's
+    192 / 128): dv comes back at it."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, softcap: float):
-        if v.shape[-1] != q.shape[-1]:
-            raise NotImplementedError(
-                f"the attention gradient at q / k {q.shape[-1]}, v "
-                f"{v.shape[-1]} (MLA training): not ported yet: ROADMAP.md "
-                f"section 2 item 4 lists it")
         kw = dict(causal=causal, window=window, softcap=softcap)
         fwd = (flash_attention_plain if q.device.type == "cpu"
                else flash_attention_cuda)

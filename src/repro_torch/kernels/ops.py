@@ -75,8 +75,9 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the card (dh, dv) is one of ``flash_attention.HEAD_PAIRS``.
 
     With grad enabled and an input that requires grad it goes through
-    ``FlashAttention``, whose backward is the gradient kernel (its plain
-    version on CPU tensors); otherwise it is the forward alone."""
+    ``FlashAttention``, whose backward is the gradient kernel at the same
+    (dh, dv) (its plain version on CPU tensors); otherwise it is the
+    forward alone."""
     kw = dict(causal=causal, window=window, softcap=softcap)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

@@ -1,6 +1,10 @@
-"""Training launcher for the port's captioner, on one device.
+"""Training launcher for any registered config of the port (the captioner,
+DeepSeek-V3 / V2 and their smoke cuts), on one device.
 
-Port of ``repro.launch.train``, with its flags and behaviour.
+Port of ``repro.launch.train``, with its flags and behaviour.  The
+initial parameters are drawn from a generator seeded 0 on the training
+device (the card draws a full-width model in well under a second; the
+numbers differ from the CPU's, as both differ from JAX's).
 Fault tolerance: checkpoints every ``--ckpt-every`` steps (atomic,
 manifest'd, in the reference's format, so a run either package started
 resumes under the other); on start it resumes from the latest complete
@@ -11,6 +15,8 @@ gradients to int8 with error feedback before the update.
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch semanticxr-captioner-110m --steps 200 --batch 8 --seq 256
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-v3-671b-smoke --steps 4 --batch 2 --seq 32 --device cpu
 
 It runs on the card unless ``--device cpu`` is given.
 """
@@ -59,7 +65,8 @@ def main(argv=None, *, device=None, on_step=None):
     ocfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
                              warmup_steps=min(50, args.steps // 4))
 
-    params = api.init(torch.Generator().manual_seed(0), device=dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
     ckpt_dir = Path(args.ckpt_dir) / cfg.name
     start = 0
     last = ckpt_mod.latest_step(ckpt_dir)

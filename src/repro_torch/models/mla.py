@@ -11,8 +11,13 @@ Decode is plain PyTorch, as the reference's is jnp, in two modes:
   * absorbed (``cfg.mla.absorb``): W_UK folded into the query and W_UV
     into the output, so the scores read the latent cache directly.
 
-Both follow the reference's rounding: f32 scores and softmax from the
-cache dtype (its ``preferred_element_type`` products, written here as f32
+Training runs the prefill branch with no cache under grad: its attention
+is then ``FlashAttention``, whose backward is the gradient kernel at the
+same (192, 128) widths, and the rope key that all heads share is an
+``expand``, so its gradient sums over the heads.
+
+Both decode modes follow the reference's rounding: f32 scores and softmax
+from the cache dtype (its ``preferred_element_type`` products, written here as f32
 products of the operands' own values), p rounded to the cache dtype
 before the value product.  As in ``models/attention.py``, the mixer
 writes the cache it is given IN PLACE and returns an ``MLACache`` over the

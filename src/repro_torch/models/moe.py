@@ -20,6 +20,16 @@ Where the frameworks part ways, the port follows the reference's rules:
   * the k contributions to a token are added in the model dtype in the
     order j = 0 .. k-1, as ``segment_sum`` adds them, with no
     ``index_add_`` (whose order on the card is not deterministic).
+
+Training differentiates this dispatch with autograd, as the reference
+differentiates its own with ``jax.grad``: x reaches the gradient through
+the scatter into the buffer and the gather out of it, the experts through
+the batched products, and the router through the renormalised top-k
+weights and the aux loss's mean probabilities (the top-1 counts are
+one-hot and carry none).  A dropped copy writes the padding row and reads
+zeros, so it carries no gradient; every other slot is written and read
+once, so the backward adds in a fixed order and two steps give the same
+bits on the card.
 """
 from __future__ import annotations
 
@@ -91,9 +101,11 @@ def _group_dispatch(xg: torch.Tensor, wg_: torch.Tensor, idxg: torch.Tensor,
     rank[order] = rank_sorted
     keep = rank < C
     slot = torch.where(keep, flat_e * C + rank, E * C)   # E*C = padding row
-    tok = torch.arange(Tg, device=dev).repeat_interleave(k)
+    # each token's k copies as an expand (not xg[tok]): its gradient sums
+    # the copies in a fixed order, where an indexed read's accumulates
+    # through an index_put_ that CUDA does not keep in order
     buf = torch.zeros((E * C + 1, d), dtype=xg.dtype, device=dev)
-    buf[slot] = xg[tok]
+    buf[slot] = xg[:, None].expand(Tg, k, d).reshape(Tk, d)
     buf = buf[:E * C].reshape(E, C, d)
 
     act = cm.act_fn(cfg.act)

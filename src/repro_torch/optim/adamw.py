@@ -103,15 +103,16 @@ def adamw_update(grads, opt: OptState, params, ocfg: AdamWConfig):
     mps, ps = dict(cm.leaves(opt.master)), dict(cm.leaves(p_tree))
     for path, g in cm.leaves(g_tree):
         m, v, mp = ms[path], vs[path], mps[path]
+        # each term as the reference forms it, written into m, v and mp as
+        # it is formed: at most three f32 temporaries of the leaf's size
         g = g.float() * scale
-        m_new = b1 * m + (1 - b1) * g
-        v_new = b2 * v + (1 - b2) * torch.square(g)
-        upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + ocfg.eps)
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * torch.square(g))
+        del g
+        upd = (m / bc1) / (torch.sqrt(v / bc2) + ocfg.eps)
         if _decay_mask(path):
             upd = upd + ocfg.weight_decay * mp
-        mp_new = mp - lr * upd
-        m.copy_(m_new)
-        v.copy_(v_new)
-        mp.copy_(mp_new)
-        ps[path].copy_(mp_new.to(ps[path].dtype))
+        mp.sub_(lr * upd)
+        del upd
+        ps[path].copy_(mp.to(ps[path].dtype))
     return params, opt._replace(step=step), {"grad_norm": gnorm, "lr": lr}

@@ -369,14 +369,19 @@ def test_flash_plain_takes_v_of_its_own_width(dtype, dqk, dv, causal, S):
 
 
 def test_flash_attention_autograd_refuses_another_v_width():
+    """v of another width is no longer refused under grad: at (48, 32)
+    ``ops.flash_attention_bshd`` runs its backward, dq and dk at q's width
+    and dv at v's, and the gradient kernel is built for MLA's (192, 128)."""
     q = torch.randn(1, 16, 2, 48, requires_grad=True)
-    k = torch.randn(1, 16, 2, 48)
-    v = torch.randn(1, 16, 2, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.flash_attention_bshd(q, k, v)
-    with pytest.raises(ValueError, match="dv = dh"):
-        tfa.flash_attention_bwd_plain(q, k, v, q, q, torch.zeros(1, 2, 16))
-    assert (192, 128) in tfa.HEAD_PAIRS and (48, 32) not in tfa.HEAD_PAIRS
+    k = torch.randn(1, 16, 2, 48, requires_grad=True)
+    v = torch.randn(1, 16, 2, 32, requires_grad=True)
+    out = ops.flash_attention_bshd(q, k, v)
+    assert out.shape == (1, 16, 2, 32)
+    dq, dk, dv = torch.autograd.grad(out.sum(), (q, k, v))
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    assert all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv))
+    assert (192, 128) in tfa.HEAD_PAIRS and (192, 128) in tfa.HEAD_DIMS
+    assert (48, 32) not in tfa.HEAD_PAIRS and (48, 32) not in tfa.HEAD_DIMS
 
 
 # ------------------------------------------------------------ whole models

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""A/B of the flash-attention forward kernel between two checkouts, on one
-GPU.
+"""A/B of the flash-attention kernels (forward and gradient) between two
+checkouts, on one GPU.
 
     python3 tools/flash_ab.py run --src DIR --out FILE
     python3 tools/flash_ab.py compare A B [C ...]
@@ -10,9 +10,12 @@ builds its kernel, calls ``flash_attention_cuda`` (with and without
 ``return_lse``) on fixed seeded inputs at the head widths every checkout
 since the lse was added takes, (64, 64) and (128, 128): the captioner's
 prefill and training shapes, ragged S, window, softcap, non-causal, MQA,
-bf16 and f32; and times the captioner's prefill call and a dh = 128 call
-with a cold L2 (``chip_smoke.Clock``).  It saves the outputs and times to
-``FILE`` (``torch.save``).  ``compare`` prints, for each file after the
+bf16 and f32; then ``flash_attention_bwd_cuda`` on the forward's output
+and lse at the same two pairs (``GRAD_CASES``: the captioner's training
+shape, ragged S, window, softcap, non-causal, G = 1, S = 1024); and times
+the captioner's prefill call, a dh = 128 call and the captioner's training
+gradient with a cold L2 (``chip_smoke.Clock``).  It saves the outputs and
+times to ``FILE`` (``torch.save``).  ``compare`` prints, for each file after the
 first, whether every output has the first file's bits, and every file's
 times: run the two checkouts in turns (A, B, B, A) in one call, so the
 times share a card.  It exits non-zero when the bits differ.
@@ -39,6 +42,19 @@ CASES = ((8, 1024, 12, 4, 64, "bf16", True, 0, 0.0),
          (1, 2048, 4, 2, 128, "bf16", False, 0, 0.0),
          (1, 200, 2, 2, 64, "f32", False, 0, 0.0))
 TIMED = ((0, True), (9, False))          # (case, causal) timed cold
+# the gradient at (64, 64) and (128, 128): chip_smoke.py step 15's shapes
+GRAD_CASES = ((8, 256, 12, 4, 64, "bf16", True, 0, 0.0),
+              (8, 256, 12, 4, 64, "f32", True, 0, 0.0),
+              (2, 200, 12, 4, 64, "bf16", True, 0, 0.0),
+              (2, 129, 12, 4, 64, "f32", True, 0, 0.0),
+              (1, 256, 4, 4, 64, "bf16", True, 32, 0.0),
+              (1, 256, 4, 2, 64, "f32", True, 0, 30.0),
+              (2, 200, 4, 4, 64, "bf16", False, 0, 0.0),
+              (2, 129, 4, 4, 128, "f32", False, 0, 0.0),
+              (1, 1024, 12, 4, 128, "bf16", True, 0, 0.0),
+              (1, 1024, 4, 4, 64, "f32", True, 32, 30.0),
+              (2, 333, 12, 4, 128, "bf16", True, 100, 30.0))
+GRAD_TIMED = 0                           # the captioner's training shape
 
 
 def run(src: str, out: str) -> None:
@@ -59,8 +75,26 @@ def run(src: str, out: str) -> None:
         o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
         outputs.append((o.cpu(), lse.cpu(),
                         fa.flash_attention_cuda(q, k, v, **kw).cpu()))
+    grads = []
+    for i, (B, S, H, Kv, dh, dt, causal, window, cap) in enumerate(
+            GRAD_CASES):
+        q, k, v = cs.attn_inputs(torch, B, S, H, Kv, dh, dts[dt], 100 + i,
+                                 dev)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        g = torch.Generator(device=dev).manual_seed(200 + i)
+        do = torch.randn(o.shape, generator=g, device=dev).to(dts[dt])
+        grads.append(tuple(t.cpu() for t in fa.flash_attention_bwd_cuda(
+            q, k, v, o, do, lse, **kw)))
+        if i == GRAD_TIMED:
+            timed_grad = (q, k, v, o, do, lse, kw)
+    outputs.extend(grads)
     clock = cs.Clock(torch)
     times = {}
+    B, S, H, Kv, dh, dt = GRAD_CASES[GRAD_TIMED][:6]
+    times[f"gradient B={B} S={S} H={H} Kv={Kv} dh={dh} {dt} causal"] = \
+        clock.ms(lambda: fa.flash_attention_bwd_cuda(*timed_grad[:6],
+                                                     **timed_grad[6]))
     for i, causal in TIMED:
         B, S, H, Kv, dh, dt = CASES[i][:6]
         q, k, v = cs.attn_inputs(torch, B, S, H, Kv, dh, dts[dt], i, dev)
