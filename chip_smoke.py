@@ -193,6 +193,37 @@
     grad norm and masters within TRAIN_REPLAY_TOL; (d)
     ``deepseek_kill_resume``: that width in bf16, ``--kill-at 3`` of 6
     with checkpoints every 2 exits 42, restores bit-equal and resumes.
+19. The dense grouped-query-attention configs: (a)
+    ``dense_attention_checks``: the flash kernel at h2o-danube-3's head,
+    (dh, dv) = (120, 120), against its plain version at h2o's prefill
+    shape (2, 5000, 32, 8, window 4096), S = 17 and 129, window 1,
+    softcap 50, MQA and a non-causal S = 200, and the (128, 128) instance
+    at gemma2-27b's prefill shape (2, 5000, 32, 16, window 4096, softcap
+    50: the window's lower tile bound past 0 over many tiles), bf16 and
+    f32, within ATTN_TOL, the same bits twice; both prefill shapes timed
+    (cold L2) beside their bounds (operations, the masks counted), the
+    plain version's and SDPA's (``enable_gqa``, the window as a mask), and
+    the (128, 128) instance at h2o's (B, S, H, Kv); (b)
+    ``dense_serve_phase``: ``gemma2-27b`` at full width and depth (46
+    layers, 54.45 GB of bf16 weights seeded on the card; the peak reckoned
+    first, ``dense_cuts``), 2 prompts of 5000 tokens prefilled twice (past
+    the 4096 window: the ring's roll shift is 904), then 32 greedy steps
+    (the ring wraps from the first): prefill and decode ms, tokens/s, peak
+    bytes at init and serving beside the reckoning, 46 flash launches a
+    prefill and none decoding, every logit finite, a profiler window
+    (``dense_profile``); (c) ``h2o-danube-3-4b`` at full width and depth,
+    the same prompts and steps, with a bf16 cache (24 launches of the
+    (120, 120) instance a prefill) and an int8 cache fed the bf16 arm's
+    tokens, its logits within 5 % of the bf16 arm's largest at every step
+    (``tests/test_arch_smoke.py``'s bound); (d) ``yi-9b`` and
+    ``minitron-4b`` at full width and depth: 4 prompts of 1024 tokens and
+    16 greedy steps, 48 and 32 launches a prefill; (e)
+    ``dense_replay_phase``: gemma2 and h2o cut to d_model 1024, 8 / 4
+    heads, 4 layers, window 256, vocab 4096, in f32, a 300-token prompt
+    and 24 greedy steps (the ring wraps), card vs CPU port (equal tokens,
+    logits within 1e-4 of the largest), and every decode step's logits
+    against one prefill over the whole sequence so far on the card: the
+    ring cache held to the window mask.
 
 ``nearest_dist`` has no caller on any system path: its phase drives its
 entry point, ``ops.nearest_dist``, at a chamfer and a centroid shape.
@@ -395,6 +426,47 @@ DEEPSEEK_TRAIN = dict(arch="deepseek-v3-671b", name="deepseek-v3-671b-train-cut"
                       batch=2, seq=512)
 DEEPSEEK_TRAIN_REPLAY = dict(batch=1, seq=256, steps=3)
 DEEPSEEK_KILL = dict(steps=6, ckpt_every=2, kill_at=3, batch=1, seq=128)
+# step 19: the dense GQA configs.  (a) the flash kernel's (120, 120)
+# instance (h2o-danube-3's head) and (128, 128) at every prefill shape of
+# the four configs: (B, S, H, Kv, dh, causal, window, softcap), each in
+# bf16 and f32; DENSE_TIMED are timed.  (b)-(d) the four configs at full
+# width and depth, serving; a reckoned peak past DENSE_PEAK_LIMIT cuts
+# gemma2's depth (by periods: the SWA / GLOBAL alternation stays).  (e)
+# f32 cuts of gemma2 and h2o, card vs CPU port and decode vs whole-sequence
+# prefill.
+DENSE_ATTN_CASES = ((2, 5000, 32, 8, 120, True, 4096, 0.0),     # h2o
+                    (1, 17, 4, 2, 120, True, 0, 0.0),
+                    (1, 129, 4, 2, 120, True, 0, 0.0),
+                    (1, 300, 4, 4, 120, True, 1, 0.0),
+                    (1, 200, 4, 2, 120, True, 64, 50.0),
+                    (2, 1024, 8, 1, 120, True, 0, 0.0),
+                    (2, 200, 4, 2, 120, False, 0, 0.0),
+                    (2, 5000, 32, 16, 128, True, 4096, 50.0),   # gemma2 SWA
+                    (2, 5000, 32, 16, 128, True, 0, 50.0),      # gemma2 GLOBAL
+                    (4, 1024, 32, 4, 128, True, 0, 0.0),        # yi-9b
+                    (4, 1024, 24, 8, 128, True, 0, 0.0))        # minitron-4b
+DENSE_TIMED = (0, 7)
+# step 19a's bf16 limit, (atol, rtol): |got - want| <= 8e-3 + 2^-7 |want|.
+# 2^-7 |want| is one bf16 ulp of the output (its last rounding); 8e-3 is
+# about twice the largest error the kernel showed at S = 5000 (0.0039, p
+# rounded to bf16 before P . V in another tile order).  ATTN_TOL's bf16
+# limit is about as large as a typical output there (~0.03 for randn
+# inputs over 4096 keys), so a kernel that dropped the window's first key
+# tile could pass it; at each windowed shape the script builds that
+# kernel's output and checks that this limit rejects it.
+DENSE_BF16_TOL = (8e-3, 2 ** -7)
+DENSE_PEAK_LIMIT = 70e9
+DENSE_SERVE = (("gemma2-27b", dict(batch=2, prompt=5000, new_tokens=32,
+                                   profile=True)),
+               ("h2o-danube-3-4b", dict(batch=2, prompt=5000, new_tokens=32,
+                                        int8_arm=True)),
+               ("yi-9b", dict(batch=4, prompt=1024, new_tokens=16)),
+               ("minitron-4b", dict(batch=4, prompt=1024, new_tokens=16)))
+INT8_BOUND = 0.05        # max |int8 - bf16| / max |bf16| (the reference's)
+DENSE_REPLAY = dict(d_model=1024, n_heads=8, n_kv_heads=4, d_ff=2048,
+                    n_layers=4, sliding_window=256, vocab_size=4096,
+                    batch=1, prompt=300, new_tokens=24)
+DENSE_REPLAY_TOL = 1e-4  # f32 logits: max |diff| / max |logit|
 
 
 def check(cond, what: str) -> None:
@@ -740,12 +812,73 @@ def attn_cost(q, k, causal, window, elt, dv=None):
             2 * (dh + dv) * B * H * int(keep.sum()))
 
 
-def attn_close(got, want, dtype):
-    """(max abs error, within ATTN_TOL as rtol = atol)."""
-    tol = ATTN_TOL[str(dtype).split(".")[-1]]
+def attn_close(got, want, dtype, tol=None):
+    """(max abs error, within ``tol`` = (atol, rtol); by default ATTN_TOL's
+    as both)."""
+    if tol is None:
+        tol = (ATTN_TOL[str(dtype).split(".")[-1]],) * 2
     err = (got.float() - want.float()).abs()
     return float(err.max()), bool(
-        (err <= tol + tol * want.float().abs()).all())
+        (err <= tol[0] + tol[1] * want.float().abs()).all())
+
+
+def attn_time(torch, clock, q, k, v, kw, err, plain_as_called=False):
+    """The time row of one bf16 attention call: cold-L2 ms of
+    ``flash_attention_cuda`` beside its bound (operations and bytes, the
+    masks counted, v of its own width), the plain version's
+    (``plain_as_called``: timed as called, where its key steps keep the
+    host from queueing ahead of the card) and SDPA's on the same inputs
+    (``enable_gqa`` where H != Kv, a window as a boolean mask).  SDPA has
+    no logit softcap: under one it computes another function, so
+    ``library_ms`` is null and its time is kept as
+    ``library_without_softcap_ms``; where no SDPA backend takes the pair,
+    null with the reason."""
+    from repro_torch.kernels import flash_attention as fa
+    F = torch.nn.functional
+
+    B, S, H, dh = q.shape
+    Kv, dv = k.shape[2], v.shape[-1]
+    causal, window, cap = kw["causal"], kw["window"], kw["softcap"]
+    nbytes, flops = attn_cost(q, k, causal, window, q.element_size(), dv=dv)
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    sdpa_kw = dict(enable_gqa=True) if H != Kv else {}
+    if window:
+        pos = torch.arange(S, device=q.device)
+        keep = pos[:, None] - pos[None, :] < window
+        if causal:
+            keep &= pos[None, :] <= pos[:, None]
+        sdpa_kw["attn_mask"] = keep
+    else:
+        sdpa_kw["is_causal"] = causal
+    sdpa = [t.transpose(1, 2) for t in (q, k, v)]
+    try:
+        lib_ms = clock.ms(lambda: F.scaled_dot_product_attention(*sdpa,
+                                                                 **sdpa_kw))
+        lib = ("torch.nn.functional.scaled_dot_product_attention("
+               + ", ".join(sorted(sdpa_kw)) + ")")
+    except RuntimeError as e:     # no SDPA backend takes this pair
+        lib_ms, lib = None, f"SDPA refused dv != dqk: {e}"[:300]
+
+    def plain():
+        return fa.flash_attention_plain(q, k, v, **kw)
+    row = {"ms": clock.ms(lambda: fa.flash_attention_cuda(q, k, v, **kw)),
+           "plain_ms": (clock.call_ms(plain, 10) if plain_as_called
+                        else clock.ms(plain)),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": None if cap else lib_ms, "library": lib,
+           "max_abs_err": err, "flops": flops, "bytes": nbytes,
+           "shape": f"B={B} S={S} H={H} Kv={Kv} dqk={dh} dv={dv} bf16 "
+                    f"causal={causal} window={window} softcap={cap}"}
+    if plain_as_called:
+        row["plain_timed"] = "call"
+    if cap and lib_ms is not None:
+        row["library_without_softcap_ms"] = lib_ms
+    row["tflops"] = flops / row["ms"] / 1e9
+    if row["library_ms"] is not None:
+        row["library_tflops"] = flops / row["library_ms"] / 1e9
+    return row
 
 
 def attention_checks(torch, clock, dev):
@@ -792,24 +925,7 @@ def attention_checks(torch, clock, dev):
               f"flash_attention err {err} at {tag}")
         emit("flash_attention_check", {**tag, "max_abs_err": err})
         if i == 0:
-            nbytes, flops = attn_cost(q, k, causal, window, 2)
-            t_ops = flops / BF16_FLOP_PER_S * 1e3
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            sdpa = [t.transpose(1, 2) for t in (q, k, v)]
-            row = {
-                "ms": clock.ms(lambda: fa.flash_attention_cuda(q, k, v,
-                                                               **kw)),
-                "plain_ms": clock.ms(lambda: fa.flash_attention_plain(
-                    q, k, v, **kw)),
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": clock.ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        *sdpa, is_causal=True, enable_gqa=True)),
-                "max_abs_err": err, "flops": flops, "bytes": nbytes,
-                "shape": f"B={B} S={S} H={H} Kv={Kv} dh={dh} bf16 causal"}
-            row["tflops"] = flops / row["ms"] / 1e9
-            row["library_tflops"] = flops / row["library_ms"] / 1e9
+            row = attn_time(torch, clock, q, k, v, kw, err)
             emit("flash_attention_time", row)
     return row
 
@@ -1237,22 +1353,7 @@ def serve_phase(torch, dev, cfg, *, batch, prompt, new_tokens, reps):
     check(int(caches[0].length) == prompt + new_tokens, "cache length")
     check(counts["flash_attention"] > 0,
           "flash_attention launched on the serving path")
-    # where the time goes: one prefill, then PROFILE_DECODE decode steps,
-    # each under the profiler (after the checks: these launches are extra)
-    state = {}
-
-    def prefill_once():
-        state["logits"], state["caches"] = api.prefill(
-            model, {"tokens": tokens}, caches)
-
-    def decode_steps():
-        tok = greedy_token(state["logits"])
-        for i in range(PROFILE_DECODE):
-            logits, _ = api.decode(model, tok, state["caches"], prompt + i)
-            tok = greedy_token(logits)
-
-    prof = {"prefill": profiled(torch, prefill_once),
-            f"decode_{PROFILE_DECODE}_steps": profiled(torch, decode_steps)}
+    prof = serve_profile(torch, api, model, tokens, caches)
     pre = prof["prefill"]
     flash_ms = sum(r["ms"] for r in pre["top_kernels"] if "flash" in r["name"])
     check(flash_ms > 0, "flash_attention among the prefill's top kernels")
@@ -1281,12 +1382,37 @@ def serve_phase(torch, dev, cfg, *, batch, prompt, new_tokens, reps):
 
 
 # ------------------------------------------------------------------ step 8
+def replay_run(torch, api, model, prompt_np, new_tokens, device):
+    """The replays' loop: the launch counters reset, ``prompt_np`` [B, S]
+    prefilled into fresh caches on ``device``, then ``new_tokens`` greedy
+    steps.  Returns (the greedy tokens [B, new_tokens + 1], the logits of
+    the prefill and every step [new_tokens + 1, B, V] on the CPU, the
+    prefill's flash launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import greedy_token
+
+    batch, prompt = prompt_np.shape
+    caches = api.init_cache(batch, prompt + new_tokens, device=device)
+    ops.reset_launch_counts()
+    logits, caches = api.prefill(
+        model, {"tokens": torch.from_numpy(prompt_np).to(device)}, caches)
+    flash = ops.launch_counts()["flash_attention"]
+    toks, all_logits = [], [logits.cpu()]
+    tok = greedy_token(logits)
+    for i in range(new_tokens):
+        toks.append(tok.cpu())
+        logits, caches = api.decode(model, tok, caches, prompt + i)
+        all_logits.append(logits.cpu())
+        tok = greedy_token(logits)
+    toks.append(tok.cpu())
+    return torch.cat(toks, dim=1), torch.stack(all_logits), flash
+
+
 def replay_phase(torch, dev, cfg, *, batch, prompt, new_tokens):
     """Step 7's weights in f32 (the same seeded draw, not rounded to bf16)
     on the card and on the CPU port: greedy tokens equal, logits close."""
     from repro_torch.data.tokens import batch_iterator
     from repro_torch.models.api import model_api
-    from repro_torch.models.lm import greedy_token
 
     api = model_api(cfg.replace(dtype=torch.float32))
     prompt_np = next(batch_iterator(batch, prompt, seed=1,
@@ -1294,18 +1420,8 @@ def replay_phase(torch, dev, cfg, *, batch, prompt, new_tokens):
 
     def run(device):
         model = api.init(torch.Generator().manual_seed(0), device=device)
-        caches = api.init_cache(batch, prompt + new_tokens, device=device)
-        logits, caches = api.prefill(
-            model, {"tokens": torch.from_numpy(prompt_np).to(device)}, caches)
-        toks, all_logits = [], [logits.cpu()]
-        tok = greedy_token(logits)
-        for i in range(new_tokens):
-            toks.append(tok.cpu())
-            logits, caches = api.decode(model, tok, caches, prompt + i)
-            all_logits.append(logits.cpu())
-            tok = greedy_token(logits)
-        toks.append(tok.cpu())
-        return torch.cat(toks, dim=1), torch.stack(all_logits)
+        return replay_run(torch, api, model, prompt_np, new_tokens,
+                          device)[:2]
 
     t0 = time.perf_counter()
     gtok, glog = run(dev)
@@ -3201,26 +3317,135 @@ def mla_attention_checks(torch, clock, dev):
     q, k, v = mla_inputs(torch, B, S, H, bf, 7, dev)
     err, _ = attn_close(fa.flash_attention_cuda(q, k, v),
                         fa.flash_attention_plain(q, k, v), bf)
-    nbytes, flops = attn_cost(q, k, True, 0, 2, dv=MLA_HEADS[1])
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    sdpa = [t.transpose(1, 2) for t in (q, k, v)]
-    try:
-        lib_ms = clock.ms(lambda: torch.nn.functional.
-                          scaled_dot_product_attention(*sdpa, is_causal=True))
-        lib_note = "torch.nn.functional.scaled_dot_product_attention"
-    except RuntimeError as e:     # no SDPA backend takes this pair
-        lib_ms, lib_note = None, f"SDPA refused dv != dqk: {e}"[:300]
-    row = {"ms": clock.ms(lambda: fa.flash_attention_cuda(q, k, v)),
-           "plain_ms": clock.ms(lambda: fa.flash_attention_plain(q, k, v)),
-           "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "library_ms": lib_ms, "library": lib_note,
-           "max_abs_err": err, "flops": flops, "bytes": nbytes,
-           "shape": f"B={B} S={S} H={H} dqk=192 dv=128 bf16 causal"}
-    row["tflops"] = flops / row["ms"] / 1e9
+    row = attn_time(torch, clock, q, k, v,
+                    dict(causal=True, window=0, softcap=0.0), err)
     emit("mla_attention_time", row)
     return row
+
+
+def card_model(torch, dev, cfg) -> tuple:
+    """``cfg``'s model drawn on the card from a seeded CUDA generator, and
+    what drawing it cost: (model, {allocated_before_bytes, init_s_host,
+    init_peak_bytes, params, weights_bytes})."""
+    import gc
+
+    from repro_torch.models.api import model_api
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = model_api(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                device=dev)
+    torch.cuda.synchronize()
+    return model, {
+        "allocated_before_bytes": before,
+        "init_s_host": time.perf_counter() - t0,
+        "init_peak_bytes": torch.cuda.max_memory_allocated(),
+        "params": sum(p.numel() for p in model.parameters()),
+        "weights_bytes": sum(p.numel() * p.element_size()
+                             for p in model.parameters())}
+
+
+def serve_run(torch, api, model, tokens, new_tokens, forced=None,
+              spy=None):
+    """The serving loop of steps 17 and 19: counters reset, two prefills of
+    ``tokens`` into fresh caches, then ``new_tokens`` greedy steps (or the
+    tokens of ``forced`` [B, steps + 1] fed instead), the counters read;
+    ``spy`` (a context such as MoESpy) open around the passes.  Returns
+    (metrics, the tokens fed [B, new_tokens + 1], the logits of the
+    prefill and every step, the caches)."""
+    import contextlib
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import greedy_token
+
+    batch, prompt = tokens.shape
+    caches = api.init_cache(batch, prompt + new_tokens, device=tokens.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    pre_ms, per_prefill, dec_ms, pre_logits = [], [], [], []
+    with spy or contextlib.nullcontext():
+        for _ in range(2):
+            n0 = ops.launch_counts()["flash_attention"]
+            t0 = time.perf_counter()
+            logits, caches = api.prefill(model, {"tokens": tokens}, caches)
+            torch.cuda.synchronize()
+            pre_ms.append((time.perf_counter() - t0) * 1e3)
+            per_prefill.append(ops.launch_counts()["flash_attention"] - n0)
+            pre_logits.append(logits.float())
+        n1 = ops.launch_counts()["flash_attention"]
+        all_logits = [pre_logits[-1]]
+        tok = greedy_token(logits) if forced is None else forced[:, :1]
+        toks = [tok]
+        for i in range(new_tokens):
+            t0 = time.perf_counter()
+            logits, caches = api.decode(model, tok, caches, prompt + i)
+            tok = (greedy_token(logits) if forced is None
+                   else forced[:, i + 1:i + 2])
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+            all_logits.append(logits.float())
+            toks.append(tok)
+    launches = ops.launch_counts()
+    dec = float(np.percentile(dec_ms, 50))
+    metrics = {
+        "prefill_ms": pre_ms,
+        "prefill_tokens_per_s": batch * prompt / pre_ms[-1] * 1e3,
+        "decode_ms_per_step_p50": dec,
+        "decode_ms_per_step_p95": float(np.percentile(dec_ms, 95)),
+        "generated_tokens_per_s": batch / dec * 1e3,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "flash_launches_per_prefill": per_prefill,
+        "flash_launches_decoding": launches["flash_attention"] - n1,
+        "launches": launches,
+        "logits_finite": all(bool(torch.isfinite(x).all())
+                             for x in all_logits),
+        "prefill_logits_same_bits_twice": same_bits(torch, pre_logits[:1],
+                                                    pre_logits[1:]),
+        "cache_length": int(caches[0].length),
+        "first_tokens": torch.cat(toks, dim=1)[0, :8].tolist()}
+    return metrics, torch.cat(toks, dim=1), all_logits, caches
+
+
+def check_served(name: str, m: dict, n_layers: int, max_len: int) -> None:
+    """A serve_run's checks: one flash launch a layer a prefill and none
+    decoding, every logit finite, the two prefills the same bits, the
+    cache's length."""
+    check(m["flash_launches_per_prefill"] == [n_layers] * 2,
+          f"{name}: {n_layers} flash launches a prefill: "
+          f"{m['flash_launches_per_prefill']}")
+    check(m["flash_launches_decoding"] == 0,
+          f"{name}: no flash launch decoding: {m['flash_launches_decoding']}")
+    check(m["logits_finite"], f"{name}: every logit finite")
+    check(m["prefill_logits_same_bits_twice"],
+          f"{name}: the prefill's logits the same bits twice")
+    check(m["cache_length"] == max_len, f"{name}: cache length")
+
+
+def serve_profile(torch, api, model, tokens, caches, kernels=()) -> dict:
+    """Where the time goes, after a run's counts are read (these launches
+    are extra): one prefill of ``tokens`` into ``caches``, then
+    PROFILE_DECODE greedy steps, each under the profiler."""
+    from repro_torch.models.lm import greedy_token
+
+    prompt = tokens.shape[1]
+    state = {}
+
+    def prefill_once():
+        state["logits"], state["caches"] = api.prefill(
+            model, {"tokens": tokens}, caches)
+
+    def decode_steps():
+        tok = greedy_token(state["logits"])
+        for i in range(PROFILE_DECODE):
+            logits, _ = api.decode(model, tok, state["caches"], prompt + i)
+            tok = greedy_token(logits)
+
+    return {"prefill": profiled(torch, prefill_once, kernels),
+            f"decode_{PROFILE_DECODE}_steps": profiled(torch, decode_steps)}
 
 
 class MoESpy:
@@ -3257,16 +3482,15 @@ def deepseek_serve_phase(torch, dev, *, arch, n_layers, batch, prompt,
     """(b) ``deepseek-v3-671b`` at full width, ``n_layers`` deep, bf16,
     weights seeded on the card: ``batch`` prompts of ``prompt`` tokens
     (prefilled twice), then ``new_tokens`` greedy steps, once with naive
-    and once with absorbed MLA decode, through model_api's entry points.
-    Counters reset just before each mode and read just after: one flash
-    launch per MLA layer per prefill, none while decoding."""
+    and once with absorbed MLA decode, through model_api's entry points
+    (serve_run).  Counters reset just before each mode and read just
+    after: one flash launch per MLA layer per prefill, none while
+    decoding."""
     import gc
 
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models import moe
     from repro_torch.models.api import model_api
-    from repro_torch.models.lm import greedy_token
 
     full = get_config(arch)
     cfg = full.replace(n_layers=n_layers)
@@ -3279,91 +3503,30 @@ def deepseek_serve_phase(torch, dev, *, arch, n_layers, batch, prompt,
                   "18432 -> 2048, experts 256 -> 16 (top-8 kept), "
                   "d_ff_expert 2048 -> 256, vocab 129280 -> 4096, depth 61 "
                   "-> 4; MLA ranks and head widths as published, f32"})
-    gc.collect()
-    torch.cuda.empty_cache()
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = model_api(cfg).init(torch.Generator(device=dev).manual_seed(0),
-                                device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    init_peak = torch.cuda.max_memory_allocated()
+    model, init = card_model(torch, dev, cfg)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (batch, prompt)).astype(np.int32)).to(dev)
     E = cfg.moe.n_experts
+    n_moe = n_layers - cfg.n_dense_prefix
     out = {"config": cfg.name, "n_layers": n_layers, "batch": batch,
-           "prompt": prompt, "new_tokens": new_tokens,
-           "params": sum(p.numel() for p in model.parameters()),
-           "weights_bytes": sum(p.numel() * p.element_size()
-                                for p in model.parameters()),
-           "allocated_before_bytes": before, "init_s_host": init_s,
-           "init_peak_bytes": init_peak, "modes": {}}
+           "prompt": prompt, "new_tokens": new_tokens, **init, "modes": {}}
     gen = {}
     for mode, absorb in (("naive", False), ("absorbed", True)):
         api = model_api(cfg.replace(mla=dataclasses.replace(
             cfg.mla, absorb=absorb)))
-        caches = api.init_cache(batch, prompt + new_tokens, device=dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        pre_ms, per_prefill, dec_ms, finite = [], [], [], True
-        pre_logits = []
-        with MoESpy() as spy:
-            for _ in range(2):
-                n0 = ops.launch_counts()["flash_attention"]
-                t0 = time.perf_counter()
-                logits, caches = api.prefill(model, {"tokens": tokens},
-                                             caches)
-                torch.cuda.synchronize()
-                pre_ms.append((time.perf_counter() - t0) * 1e3)
-                per_prefill.append(ops.launch_counts()["flash_attention"]
-                                   - n0)
-                finite &= bool(torch.isfinite(logits).all())
-                pre_logits.append(logits.float())
-            n1 = ops.launch_counts()["flash_attention"]
-            tok = greedy_token(logits)
-            toks = [tok]
-            for i in range(new_tokens):
-                t0 = time.perf_counter()
-                logits, caches = api.decode(model, tok, caches, prompt + i)
-                tok = greedy_token(logits)
-                torch.cuda.synchronize()
-                dec_ms.append((time.perf_counter() - t0) * 1e3)
-                finite &= bool(torch.isfinite(logits).all())
-                toks.append(tok)
-            per_decode = ops.launch_counts()["flash_attention"] - n1
-        peak = torch.cuda.max_memory_allocated()
-        n_moe = n_layers - cfg.n_dense_prefix
-        check(per_prefill == [n_layers] * 2,
-              f"{n_layers} flash_attention launches per prefill ({mode}): "
-              f"{per_prefill}")
-        check(per_decode == 0, f"no flash_attention launch while decoding "
-              f"({mode}): {per_decode}")
-        check(finite, f"every DeepSeek logit finite ({mode})")
+        spy = MoESpy()
+        m, toks, _, caches = serve_run(torch, api, model, tokens, new_tokens,
+                                       spy=spy)
         # the MoE adds a token's k contributions in a fixed order (no
         # index_add_): the same prompt gives the same bits twice
-        same = same_bits(torch, pre_logits[:1], pre_logits[1:])
-        check(same, f"DeepSeek prefill logits the same bits twice ({mode})")
+        check_served(f"DeepSeek ({mode})", m, n_layers, prompt + new_tokens)
         check(len(spy.ids) == n_moe * (2 + new_tokens),
               f"one MoE call per MoE layer and pass ({mode})")
-        check(int(caches[0].length) == prompt + new_tokens,
-              f"MLA cache length ({mode})")
         load = torch.bincount(spy.ids[-1 - new_tokens].flatten(),
                               minlength=E).cpu()
-        gen[mode] = torch.cat(toks, dim=1).cpu()
-        dec = float(np.percentile(dec_ms, 50))
+        gen[mode] = toks.cpu()
         out["modes"][mode] = {
-            "prefill_ms": pre_ms, "prefill_tokens_per_s":
-                batch * prompt / pre_ms[-1] * 1e3,
-            "decode_ms_per_step_p50": dec,
-            "decode_ms_per_step_p95": float(np.percentile(dec_ms, 95)),
-            "generated_tokens_per_s": batch / dec * 1e3,
-            "max_memory_allocated_bytes": peak,
-            "flash_launches_per_prefill": per_prefill,
-            "flash_launches_decoding": per_decode,
-            "prefill_logits_same_bits_twice": same,
-            "launches": ops.launch_counts(),
+            **m,
             "moe_dropped_frac_prefill": float(
                 spy.stats[-1 - new_tokens].dropped_frac),
             "moe_dropped_frac_decode_max": max(
@@ -3372,32 +3535,15 @@ def deepseek_serve_phase(torch, dev, *, arch, n_layers, batch, prompt,
                 "min": int(load.min()), "max": int(load.max()),
                 "mean": float(load.float().mean()),
                 "idle_experts": int((load == 0).sum()),
-                "capacity": moe.expert_capacity(batch * prompt, cfg)},
-            "first_tokens": gen[mode][0, :8].tolist()}
-        # where the time goes (after the counts: these launches are
-        # extra): the prefill once, PROFILE_DECODE decode steps per mode
-        state = {}
-
-        def prefill_once():
-            state["logits"], state["caches"] = api.prefill(
-                model, {"tokens": tokens}, caches)
-
-        def decode_steps():
-            tok = greedy_token(state["logits"])
-            for i in range(PROFILE_DECODE):
-                logits, _ = api.decode(model, tok, state["caches"],
-                                       prompt + i)
-                tok = greedy_token(logits)
-
+                "capacity": moe.expert_capacity(batch * prompt, cfg)}}
         flash = ("flash_wgmma_kernel<192",)
-        prof = {"prefill": profiled(torch, prefill_once, flash),
-                f"decode_{PROFILE_DECODE}_steps": profiled(torch,
-                                                           decode_steps)}
+        prof = serve_profile(torch, api, model, tokens, caches, flash)
         if mode == "naive":
             check(prof["prefill"]["kernel_ms"][flash[0]] > 0,
                   "flash_wgmma_kernel<192, 128> ran in the profiled prefill")
         out["modes"][mode]["profile"] = prof
         emit("deepseek_profile", {"mode": mode, **prof})
+        del caches
     out["greedy_agreement_naive_vs_absorbed"] = float(
         (gen["naive"] == gen["absorbed"]).float().mean())
     out["flash_launches"] = out["modes"]["absorbed"]["launches"][
@@ -3417,9 +3563,7 @@ def deepseek_replay_phase(torch, dev, *, arch, n_layers, d_model, n_heads,
     MoE call, logits within DEEPSEEK_REPLAY_TOL of the largest, equal
     greedy tokens, and 4 flash launches (the f32 (192, 128) instance) per
     prefill on the card."""
-    from repro_torch.kernels import ops
     from repro_torch.models.api import model_api
-    from repro_torch.models.lm import greedy_token
 
     cfg = deepseek_replay_cut(
         torch, torch.float32, arch=arch, n_layers=n_layers, d_model=d_model,
@@ -3434,24 +3578,10 @@ def deepseek_replay_phase(torch, dev, *, arch, n_layers, d_model, n_heads,
     def run(device, absorb):
         api = model_api(cfg.replace(mla=dataclasses.replace(
             cfg.mla, absorb=absorb)))
-        model = models[device]
-        caches = api.init_cache(batch, prompt + new_tokens, device=device)
-        ops.reset_launch_counts()
         with MoESpy() as spy:
-            logits, caches = api.prefill(
-                model, {"tokens": torch.from_numpy(prompt_np).to(device)},
-                caches)
-            flash = ops.launch_counts()["flash_attention"]
-            toks, all_logits = [], [logits.cpu()]
-            tok = greedy_token(logits)
-            for i in range(new_tokens):
-                toks.append(tok.cpu())
-                logits, caches = api.decode(model, tok, caches, prompt + i)
-                all_logits.append(logits.cpu())
-                tok = greedy_token(logits)
-            toks.append(tok.cpu())
-        return (torch.cat(toks, dim=1), torch.stack(all_logits),
-                [i.cpu() for i in spy.ids], flash)
+            toks, logits, flash = replay_run(torch, api, models[device],
+                                             prompt_np, new_tokens, device)
+        return toks, logits, [i.cpu() for i in spy.ids], flash
 
     t0 = time.perf_counter()
     out = {"config": f"{cfg.name} cut (d_model {d_model}, {n_heads} heads, "
@@ -3850,6 +3980,303 @@ def deepseek_kill_resume(torch, dev, *, steps, ckpt_every, kill_at, batch,
     return out
 
 
+# ----------------------------------------------------------------- step 19
+def limit_share(got, want, tol) -> tuple:
+    """(the largest |got - want| / (atol + rtol |want|), the entries past
+    that limit) for ``tol`` = (atol, rtol)."""
+    share = (got.float() - want.float()).abs() / (
+        tol[0] + tol[1] * want.float().abs())
+    return float(share.max()), int((share > 1).sum())
+
+
+def first_tile_dropped(torch, q, k, v, *, causal, window, softcap):
+    """What a kernel reads whose window's lower key-tile bound is one tile
+    too high: each 128-row query tile whose window starts past key 0 (the
+    kernel's ``key_range`` begin > 0) leaves out the keys of that first
+    tile.  Returns ([B, S, H, dv] in q's dtype, the (row, key) pairs of the
+    window dropped)."""
+    B, S, H, dh = q.shape
+    Kv = k.shape[2]
+    G = H // Kv
+    pos = torch.arange(S, device=q.device)
+    keep = pos[:, None] - pos[None, :] < window
+    if causal:
+        keep &= pos[None, :] <= pos[:, None]
+    lo = (pos // 128 * 128 - window + 1).clamp(min=0) // 128
+    drop = keep & (pos[None, :] // 128 == lo[:, None]) & (lo[:, None] > 0)
+    keep &= ~drop
+    out = torch.empty((B, S, H, v.shape[-1]), dtype=q.dtype, device=q.device)
+    for b in range(B):
+        for j in range(Kv):
+            hs = slice(j * G, (j + 1) * G)
+            s = torch.einsum("qgd,kd->gqk", q[b, :, hs].float(),
+                             k[b, :, j].float()) * dh ** -0.5
+            if softcap:
+                s = torch.tanh(s / softcap) * softcap
+            p = s.masked_fill(~keep, float("-inf")).softmax(-1)
+            out[b, :, hs] = torch.einsum("gqk,kd->qgd", p,
+                                         v[b, :, j].float()).to(q.dtype)
+    return out, int(drop.sum())
+
+
+def dense_attention_checks(torch, clock, dev):
+    """(a) ``flash_attention_cuda`` against ``flash_attention_plain`` at
+    every DENSE_ATTN_CASES shape, bf16 within DENSE_BF16_TOL and f32 within
+    ATTN_TOL, the same bits from two calls.  At a window of a tile or more
+    (the S = 5000 prefills, where the lower tile bound is past 0 over many
+    tiles) the output of a kernel that drops the window's first key tile
+    must fall outside DENSE_BF16_TOL.  DENSE_TIMED (h2o's prefill, (120,
+    120), and gemma2's windowed one, (128, 128)) are timed in bf16, and the
+    (128, 128) instance at h2o's (B, S, H, Kv) beside the first.  Returns
+    the two time rows."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = []
+    for i, (B, S, H, Kv, dh, causal, window, cap) in enumerate(
+            DENSE_ATTN_CASES):
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = attn_inputs(torch, B, S, H, Kv, dh, dt, 190 + i, dev)
+            kw = dict(causal=causal, window=window, softcap=cap)
+            got = fa.flash_attention_cuda(q, k, v, **kw)
+            again = fa.flash_attention_cuda(q, k, v, **kw)
+            want = fa.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            bf = dt == torch.bfloat16
+            tol = DENSE_BF16_TOL if bf else (ATTN_TOL["float32"],) * 2
+            err, ok = attn_close(got, want, dt, tol)
+            tag = dict(B=B, S=S, H=H, Kv=Kv, dh=dh, dtype=str(dt), **kw)
+            check(tuple(got.shape) == (B, S, H, dh),
+                  f"flash_attention shape at {tag}")
+            check(ok and bool(torch.isfinite(got).all()),
+                  f"flash_attention err {err} past {tol} at {tag}")
+            same = same_bits(torch, [got], [again])
+            check(same, f"flash_attention same bits twice at {tag}")
+            rec = {**tag, "max_abs_err": err, "tol": tol,
+                   "limit_share": limit_share(got, want, tol)[0],
+                   "same_bits_twice": same}
+            if bf and window >= 128:
+                bad, n_drop = first_tile_dropped(torch, q, k, v, **kw)
+                dev_err, caught = attn_close(bad, want, dt, tol)
+                share, n_over = limit_share(bad, want, tol)
+                check(n_drop > 0 and not caught, f"DENSE_BF16_TOL rejects a "
+                      f"kernel that drops the window's first key tile at "
+                      f"{tag}: {n_drop} keys dropped, err {dev_err}")
+                rec["first_tile_dropped"] = {
+                    "pairs_dropped": n_drop, "max_abs_err": dev_err,
+                    "limit_share": share, "entries_past_limit": n_over}
+                del bad
+            emit("dense_attention_check", rec)
+            if bf and i in DENSE_TIMED:
+                rows.append(attn_time(torch, clock, q, k, v, kw, err,
+                                      plain_as_called=True))
+            del q, k, v, got, again, want
+    B, S, H, Kv, _, causal, window, cap = DENSE_ATTN_CASES[DENSE_TIMED[0]]
+    q, k, v = attn_inputs(torch, B, S, H, Kv, 128, torch.bfloat16, 7, dev)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    rows[0]["dh128_same_shape_ms"] = clock.ms(
+        lambda: fa.flash_attention_cuda(q, k, v, **kw))
+    for row in rows:
+        emit("dense_attention_time", row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dense_reckon(cfg, batch: int, prompt: int, max_len: int) -> dict:
+    """Bytes before a run: the weights (from the parameter specs), the
+    caches (a ring of ``sliding_window`` slots on a sliding-window layer
+    whose ``max_len`` reaches it; int8 values plus an f32 scale a token
+    and head under ``kv_cache_dtype="int8"``), the prefill's transients
+    (three d_ff-wide activations of the MLP, six f32 head-wide ones of
+    rotary embedding and four d_model-wide ones) and init's (the largest
+    leaf drawn in f32 beside its cast)."""
+    from repro_torch.models import common as cm
+    from repro_torch.models.lm import lm_param_specs
+
+    es = cfg.dtype.itemsize
+    sizes = [int(np.prod(s.shape)) for _, s in cm.leaves(
+        lm_param_specs(cfg))]
+    int8 = cfg.kv_cache_dtype == "int8"
+    caches = 0
+    for mk, _ in cfg.layer_kinds():
+        T = (min(max_len, cfg.sliding_window) if mk == cm.MIXER_SWA
+             else max_len)
+        caches += 2 * batch * T * cfg.n_kv_heads * (
+            cfg.d_head + 4 if int8 else cfg.d_head * es)
+    n = batch * prompt
+    transients = n * (3 * cfg.d_ff * es + 6 * cfg.n_heads * cfg.d_head * 4
+                      + 4 * cfg.d_model * es)
+    out = {"weights_bytes": sum(sizes) * es, "cache_bytes": caches,
+           "prefill_transient_bytes": transients,
+           "init_transient_bytes": 4 * max(sizes)}
+    out["serve_bytes"] = (out["weights_bytes"] + caches + transients)
+    out["init_bytes"] = out["weights_bytes"] + out["init_transient_bytes"]
+    return out
+
+
+def dense_serve_phase(torch, dev, name, *, batch, prompt, new_tokens,
+                      profile=False, int8_arm=False):
+    """(b)-(d) ``name`` at full width, bf16, weights seeded on the card,
+    through model_api's entry points (serve_run): ``batch`` prompts of
+    ``prompt`` tokens prefilled twice, then ``new_tokens`` greedy steps;
+    check_served's checks and the peaks within their reckoning (a reckoned
+    peak past DENSE_PEAK_LIMIT cuts the depth by whole periods).
+    ``int8_arm``: the same with an int8 cache fed the bf16 arm's tokens,
+    its logits within INT8_BOUND of the bf16 arm's at every step.
+    ``profile``: a profiler window over one prefill and PROFILE_DECODE
+    steps."""
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import model_api
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    full = get_config(name)
+    cfg = full
+    max_len = prompt + new_tokens
+    rk = dense_reckon(cfg, batch, prompt, max_len)
+    while before + rk["serve_bytes"] > DENSE_PEAK_LIMIT:
+        cfg = cfg.replace(n_layers=cfg.n_layers - cfg.period)
+        rk = dense_reckon(cfg, batch, prompt, max_len)
+    emit("dense_cuts", {
+        "config": name, "n_layers": f"{full.n_layers} -> {cfg.n_layers}",
+        "cut": cfg.n_layers != full.n_layers,
+        "why": f"reckoned peak {before + rk['serve_bytes']} bytes against "
+               f"{DENSE_PEAK_LIMIT:.0f}",
+        "widths": "as published; random weights seeded on the card",
+        "reckoned": rk, "allocated_before_bytes": before})
+    model, init = card_model(torch, dev, cfg)
+    tokens = torch.from_numpy(np.random.default_rng(19).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)).to(dev)
+    out = {"config": cfg.name, "n_layers": cfg.n_layers, "batch": batch,
+           "prompt": prompt, "new_tokens": new_tokens, **init,
+           "init_peak_reckoned_bytes": before + rk["init_bytes"],
+           "reckoned": rk, "arms": {}}
+    check(init["weights_bytes"] == rk["weights_bytes"],
+          f"{name}: weights {init['weights_bytes']} bytes as reckoned "
+          f"{rk['weights_bytes']}")
+    check(init["init_peak_bytes"] <= before + rk["init_bytes"],
+          f"{name}: init peak {init['init_peak_bytes']} within "
+          f"{before + rk['init_bytes']}")
+    arms = [("bf16", cfg)]
+    if int8_arm:
+        arms.append(("int8", cfg.replace(kv_cache_dtype="int8")))
+    fed = logits = None
+    for arm, acfg in arms:
+        arm_rk = dense_reckon(acfg, batch, prompt, max_len)
+        m, toks, arm_logits, caches = serve_run(
+            torch, model_api(acfg), model, tokens, new_tokens,
+            forced=None if arm == "bf16" else fed)
+        m["cache_bytes"] = sum(
+            t.numel() * t.element_size() for c in caches for t in c
+            if isinstance(t, torch.Tensor) and t.dim() > 0)
+        m["serve_peak_reckoned_bytes"] = before + arm_rk["serve_bytes"]
+        check(m["cache_bytes"] == arm_rk["cache_bytes"],
+              f"{name} ({arm}): cache {m['cache_bytes']} bytes as reckoned "
+              f"{arm_rk['cache_bytes']}")
+        check(m["max_memory_allocated_bytes"]
+              <= m["serve_peak_reckoned_bytes"],
+              f"{name} ({arm}): serving peak "
+              f"{m['max_memory_allocated_bytes']} within its reckoning "
+              f"{m['serve_peak_reckoned_bytes']}")
+        check_served(f"{name} ({arm})", m, cfg.n_layers, max_len)
+        if arm == "bf16":
+            fed, logits = toks, arm_logits
+        else:
+            rel = [float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(arm_logits, logits)]
+            check(max(rel) < INT8_BOUND, f"{name}: int8-cache logits within "
+                  f"{INT8_BOUND} of the bf16 arm's: {max(rel)}")
+            m["relative_err_vs_bf16_per_step"] = rel
+            m["greedy_agreement_vs_bf16"] = float(
+                (torch.stack([a.argmax(-1) for a in arm_logits], 1)
+                 == fed).float().mean())
+        del caches
+        out["arms"][arm] = m
+    if profile:
+        api = model_api(cfg)
+        flash = (f"flash_wgmma_kernel<{cfg.d_head}",)
+        prof = serve_profile(torch, api, model, tokens,
+                             api.init_cache(batch, max_len, device=dev),
+                             flash)
+        check(prof["prefill"]["kernel_ms"][flash[0]] > 0,
+              f"{flash[0]}> ran in the profiled prefill")
+        out["profile"] = prof
+        emit("dense_profile", {"config": name, **prof})
+    out["flash_launches"] = sum(m["launches"]["flash_attention"]
+                                for m in out["arms"].values())
+    emit("dense_serve_phase", out)
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_replay_phase(torch, dev, *, d_model, n_heads, n_kv_heads, d_ff,
+                       n_layers, sliding_window, vocab_size, batch, prompt,
+                       new_tokens):
+    """(e) gemma2 and h2o cut to these widths (their head widths, softcaps
+    and activations as published), f32, the same seeded weights on the
+    card and on the CPU port: equal greedy tokens, logits within
+    DENSE_REPLAY_TOL of the largest, one flash launch a layer a prefill on
+    the card; then on the card each decode step's logits against the
+    last-token logits of one prefill over the whole sequence so far."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import model_api
+
+    out = {"cut": f"d_model {d_model}, {n_heads} heads / {n_kv_heads} kv, "
+                  f"d_ff {d_ff}, {n_layers} layers, window "
+                  f"{sliding_window}, vocab {vocab_size}, f32",
+           "batch": batch, "prompt": prompt, "new_tokens": new_tokens,
+           "configs": {}}
+    prompt_np = np.random.default_rng(2).integers(
+        0, vocab_size, (batch, prompt)).astype(np.int32)
+    for name in ("gemma2-27b", "h2o-danube-3-4b"):
+        cfg = get_config(name).replace(
+            d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv_heads,
+            d_ff=d_ff, n_layers=n_layers, sliding_window=sliding_window,
+            vocab_size=vocab_size, dtype=torch.float32)
+        api = model_api(cfg)
+        runs = {}
+        for device in (dev, "cpu"):
+            model = api.init(torch.Generator().manual_seed(0), device=device)
+            runs[str(device)] = (*replay_run(torch, api, model, prompt_np,
+                                             new_tokens, device), model)
+        gtok, glog, flash, gmodel = runs[str(dev)]
+        ctok, clog, _, _ = runs["cpu"]
+        scale = float(clog.abs().max())
+        err = float((glog - clog).abs().max())
+        check(torch.equal(gtok, ctok), f"{name} replay greedy tokens card "
+              f"{gtok.tolist()} vs CPU {ctok.tolist()}")
+        check(err <= DENSE_REPLAY_TOL * scale,
+              f"{name} replay f32 logits err {err} of {scale}")
+        check(flash == n_layers, f"{name}: {n_layers} f32 flash launches a "
+              f"prefill on the card: {flash}")
+        # decode step i fed token i at position prompt + i: its logits are
+        # the last-token logits of the prompt and tokens 0 .. i prefilled
+        seq = torch.cat([torch.from_numpy(prompt_np), gtok[:, :-1]],
+                        dim=1).to(dev)
+        worst = 0.0
+        for i in range(new_tokens):
+            L = prompt + i + 1
+            whole, _ = api.prefill(gmodel, {"tokens": seq[:, :L]},
+                                   api.init_cache(batch, L, device=dev))
+            d = float((whole.cpu() - glog[i + 1]).abs().max())
+            worst = max(worst, d / float(whole.abs().max()))
+        check(worst <= DENSE_REPLAY_TOL, f"{name}: decode vs whole-sequence "
+              f"prefill relative err {worst}")
+        out["configs"][name] = {
+            "tokens": gtok[0].tolist(), "max_abs_logit_err": err,
+            "max_abs_logit": scale, "relative_err": err / scale,
+            "flash_launches_prefill": flash,
+            "decode_vs_prefill_relative_err": worst,
+            "ring_wrapped": prompt + new_tokens > sliding_window}
+        del runs, gmodel
+    emit("dense_replay_phase", out)
+    return out
+
+
 def kernel_resources(build) -> dict:
     """{source: {kernel: registers, static shared memory, spills}} from
     ptxas's ``-v`` report in each build log (dynamic shared memory is set
@@ -3996,6 +4423,12 @@ def main() -> int:
           **DEEPSEEK_TRAIN_REPLAY)
     timed("deepseek_kill_resume", deepseek_kill_resume, torch, dev,
           **DEEPSEEK_KILL)
+    dense120, dense128 = timed("dense_attention_checks",
+                               dense_attention_checks, torch, clock, dev)
+    dense = {name: timed(f"dense_serve_{name}", dense_serve_phase, torch,
+                         dev, name, **kw) for name, kw in DENSE_SERVE}
+    timed("dense_replay_phase", dense_replay_phase, torch, dev,
+          **DENSE_REPLAY)
     emit("phase_seconds", phase_s)
     print(smi, flush=True)          # again, inside the tail of a long log
 
@@ -4063,6 +4496,29 @@ def main() -> int:
          "launched_on": "step 17 DeepSeek-V3 serving path (one a layer a "
                         "prefill, 4 layers, 2 prefills)", **mla_row,
          "deepseek_train_launches": ds_train["launches"]["flash_attention"]},
+        {"name": "flash_attention_dh120", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:93",
+         "instance": "(dh, dv) = (120, 120): flash_wgmma_kernel<120,120> "
+                     "(bf16, on the 128-wide tiles, columns 120-127 "
+                     "zero-filled by TMA), flash_f32_kernel<120,120> (f32)",
+         "launches": dense["h2o-danube-3-4b"]["flash_launches"],
+         "launched_on": "step 19 h2o-danube-3-4b serving path (one a layer "
+                        "a prefill, 24 layers, 2 prefills an arm, bf16 and "
+                        "int8 cache arms)", **dense120},
+        {"name": "flash_attention_gqa128", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:93",
+         "instance": "(dh, dv) = (128, 128): flash_wgmma_kernel<128,128> "
+                     "at the dense GQA configs' prefill",
+         "launches": sum(dense[n]["flash_launches"]
+                         for n in ("gemma2-27b", "yi-9b", "minitron-4b")),
+         "launches_by_config": {n: dense[n]["flash_launches"]
+                                for n in ("gemma2-27b", "yi-9b",
+                                          "minitron-4b")},
+         "launched_on": "step 19 gemma2-27b (46 layers), yi-9b (48) and "
+                        "minitron-4b (32) serving paths, one a layer a "
+                        "prefill, 2 prefills each", **dense128},
         {"name": "nearest_dist", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pairwise.cu",
          "replaces": "src/repro/kernels/pairwise.py:59",

@@ -37,8 +37,8 @@ def list_configs() -> list[str]:
 
 def smoke_config(cfg: cm.ArchConfig) -> cm.ArchConfig:
     """Same family, tiny dims: the reference's shrink for the fields the
-    port has (MoE: 4 experts, top_k <= 2, d_ff_expert 64; MLA: ranks 64 /
-    32, heads 32 + 16 / 32, so d_head 48)."""
+    port has (no remat; MoE: 4 experts, top_k <= 2, d_ff_expert 64; MLA:
+    ranks 64 / 32, heads 32 + 16 / 32, so d_head 48)."""
     kw: dict = dict(
         name=cfg.name + "-smoke",
         n_layers=cfg.n_dense_prefix + cfg.period,
@@ -51,6 +51,7 @@ def smoke_config(cfg: cm.ArchConfig) -> cm.ArchConfig:
         d_ff_dense_prefix=256 if cfg.n_dense_prefix else 0,
         vocab_size=512,
         sliding_window=32,
+        remat=False,
     )
     if cfg.moe is not None:
         kw["moe"] = dataclasses.replace(cfg.moe, n_experts=4,

@@ -8,9 +8,9 @@
 // What it computes, per (batch b, query head h):
 //   o = softmax(mask(softcap(q . k^T * dqk^-0.5))) . v
 // with q, k [B, S, H or Kv, dqk] and v [B, S, Kv, dv] read through their
-// strides, o [B, S, H, dv]; (dqk, dv) is (64, 64), (128, 128) or
-// (192, 128), the last DeepSeek MLA's prefill (a q / k head of qk_nope +
-// qk_rope = 128 + 64, a v head of 128)
+// strides, o [B, S, H, dv]; (dqk, dv) is (64, 64), (128, 128), (192, 128),
+// DeepSeek MLA's prefill (a q / k head of qk_nope + qk_rope = 128 + 64, a v
+// head of 128), or (120, 120), h2o-danube-3's head
 // (the last dimension contiguous); query head h reads kv head h / (H / Kv),
 // so K and V are never repeated in memory.  Arithmetic kept from the TPU
 // kernel: scores in f32 from the input dtype, masked entries set to
@@ -59,6 +59,12 @@
 //     causal triangle's long tiles start first and every block gets about
 //     the same work; the next tile's loads run under the current one's
 //     last product and output stores.
+//   A head width that is not a multiple of 64 (120) runs on the tiles of
+//     the next one (128): the tensor maps carry the true width, so TMA
+//     fills the last panel's columns past it with zeros, as it fills rows
+//     past S; Q . K^T and P . V are exact with zero columns, and the
+//     epilogue stores only the columns below dv.  q, k and v are read
+//     where they lie: no padded copy, no extra HBM traffic.
 //   f32 (flash_f32_kernel): 256 threads, four per query row, 64-query x
 //     64-key tiles; scores and P . V in fp32 FMA from shared memory (no
 //     TF32).  It serves the f32 parity and replay runs.
@@ -100,8 +106,9 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 
-// Per (dqk, dv) pair: panels per Q / K row and per V row, Q buffers, and
-// ring stages (at dh = 64 three beside two Q tiles timed a little faster
+// Per (dqk, dv) pair: panels per Q / K row and per V row (a width that is
+// not a multiple of 64 rounds up to whole panels), Q buffers, and ring
+// stages (at dh = 64 three beside two Q tiles timed a little faster
 // than four on an H100; dh = 128 has room for two).  At (192, 128) two Q
 // buffers and two stages would take 2 x 48 + 2 x (48 + 32) = 256 KB, past
 // the 227 KB a block may use: one Q buffer and two stages take 208 KB.
@@ -109,8 +116,8 @@ constexpr int kConsumerRegs = 232;
 // Q . K^T is done.
 template <int DQ, int DV>
 struct Cfg {
-  static constexpr int PQ = DQ / kPanel;
-  static constexpr int PV = DV / kPanel;
+  static constexpr int PQ = (DQ + kPanel - 1) / kPanel;
+  static constexpr int PV = (DV + kPanel - 1) / kPanel;
   static constexpr int kQBufs = DQ == DV ? 2 : 1;
   static constexpr int kStages = DQ == 64 ? 3 : 2;
   static constexpr int kQkBytes = PQ * kPanelBytes;    // a Q or K tile
@@ -467,9 +474,9 @@ __device__ __forceinline__ int snake_tile(int r) {
 }
 
 // Persistent: one block per SM walks its tiles (snake_tile).  Shared
-// memory (dynamic, 1024-byte aligned): kQBufs Q buffers of [DQ/64 panels]
+// memory (dynamic, 1024-byte aligned): kQBufs Q buffers of [PQ panels]
 // [128][64], then kStages K tiles of that shape and kStages V tiles of
-// [DV/64][128][64]; every panel is one TMA box with the 128-byte swizzle.
+// [PV][128][64]; every panel is one TMA box with the 128-byte swizzle.
 // The ring's stage and phase run on across tiles; each Q buffer has its
 // own full / empty pair, released once its tile's last Q . K^T is done, so
 // with two buffers the next tile's Q and first K / V tiles load while this
@@ -563,6 +570,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint64_t dk0 = sw128_desc(sk, 16, 1024);          // ring stage 0
     const uint64_t dv0 = sw128_desc(sv, kPanelBytes, 1024);
     constexpr uint64_t kStepK = kQkBytes / 16, kStepV = kVBytes / 16;
+    constexpr int DQP = PQ * kPanel;            // Q . K^T over whole panels
     float m0, m1, l0, l1, al0, al1;
     float o[P][32];
     float sc[64];
@@ -606,9 +614,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       online_softmax(sc, m0, m1, l0, l1, al0, al1, a, kt * kTile, rmin,
                      qpos0, qpos1, t);
     };
-    // o / (la, lb) of a finished tile into its rows, and where asked its
-    // rows' lse from the maxima (ma, mb) and sums: m is in score units
-    // (times c in base 2), so lse = (m * c + log2(l)) * ln 2
+    // o / (la, lb) of a finished tile into its rows (the columns below DV:
+    // past them the accumulator holds the zero columns of a padded panel),
+    // and where asked its rows' lse from the maxima (ma, mb) and sums: m is
+    // in score units (times c in base 2), so lse = (m * c + log2(l)) * ln 2
     auto store = [&](float la, float lb, float ma, float mb,
                      __nv_bfloat16* r0, __nv_bfloat16* r1, float* e0,
                      float* e1) {
@@ -628,6 +637,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const int d = p * kPanel + 8 * i;
+          if (d >= DV) continue;             // resolved at compile time
           if (r0 != nullptr)
             *reinterpret_cast<__nv_bfloat162*>(r0 + d) = __floats2bfloat162_rn(
                 o[p][4 * i] * inv0, o[p][4 * i + 1] * inv0);
@@ -650,7 +660,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       {                                         // the first Q . K^T alone
         const uint32_t s = it % kStages;
         mbar_wait(smem_u32(&bar_k[s]), (it / kStages) & 1);
-        issue_qk<DQ>(sc, dq, dk0 + s * kStepK);
+        issue_qk<DQP>(sc, dq, dk0 + s * kStepK);
         wgmma_wait<0>();
         fence_regs(sc);
         if (nk == 1) release(&bar_q_empty[qb], lane);
@@ -663,7 +673,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const uint32_t prev = cur - 1, sp = prev % kStages;
           mbar_wait(smem_u32(&bar_k[s]), (cur / kStages) & 1);
           mbar_wait(smem_u32(&bar_v[sp]), (prev / kStages) & 1);
-          issue_qk<DQ>(sc, dq, dk0 + s * kStepK);
+          issue_qk<DQP>(sc, dq, dk0 + s * kStepK);
           issue_pv<P>(o, pa, dv0 + sp * kStepV);
           wgmma_wait<1>();                      // Q . K^T done, P . V not
           fence_regs(sc);
@@ -710,7 +720,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t s = it % kStages;
         mbar_wait(smem_u32(&bar_k[s]), (it / kStages) & 1);
         mbar_wait(smem_u32(&bar_v[sl]), (last / kStages) & 1);
-        issue_qk<DQ>(sc, dq, dk0 + s * kStepK);
+        issue_qk<DQP>(sc, dq, dk0 + s * kStepK);
         issue_pv<P>(o, pa, dv0 + sl * kStepV);
         wgmma_wait<1>();
         fence_regs(sc);
@@ -967,7 +977,7 @@ int launch_wgmma(int B, int S, int H, const long long* tma, const void* q,
 // elements) in the order q (b, s, h), k, v, o.  lse is null or f32
 // [B, H, S], contiguous: each row's log-sum-exp.  For bf16, tma holds q's,
 // k's and v's tensor-map layouts (11 values each, see encode).  (dh, dv)
-// is (64, 64), (128, 128) or (192, 128); H % Kv == 0.  Returns -1 for a
+// is (64, 64), (128, 128), (192, 128) or (120, 120); H % Kv == 0.  Returns -1 for a
 // shape the kernel does not take, -2 / -3 when a tensor map cannot be
 // encoded, else cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -980,6 +990,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const int pair = dh == 64 && dv == 64     ? 0
                    : dh == 128 && dv == 128 ? 1
                    : dh == 192 && dv == 128 ? 2
+                   : dh == 120 && dv == 120 ? 3
                                             : -1;
   if (B < 1 || S < 1 || Kv < 1 || H % Kv != 0 || pair < 0) return -1;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(dh)));
@@ -993,7 +1004,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     t.lse = static_cast<float*>(lse);
     return pair == 0   ? launch_wgmma<64, 64>(B, S, H, tma, q, k, v, t, st)
            : pair == 1 ? launch_wgmma<128, 128>(B, S, H, tma, q, k, v, t, st)
-                       : launch_wgmma<192, 128>(B, S, H, tma, q, k, v, t, st);
+           : pair == 2 ? launch_wgmma<192, 128>(B, S, H, tma, q, k, v, t, st)
+                       : launch_wgmma<120, 120>(B, S, H, tma, q, k, v, t, st);
   }
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
@@ -1010,6 +1022,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                               f32_smem_bytes<64, 64>(), st, a)
          : pair == 1 ? launch(flash_f32_kernel<128, 128>, grid, kF32Threads,
                               f32_smem_bytes<128, 128>(), st, a)
-                     : launch(flash_f32_kernel<192, 128>, grid, kF32Threads,
-                              f32_smem_bytes<192, 128>(), st, a);
+         : pair == 2 ? launch(flash_f32_kernel<192, 128>, grid, kF32Threads,
+                              f32_smem_bytes<192, 128>(), st, a)
+                     : launch(flash_f32_kernel<120, 120>, grid, kF32Threads,
+                              f32_smem_bytes<120, 120>(), st, a);
 }

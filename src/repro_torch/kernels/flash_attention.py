@@ -49,7 +49,8 @@ dq and dk come back at q's width and dv at v's.
 forward runs ``flash_attention_cuda`` or ``flash_attention_plain`` with
 ``return_lse=True`` and its backward ``flash_attention_bwd_cuda`` or
 ``flash_attention_bwd_plain``, each picked by the tensors' device, at any
-of the kernels' head-width pairs (MLA's 192 / 128 included).
+of the gradient kernel's head-width pairs (MLA's 192 / 128 included; the
+forward's (120, 120) serves only, and the gradient refuses it).
 """
 from __future__ import annotations
 
@@ -63,9 +64,9 @@ NEG = -1e30
 BLOCK_K = 128                # keys per online-softmax step (kernel, plain)
 TILE = 128                   # the bf16 kernel's query and key tile
 PANEL = 64                   # bf16 columns of one 128-byte TMA box row
-# (q / k, v) head widths the forward kernel is built for, and those of the
-# gradient kernel
-HEAD_PAIRS = ((64, 64), (128, 128), (192, 128))
+# (q / k, v) head widths the forward kernel is built for (120: h2o-danube-3's
+# head, run on the 128-wide tiles), and those of the gradient kernel
+HEAD_PAIRS = ((64, 64), (128, 128), (192, 128), (120, 120))
 HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 DTYPES = (torch.bfloat16, torch.float32)
 
@@ -166,20 +167,24 @@ def tma_layout(t: torch.Tensor):
     """The 4-D TMA tensor map of a bf16 ``[B, S, heads, dh]`` operand, as
     ``csrc/flash_attention.cu`` encodes it: dims innermost first
     ``(dh, S, heads, B)``, the byte strides of S, heads and B, and the box,
-    one 128-row by 64-column panel (128 bytes, the swizzle's span).  TMA
-    needs a contiguous head dim and 16-byte aligned strides and base;
-    anything else raises ``ValueError``."""
+    one 128-row by 64-column panel (128 bytes, the swizzle's span).  The
+    true dh goes into the map: a head narrower than its last panel (120 in
+    two panels of 64) arrives with zeros in the columns past dh, as rows
+    past S do.  TMA needs a contiguous head dim and 16-byte aligned strides
+    and base; dh must be a multiple of 8, and at most 128 when it is not a
+    multiple of 64; anything else raises ``ValueError``."""
     if t.dim() != 4:
         raise ValueError(f"tma_layout: {tuple(t.shape)} is not 4-D")
     B, S, heads, dh = t.shape
     es = t.element_size()
     strides = tuple(t.stride(i) * es for i in (1, 2, 0))
-    if (t.stride(3) != 1 or dh % PANEL or any(s % 16 or s >= 2 ** 40
-                                               for s in strides)
+    if (t.stride(3) != 1 or dh % 8 or (dh % PANEL and dh > 2 * PANEL)
+            or any(s % 16 or s >= 2 ** 40 for s in strides)
             or t.data_ptr() % 16):
         raise ValueError(f"tma_layout: strides {t.stride()} (element size "
-                         f"{es}) need a contiguous head dim of a multiple of "
-                         f"{PANEL} and 16-byte aligned rows")
+                         f"{es}) need a contiguous head dim (a multiple of "
+                         f"{PANEL}, or of 8 up to {2 * PANEL}) and 16-byte "
+                         "aligned rows")
     return (dh, S, heads, B), strides, (PANEL, TILE, 1, 1)
 
 
@@ -324,14 +329,14 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dq, dk, dv come back contiguous."""
     global bwd_launches
     dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention_bwd_cuda needs CUDA tensors, got "
-                         f"{dev}")
     B, S, H, Kv, dh, dv_ = _shapes(q, k, v)
     if q.dtype not in DTYPES or (dh, dv_) not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: unsupported dtype {q.dtype} "
                          f"or head widths (q/k {dh}, v {dv_}) (kernel takes "
                          f"{DTYPES}, {HEAD_DIMS})")
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_cuda needs CUDA tensors, got "
+                         f"{dev}")
     for name, t in (("o", o), ("do", do)):
         if tuple(t.shape) != (B, S, H, dv_):
             raise ValueError(f"flash_attention_bwd: {name} "

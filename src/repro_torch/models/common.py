@@ -63,7 +63,9 @@ class MoEConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     """The fields of ``repro.models.common.ArchConfig`` that the decoder
-    paths read.  ``dtype`` is a ``torch.dtype``.  ``mla`` and ``moe`` are
+    paths read.  ``dtype`` is a ``torch.dtype``.  ``kv_cache_dtype`` is
+    "bf16" (the cache in the model dtype) or "int8" (int8 values and an f32
+    scale per token and kv head).  ``mla`` and ``moe`` are
     DeepSeek's sub-configs; ``moe_groups`` is the least number of MoE
     dispatch groups.  ``moe_weight_shard`` and ``act_shard`` (the mesh's
     expert and activation shardings) are accepted and have no effect, as
@@ -106,7 +108,7 @@ class ArchConfig:
     norm_eps: float = 1e-6
     act: str = "silu"                     # mlp activation ("silu"|"gelu")
     dtype: Any = torch.bfloat16
-    kv_cache_dtype: str = "bf16"          # "bf16" (the model dtype) only
+    kv_cache_dtype: str = "bf16"          # "bf16" (the model dtype) | "int8"
     remat: bool = False                   # activation checkpointing per period
     grad_accum: int = 1                   # microbatches per train step
     moe_groups: int = 1                   # MoE dispatch groups (at least)

@@ -361,6 +361,10 @@ def _hsd_view(h, s, dh):
     # the reference's [H, S, dh] seen as [1, S, H, dh]
     # (a size-1 batch dim keeps the stride PyTorch gives it)
     (_hsd_view(4, 200, 64), (64, 200, 4, 1), (128, 25600, 25600)),
+    # h2o-danube-3's q at dh 120: the true width, 240-byte rows, the same
+    # box (its second panel's columns 120-127 arrive as zeros)
+    (torch.zeros(2, 5000, 32, 120, dtype=torch.bfloat16), (120, 5000, 32, 2),
+     (7680, 240, 38400000)),
 ])
 def test_flash_tma_layout_reads_the_strides(t, dims, strides):
     """dims innermost first (dh, S, heads, B), byte strides of S, heads
@@ -371,7 +375,9 @@ def test_flash_tma_layout_reads_the_strides(t, dims, strides):
 @pytest.mark.parametrize("t", [
     torch.zeros(1, 64, 2, 68, dtype=torch.bfloat16)[..., :64],  # row 136 B
     torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16)[..., ::2],  # dh strided
-    torch.zeros(1, 64, 3, 64, dtype=torch.bfloat16)[:, :, :, 4:36],  # dh 32
+    torch.zeros(1, 64, 3, 64, dtype=torch.bfloat16)[:, :, :, 4:36],  # +8 B
+    torch.zeros(1, 64, 2, 100, dtype=torch.bfloat16),      # dh 100: not 8k
+    torch.zeros(1, 64, 2, 136, dtype=torch.bfloat16),      # dh 136: 3 panels
     torch.zeros(1 * 64 * 2 * 64 + 4, dtype=torch.bfloat16)[4:].view(
         1, 64, 2, 64),                                            # base + 8 B
 ])

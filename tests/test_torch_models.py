@@ -84,7 +84,8 @@ def _kv_from_jax(c, layer=None):
 # ------------------------------------------------------------- configs, data
 def test_configs_match_the_reference():
     assert list_configs() == ["deepseek-v2-236b", "deepseek-v3-671b",
-                              "semanticxr-captioner-110m"]
+                              "gemma2-27b", "h2o-danube-3-4b", "minitron-4b",
+                              "semanticxr-captioner-110m", "yi-9b"]
     for name in ("semanticxr-captioner-110m", SMOKE):
         j, t = jget_config(name), get_config(name)
         for f in ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
@@ -94,7 +95,7 @@ def test_configs_match_the_reference():
             assert getattr(t, f) == getattr(j, f), (name, f)
         assert t.dtype == torch.bfloat16 and j.dtype == jnp.bfloat16
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("gemma2-27b")
+        get_config("jamba-v0.1-52b")
 
 
 def test_caption_batches_match_the_reference():
@@ -204,11 +205,12 @@ def test_unported_families_raise_naming_the_roadmap():
                   (tcm.MIXER_RWKV6, tcm.MLP_DENSE)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tblk.block_param_specs(cfg, *kinds)
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
+             "extra_embeds": torch.zeros((1, 4, cfg.d_model))}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tattn.init_kv_cache(cfg.replace(kv_cache_dtype="int8"), 1, 8,
-                            device="cpu")
+        tapi.model_api(cfg).forward(None, batch)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tattn.init_kv_cache(cfg, 1, 64, device="cpu", window=True)
+        tapi.model_api(cfg).loss(None, batch)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tapi.model_api(cfg.replace(encdec=True))
 

@@ -9,8 +9,9 @@ checkouts, on one GPU.
 builds its kernel, calls ``flash_attention_cuda`` (with and without
 ``return_lse``) on fixed seeded inputs at the head widths every checkout
 since the lse was added takes, (64, 64) and (128, 128): the captioner's
-prefill and training shapes, ragged S, window, softcap, non-causal, MQA,
-bf16 and f32; then ``flash_attention_bwd_cuda`` on the forward's output
+prefill and training shapes, gemma2-27b's prefill (S = 5000, window 4096,
+softcap 50), ragged S, window, softcap, non-causal, MQA, bf16 and f32; at
+DeepSeek MLA's (192, 128) (``MLA_CASES``) where the checkout takes it; then ``flash_attention_bwd_cuda`` on the forward's output
 and lse at the same two pairs (``GRAD_CASES``: the captioner's training
 shape, ragged S, window, softcap, non-causal, G = 1, S = 1024); and times
 the captioner's prefill call, a dh = 128 call and the captioner's training
@@ -40,8 +41,12 @@ CASES = ((8, 1024, 12, 4, 64, "bf16", True, 0, 0.0),
          (2, 1024, 12, 1, 64, "bf16", True, 0, 0.0),
          (1, 300, 4, 4, 64, "bf16", True, 1, 0.0),
          (1, 2048, 4, 2, 128, "bf16", False, 0, 0.0),
-         (1, 200, 2, 2, 64, "f32", False, 0, 0.0))
-TIMED = ((0, True), (9, False))          # (case, causal) timed cold
+         (1, 200, 2, 2, 64, "f32", False, 0, 0.0),
+         (2, 5000, 32, 16, 128, "bf16", True, 4096, 50.0))
+TIMED = ((0, True), (9, False), (11, True))   # (case, causal) timed cold
+# (B, S, H, dtype, causal) at (dqk, dv) = (192, 128): chip_smoke.py step 17
+MLA_CASES = ((2, 200, 4, "bf16", True), (1, 1024, 16, "bf16", True),
+             (2, 200, 4, "f32", True), (2, 200, 4, "bf16", False))
 # the gradient at (64, 64) and (128, 128): chip_smoke.py step 15's shapes
 GRAD_CASES = ((8, 256, 12, 4, 64, "bf16", True, 0, 0.0),
               (8, 256, 12, 4, 64, "f32", True, 0, 0.0),
@@ -75,6 +80,12 @@ def run(src: str, out: str) -> None:
         o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
         outputs.append((o.cpu(), lse.cpu(),
                         fa.flash_attention_cuda(q, k, v, **kw).cpu()))
+    if (192, 128) in fa.HEAD_PAIRS:
+        for i, (B, S, H, dt, causal) in enumerate(MLA_CASES):
+            q, k, v = cs.mla_inputs(torch, B, S, H, dts[dt], 300 + i, dev)
+            o, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                             return_lse=True)
+            outputs.append((o.cpu(), lse.cpu()))
     grads = []
     for i, (B, S, H, Kv, dh, dt, causal, window, cap) in enumerate(
             GRAD_CASES):
@@ -98,8 +109,11 @@ def run(src: str, out: str) -> None:
     for i, causal in TIMED:
         B, S, H, Kv, dh, dt = CASES[i][:6]
         q, k, v = cs.attn_inputs(torch, B, S, H, Kv, dh, dts[dt], i, dev)
-        times[f"B={B} S={S} H={H} Kv={Kv} dh={dh} {dt} causal={causal}"] = \
-            clock.ms(lambda: fa.flash_attention_cuda(q, k, v, causal=causal))
+        window, cap = CASES[i][7:]
+        times[f"B={B} S={S} H={H} Kv={Kv} dh={dh} {dt} causal={causal} "
+              f"window={window} softcap={cap}"] = clock.ms(
+            lambda: fa.flash_attention_cuda(q, k, v, causal=causal,
+                                            window=window, softcap=cap))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -111,15 +125,17 @@ def run(src: str, out: str) -> None:
 def compare(files) -> int:
     import torch
 
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16
+                      else torch.int32)
+
     runs = [torch.load(f) for f in files]
     same_all = True
     for f, r in zip(files, runs):
-        same = all(torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
-                               else a.view(torch.int32),
-                               b.view(torch.int16) if b.dtype == torch.bfloat16
-                               else b.view(torch.int32))
-                   for ra, rb in zip(runs[0]["outputs"], r["outputs"])
-                   for a, b in zip(ra, rb))
+        same = len(r["outputs"]) == len(runs[0]["outputs"]) and all(
+            torch.equal(bits(a), bits(b))
+            for ra, rb in zip(runs[0]["outputs"], r["outputs"])
+            for a, b in zip(ra, rb))
         same_all &= same
         print(json.dumps({"file": f, "src": r["src"], "card": r["card"],
                           "same_bits_as_first": same,
