@@ -182,17 +182,23 @@
     its two launches' device ms; (b) ``deepseek_train_phase``:
     ``deepseek-v3-671b`` at full width cut to 1 dense-prefix and 1 MoE
     layer and 16 routed experts (top-8, 1 shared; 3.37 B parameters),
-    bf16, 30 steps of ``launch.train.main`` at B x S = 2 x 512, counters
-    reset just before and read just after (2 flash forward and 2 gradient
-    launches every step; every loss finite, the mean of the last 5 under
-    that of the first 5): step ms p50 / p95, tokens/s, peak bytes beside
-    their reckoning, the MoE's dropped share and aux loss; two gradients
-    of one batch with the same bits; a ``torch.profiler`` window over one
+    bf16, under remat (the MoE layer's period recomputed in the backward
+    pass, as the reference's config trains), 30 steps of
+    ``launch.train.main`` at B x S = 2 x 512 through ``trainer_run``,
+    counters reset just before and read just after (3 flash forward
+    launches every step: the dense prefix's once, the MoE layer's twice;
+    2 gradient launches; two MoE routes a step, the recomputed one's
+    expert ids equal to the forward's; every loss finite, the mean of the
+    last 5 under that of the first 5; the peak within its reckoning plus
+    DEEPSEEK_PEAK_MARGIN): step ms p50 / p95, tokens/s, peak bytes, the
+    MoE's dropped share and aux loss; two gradients of one batch with the
+    same bits; a ``torch.profiler`` window over one
     step; (c) ``deepseek_train_replay``: 3 f32 train steps at step 17c's
     width, card vs CPU port, the same expert ids at every MoE call, loss,
     grad norm and masters within TRAIN_REPLAY_TOL; (d)
     ``deepseek_kill_resume``: that width in bf16, ``--kill-at 3`` of 6
-    with checkpoints every 2 exits 42, restores bit-equal and resumes.
+    with checkpoints every 2 exits 42, restores bit-equal and resumes
+    (``kill_resume``).
 19. The dense grouped-query-attention configs: (a)
     ``dense_attention_checks``: the flash kernel at h2o-danube-3's head,
     (dh, dv) = (120, 120), against its plain version at h2o's prefill
@@ -224,6 +230,41 @@
     logits within 1e-4 of the largest), and every decode step's logits
     against one prefill over the whole sequence so far on the card: the
     ring cache held to the window mask.
+
+20. The dense GQA configs trained: (a) ``dense_bwd_checks``: the flash
+    gradient kernel's (120, 120) instance at h2o-danube-3-4b's training
+    shape (1, 5000, 32, 8, window 4096) and the 120-wide edges (S = 17 and
+    129, window 1, window 64 with softcap 50, MQA, non-causal S = 200, S =
+    333 with every option), the (128, 128) instance at gemma2-27b's SWA
+    and GLOBAL shapes (1, 5000, 32, 16, softcap 50) and yi-9b's and
+    minitron-4b's (4, 1024), bf16 and f32, on the forward kernel's lse
+    (itself held to the plain version's first), bf16 within
+    DENSE_BWD_BF16_TOL (scaled to each gradient row's RMS) and f32
+    within ATTN_TOL, the same bits twice, autograd = the direct call; the
+    limit must reject a gradient that drops the window's first key tile,
+    one whose 120-wide heads read the next head's first 8 columns and one
+    whose dq or dv is 10 % low on the later rows; h2o's and gemma2's
+    windowed shapes timed beside their operations bound, the plain
+    version as called and SDPA's backward (none under the softcap: its
+    time without it beside), and the (128, 128) instance at h2o's shape;
+    (b) ``dense_train_cuts``: each config's training peak reckoned at its
+    B x S before its run
+    (``dense_train_reckon``: 16 bytes a parameter, then AdamW's
+    temporaries or the remat activations and the loss chunks' logits,
+    whichever is larger) and its depth cut by whole periods while that
+    passes DENSE_PEAK_LIMIT; (c) ``dense_train_phase``: 20 bf16 steps of
+    ``launch.train.main`` per config through ``trainer_run``, h2o and
+    gemma2 at 1 x 5000 (past the 4096 window), yi and minitron at 4 x
+    1024: under remat 2 flash forward and 1 gradient launch a layer a
+    step, every loss finite and falling, the peak within its reckoning,
+    then one loss-and-gradient pass's own peak within the reckoning's
+    backward term; step ms p50 / p95, tokens/s, peaks; on
+    h2o two gradients of one batch with the same bits and a profiler
+    window with device ms by kind; (d) ``dense_train_replay``: gemma2 and
+    h2o at DENSE_REPLAY's width, 3 f32 train steps, card vs CPU port
+    within TRAIN_REPLAY_TOL (the f32 gradient at (128, 128) with the
+    softcap and at (120, 120)); (e) ``dense_kill_resume``: gemma2 at that
+    width in bf16, ``--kill-at 3`` of 6, restored bit-equal, resumed.
 
 ``nearest_dist`` has no caller on any system path: its phase drives its
 entry point, ``ops.nearest_dist``, at a chamfer and a centroid shape.
@@ -424,6 +465,12 @@ MLA_BWD_SHAPES = MLA_ATTN_SHAPES[:-1] + (MLA_TRAIN_SHAPE,)
 DEEPSEEK_TRAIN = dict(arch="deepseek-v3-671b", name="deepseek-v3-671b-train-cut",
                       n_layers=2, n_dense_prefix=1, n_experts=16, steps=30,
                       batch=2, seq=512)
+# the cut's training peak, less what was allocated before, within its
+# reckoning (16 bytes a parameter and AdamW's three f32 temporaries of the
+# largest leaf) plus this margin: the small leaves' and the loss's
+# transients, which the reckoning leaves out (the peak passed it by
+# 0.01-0.06 GB under remat on an H100)
+DEEPSEEK_PEAK_MARGIN = 0.5e9
 DEEPSEEK_TRAIN_REPLAY = dict(batch=1, seq=256, steps=3)
 DEEPSEEK_KILL = dict(steps=6, ckpt_every=2, kill_at=3, batch=1, seq=128)
 # step 19: the dense GQA configs.  (a) the flash kernel's (120, 120)
@@ -467,6 +514,53 @@ DENSE_REPLAY = dict(d_model=1024, n_heads=8, n_kv_heads=4, d_ff=2048,
                     n_layers=4, sliding_window=256, vocab_size=4096,
                     batch=1, prompt=300, new_tokens=24)
 DENSE_REPLAY_TOL = 1e-4  # f32 logits: max |diff| / max |logit|
+# step 20: the dense GQA configs trained.  (a) the flash gradient kernel at
+# every shape the training path gives it, (B, S, H, Kv, dh, causal, window,
+# softcap), bf16 and f32: h2o's (120, 120), gemma2's SWA and GLOBAL, yi's
+# and minitron's (128, 128), and the 120-wide edges (S = 17 and 129,
+# window 1, window 64 with softcap 50, MQA, non-causal S = 200, S = 333
+# with every option); DENSE_BWD_TIMED are timed in bf16.  (b)-(c) each
+# config at full width through launch.train.main, cut in depth only where
+# its reckoned peak passes DENSE_PEAK_LIMIT; (d) an f32 replay at
+# DENSE_REPLAY's width, card vs CPU port; (e) kill and resume at that width
+# in bf16.
+DENSE_BWD_CASES = ((1, 5000, 32, 8, 120, True, 4096, 0.0),      # h2o
+                   (1, 5000, 32, 16, 128, True, 4096, 50.0),    # gemma2 SWA
+                   (1, 5000, 32, 16, 128, True, 0, 50.0),       # GLOBAL
+                   (4, 1024, 32, 4, 128, True, 0, 0.0),         # yi-9b
+                   (4, 1024, 24, 8, 128, True, 0, 0.0),         # minitron
+                   (1, 17, 4, 2, 120, True, 0, 0.0),
+                   (1, 129, 4, 2, 120, True, 0, 0.0),
+                   (1, 300, 4, 4, 120, True, 1, 0.0),
+                   (1, 200, 4, 2, 120, True, 64, 50.0),
+                   (2, 1024, 8, 1, 120, True, 0, 0.0),
+                   (2, 200, 4, 2, 120, False, 0, 0.0),
+                   (2, 333, 12, 4, 120, True, 100, 30.0))
+DENSE_BWD_TIMED = (0, 1)
+# step 20a's bf16 limit, (a, r, floor): |got - want| <= a * max(rms, floor)
+# + r |want| for each gradient entry, ``rms`` the root mean square of its
+# own row of want (one query's dq, one key's dk or dv, over the head's
+# columns).  A row's size follows its partners: a key attended by few
+# queries, or a query with few keys, has entries of 3-10, one with 4096
+# partners about 0.01-0.03, and an array's largest entry or even its RMS
+# sits far above the long rows.  r = 2^-7 is one bf16 ulp of an entry
+# (its last rounding); a = 0.02 is about twice the kernel's largest
+# (|got - want| - r |want|) / max(rms, floor) at these shapes, 0.0092 (dq
+# at yi-9b's, an H100 before this limit was set; ``a_needed`` in each
+# row); the floor, a thousandth of the inputs' unit scale, holds at
+# window 1, where dq and dk cancel to f32 rounding residue (ds = dP - D =
+# 0) in both versions.  At the windowed shapes a kernel that drops the
+# window's first key tile, at the 120-wide ones a kernel whose heads also
+# read the next head's first 8 columns, and at every shape one whose dq or
+# dv is 10 % low past position min(4096, S / 2), must each fail it.
+DENSE_BWD_BF16_TOL = (2e-2, 2 ** -7, 1e-3)
+DENSE_TRAIN = (("h2o-danube-3-4b", dict(batch=1, seq=5000, profile=True)),
+               ("gemma2-27b", dict(batch=1, seq=5000)),
+               ("yi-9b", dict(batch=4, seq=1024)),
+               ("minitron-4b", dict(batch=4, seq=1024)))
+DENSE_TRAIN_STEPS = 20
+DENSE_TRAIN_REPLAY = dict(batch=1, seq=300, steps=3)
+DENSE_KILL = dict(steps=6, ckpt_every=2, kill_at=3, batch=1, seq=300)
 
 
 def check(cond, what: str) -> None:
@@ -2807,13 +2901,15 @@ def bwd_cost(q, k, causal, window, elt, dv=None):
     return nbytes + B * H * S * 4, 2 * (3 * dh + 2 * dv) * pairs
 
 
-def hold_bwd(torch, dev, q, k, v, kw, tag, seed):
+def hold_bwd(torch, dev, q, k, v, kw, tag, seed, scaled=None):
     """The forward kernel's lse against the plain version's and its output
     bits unchanged by asking for it; then ``flash_attention_bwd_cuda``
     against ``flash_attention_bwd_plain`` on the same inputs and lse
     (do drawn from ``seed``), within ATTN_TOL and in the input shapes, the
-    same bits from two calls.  Returns (the check's row, (o, do, lse),
-    the largest gradient error)."""
+    same bits from two calls.  ``scaled`` = (a, r, floor) holds each
+    gradient to ``scaled_limit`` instead and records each array's scale.
+    Returns (the check's row, (o, do, lse, the plain gradients), the
+    largest gradient error)."""
     from repro_torch.kernels import flash_attention as fa
 
     tol = ATTN_TOL[str(q.dtype).split(".")[-1]]
@@ -2838,18 +2934,113 @@ def hold_bwd(torch, dev, q, k, v, kw, tag, seed):
     check([tuple(t.shape) for t in got]
           == [tuple(q.shape), tuple(k.shape), tuple(v.shape)],
           f"flash_attention_bwd shapes at {tag}")
-    errs = {}
+    errs, shares, scale = {}, {}, {}
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         d = (a.float() - b.float()).abs()
         errs[name] = float(d.max())
-        check(bool((d <= tol + tol * b.float().abs()).all())
-              and bool(torch.isfinite(a).all()),
-              f"flash_attention_bwd {name} err {errs[name]} at {tag}")
+        limit = (tol + tol * b.float().abs() if scaled is None else
+                 scaled_limit(b, scaled))
+        shares[name] = float((d / limit).max())
+        if scaled is not None:
+            w = b.float()
+            rms = row_rms(w).clamp(min=scaled[2])
+            scale[name] = {
+                "max_abs_want": float(w.abs().max()),
+                "rms_want": float(w.square().mean().sqrt()),
+                "row_rms_median": float(row_rms(w).median()),
+                # the least a that passes with this r: what sets a
+                "a_needed": float(((d - scaled[1] * w.abs()) / rms).max())}
+        check(shares[name] <= 1 and bool(torch.isfinite(a).all()),
+              f"flash_attention_bwd {name} err {errs[name]} at {tag}: "
+              f"{shares[name]} of the limit {scale.get(name, '')}")
     same = same_bits(torch, got, again)
     check(same, f"flash_attention_bwd same bits twice at {tag}")
-    return ({**tag, "max_abs_err": errs, "same_bits_twice": same,
-             "lse_max_abs_err": lse_err, "o_bits_unchanged_by_lse": o_same},
-            (o, do, lse), max(errs.values()))
+    row = {**tag, "max_abs_err": errs, "same_bits_twice": same,
+           "lse_max_abs_err": lse_err, "o_bits_unchanged_by_lse": o_same}
+    if scaled is not None:
+        row.update(limit=scaled, limit_share=shares, scale=scale)
+    return row, (o, do, lse, want), max(errs.values())
+
+
+def row_rms(w):
+    """The root mean square of each row of ``w`` over its last axis (one
+    head's columns), kept as a size-1 axis."""
+    return w.float().square().mean(-1, keepdim=True).sqrt()
+
+
+def scaled_limit(want, tol):
+    """``a * max(rms, floor) + r * |want|`` for ``tol`` = (a, r, floor),
+    ``rms`` each entry's row RMS: an absolute part of the size of the
+    entry's own row and a relative part."""
+    return (tol[0] * row_rms(want).clamp(min=tol[2])
+            + tol[1] * want.float().abs())
+
+
+def bwd_time(torch, clock, q, k, v, o, do, lse, kw, err, *,
+             plain_as_called=False, plain_reps=30) -> dict:
+    """The time row of one gradient call: cold-L2 ms of
+    ``flash_attention_bwd_cuda`` (the lse in hand, as SDPA's backward has
+    its statistics) beside its bound (operations at the dtype's peak and
+    bytes, the masks counted, v of its own width), the plain version's
+    (``plain_as_called``: as called, where its steps keep the host from
+    queueing ahead of the card) and SDPA's backward through autograd on
+    the same inputs (``enable_gqa`` where H != Kv, a window as a boolean
+    mask; backward only, timed with ``retain_graph``).  SDPA has no logit
+    softcap: under one ``library_ms`` is null and its time is kept as
+    ``library_without_softcap_ms``; where no SDPA backend takes the case,
+    null with the reason."""
+    from repro_torch.kernels import flash_attention as fa
+    F = torch.nn.functional
+
+    B, S, H, dh = q.shape
+    Kv, dvw = k.shape[2], v.shape[-1]
+    causal, window = kw.get("causal", True), kw.get("window", 0)
+    cap = kw.get("softcap", 0.0)
+    elt = q.element_size()
+    nbytes, flops = bwd_cost(q, k, causal, window, elt, dv=dvw)
+    t_ops = flops / (BF16_FLOP_PER_S if elt == 2 else FP32_FLOP_PER_S) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    sdpa_kw = dict(enable_gqa=True) if H != Kv else {}
+    if window:
+        pos = torch.arange(S, device=q.device)
+        keep = pos[:, None] - pos[None, :] < window
+        if causal:
+            keep &= pos[None, :] <= pos[:, None]
+        sdpa_kw["attn_mask"] = keep
+    else:
+        sdpa_kw["is_causal"] = causal
+    sq, sk, sv = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    try:
+        so = F.scaled_dot_product_attention(sq, sk, sv, **sdpa_kw)
+        lib_ms = clock.ms(lambda: torch.autograd.grad(
+            so, (sq, sk, sv), do.transpose(1, 2), retain_graph=True))
+        lib = ("SDPA backward through autograd ("
+               + ", ".join(sorted(sdpa_kw)) + "; backward only, timed with "
+               "retain_graph)")
+        del so
+    except RuntimeError as e:         # no SDPA backend takes this case
+        lib_ms, lib = None, f"SDPA refused the backward: {e}"[:300]
+
+    def plain():
+        return fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    row = {"ms": clock.ms(lambda: fa.flash_attention_bwd_cuda(
+               q, k, v, o, do, lse, **kw)),
+           "plain_ms": (clock.call_ms(plain, plain_reps) if plain_as_called
+                        else clock.ms(plain, plain_reps)),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": None if cap else lib_ms, "library": lib,
+           "max_abs_err": err, "flops": flops, "bytes": nbytes,
+           "shape": f"B={B} S={S} H={H} Kv={Kv} dqk={dh} dv={dvw} "
+                    f"{'bf16' if elt == 2 else 'f32'} causal={causal} "
+                    f"window={window} softcap={cap}"}
+    if plain_as_called:
+        row["plain_timed"] = "call"
+    if cap and lib_ms is not None:
+        row["library_without_softcap_ms"] = lib_ms
+    row["tflops"] = flops / row["ms"] / 1e9
+    return row
 
 
 def flash_bwd_checks(torch, clock, dev):
@@ -2882,8 +3073,8 @@ def flash_bwd_checks(torch, clock, dev):
         q, k, v = attn_inputs(torch, B, S, H, Kv, dh, dt, 100 + i, dev)
         kw = dict(causal=causal, window=window, softcap=cap)
         tag = dict(B=B, S=S, H=H, Kv=Kv, dh=dh, dtype=str(dt), **kw)
-        row, (o, do, lse), err = hold_bwd(torch, dev, q, k, v, kw, tag,
-                                          200 + i)
+        row, (o, do, lse, _), err = hold_bwd(torch, dev, q, k, v, kw, tag,
+                                             200 + i)
         rows.append(row)
         if i < 2:
             timed[i] = (q, k, v, o, do, lse, kw, err)
@@ -2908,33 +3099,8 @@ def flash_bwd_checks(torch, clock, dev):
 
     row = {}
     for i, key in ((0, ""), (1, "f32_")):
-        q, k, v, o, do, lse, kw, err = timed[i]
-        elt = q.element_size()
-        nbytes, flops = bwd_cost(q, k, True, 0, elt)
-        peak = BF16_FLOP_PER_S if elt == 2 else FP32_FLOP_PER_S
-        t_ops = flops / peak * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        sq, sk, sv = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        so = torch.nn.functional.scaled_dot_product_attention(
-            sq, sk, sv, is_causal=True, enable_gqa=True)
-        sdo = do.transpose(1, 2)
-        row.update({
-            key + "ms": clock.ms(lambda: fa.flash_attention_bwd_cuda(
-                q, k, v, o, do, lse, **kw)),
-            key + "plain_ms": clock.ms(lambda: fa.flash_attention_bwd_plain(
-                q, k, v, o, do, lse, **kw)),
-            key + "bound_ms": max(t_ops, t_bytes),
-            key + "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            key + "library_ms": clock.ms(lambda: torch.autograd.grad(
-                so, (sq, sk, sv), sdo, retain_graph=True)),
-            key + "max_abs_err": err, key + "flops": flops,
-            key + "bytes": nbytes,
-            key + "shape": f"B={q.shape[0]} S={q.shape[1]} H={q.shape[2]} "
-                           f"Kv={k.shape[2]} dh={q.shape[3]} "
-                           f"{'bf16' if elt == 2 else 'f32'} causal"})
-    row["library"] = ("SDPA backward through autograd (backward only, "
-                      "timed with retain_graph)")
+        row.update({key + name: x for name, x in bwd_time(
+            torch, clock, *timed[i]).items()})
 
     # the bf16 call's two launches, under the profiler, each call after an
     # L2 flush as in Clock.ms
@@ -3642,8 +3808,8 @@ def mla_bwd_checks(torch, clock, dev):
         q, k, v = mla_inputs(torch, B, S, H, dt, 300 + i, dev)
         tag = dict(B=B, S=S, H=H, dqk=dqk, dv=dvw, dtype=str(dt),
                    causal=causal)
-        row, (o, do, lse), err = hold_bwd(torch, dev, q, k, v,
-                                          dict(causal=causal), tag, 400 + i)
+        row, (o, do, lse, _), err = hold_bwd(torch, dev, q, k, v,
+                                             dict(causal=causal), tag, 400 + i)
         rows.append(row)
         if (B, S, H) == MLA_TRAIN_SHAPE and causal:
             timed[dt] = (q, k, v, o, do, lse, err)
@@ -3667,38 +3833,9 @@ def mla_bwd_checks(torch, clock, dev):
     row = {}
     for dt, key in ((bf, ""), (f32, "f32_")):
         q, k, v, o, do, lse, err = timed[dt]
-        elt = q.element_size()
-        nbytes, flops = bwd_cost(q, k, True, 0, elt, dv=dvw)
-        peak = BF16_FLOP_PER_S if elt == 2 else FP32_FLOP_PER_S
-        t_ops = flops / peak * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        row.update({
-            key + "ms": clock.ms(lambda: fa.flash_attention_bwd_cuda(
-                q, k, v, o, do, lse)),
-            key + "plain_ms": clock.ms(lambda: fa.flash_attention_bwd_plain(
-                q, k, v, o, do, lse), reps=5),
-            key + "bound_ms": max(t_ops, t_bytes),
-            key + "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            key + "max_abs_err": err, key + "flops": flops,
-            key + "bytes": nbytes,
-            key + "shape": f"B={q.shape[0]} S={q.shape[1]} H={q.shape[2]} "
-                           f"dqk={dqk} dv={dvw} "
-                           f"{'bf16' if elt == 2 else 'f32'} causal"})
-        sq, sk, sv = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        try:        # SDPA's backward at dv != dqk, if a backend takes it
-            so = torch.nn.functional.scaled_dot_product_attention(
-                sq, sk, sv, is_causal=True)
-            sdo = do.transpose(1, 2)
-            lib = clock.ms(lambda: torch.autograd.grad(
-                so, (sq, sk, sv), sdo, retain_graph=True))
-            note = ("SDPA backward through autograd (backward only, timed "
-                    "with retain_graph)")
-        except RuntimeError as e:
-            lib, note = None, f"SDPA refused the backward at dv != dqk: " \
-                              f"{e}"[:300]
-        row[key + "library_ms"], row[key + "library"] = lib, note
-    row["tflops"] = row["flops"] / row["ms"] / 1e9
+        row.update({key + name: x for name, x in bwd_time(
+            torch, clock, q, k, v, o, do, lse, dict(causal=True), err,
+            plain_reps=5).items()})
 
     q, k, v, o, do, lse, _ = timed[bf]
     reps = 10
@@ -3733,53 +3870,20 @@ def train_cut(torch, *, arch, name, n_layers, n_dense_prefix, n_experts,
     return full, cut
 
 
-def deepseek_train_phase(torch, dev, *, steps, batch, seq, **cut_kw):
-    """(b) the full-width ``deepseek-v3-671b`` cut to ``cut_kw``, bf16,
-    trained by ``repro_torch.launch.train.main`` for ``steps`` steps at the
-    trainer's defaults (no checkpoints), counters reset just before and
-    read just after: one flash forward and one gradient launch per MLA
-    layer every step, every loss finite and the mean of the last 5 under
-    that of the first 5; step ms, tokens/s, peak bytes, the MoE's dropped
-    share and aux loss; then, on the trained weights, two gradients of one
-    batch with the same bits (the MoE's backward adds in a fixed order)
-    and a ``torch.profiler`` window over one train step."""
-    import gc
+def trainer_run(torch, dev, cfg, *, steps, batch, seq, fwd, bwd, reckoned,
+                limit=None):
+    """``repro_torch.launch.train.main`` on the registered ``cfg`` for
+    ``steps`` steps at B x S = ``batch`` x ``seq`` and the trainer's
+    defaults (no checkpoints), counters reset just before and read just
+    after: ``fwd`` flash forward and ``bwd`` gradient launches every step,
+    every loss finite, the mean of the last 5 under that of the first 5,
+    and the peak, less what was allocated before, within ``limit`` (by
+    default ``reckoned``).
+    Returns (the trained parameters, the row: step ms, tokens/s, peak
+    bytes, losses, aux losses)."""
     import shutil
 
-    from repro_torch.data.tokens import batch_iterator
     from repro_torch.kernels import ops
-    from repro_torch.launch.steps import build_train_step, loss_and_grads
-    from repro_torch.models import common as cm
-    from repro_torch.models.api import model_api
-    from repro_torch.optim import adamw
-
-    full, cfg = train_cut(torch, **cut_kw)
-    n_moe = cfg.n_layers - cfg.n_dense_prefix
-    n_params = sum(math.prod(s.shape) for _, s in
-                   cm.leaves(model_api(cfg).param_specs()))
-    largest = max(math.prod(s.shape) for _, s in
-                  cm.leaves(model_api(cfg).param_specs()))
-    # bf16 parameters and gradients, f32 masters and two moments, three
-    # f32 temporaries of the largest leaf in AdamW's update
-    reckoned = n_params * (2 + 2 + 3 * 4) + 3 * 4 * largest
-    emit("deepseek_train_cuts", {
-        "config": cfg.name,
-        "cuts": [f"depth {full.n_layers} -> {cfg.n_layers} "
-                 f"({cfg.n_dense_prefix} dense-prefix layer, d_ff "
-                 f"{cfg.d_ff_dense_prefix}, and {n_moe} MoE layer)",
-                 f"routed experts {full.moe.n_experts} -> "
-                 f"{cfg.moe.n_experts} (top-{cfg.moe.top_k} and "
-                 f"{cfg.moe.n_shared} shared expert kept)",
-                 f"B x S = {batch} x {seq}"],
-        "widths": "as published: d_model 7168, 128 heads, MLA ranks 1536 / "
-                  "512, heads 128 + 64 / 128, d_ff_expert 2048, vocab "
-                  "129280, untied",
-        "params": n_params, "reckoned_peak_bytes": reckoned,
-        "card_bytes": torch.cuda.get_device_properties(0).total_memory})
-    gc.collect()
-    torch.cuda.empty_cache()
-    check(reckoned < torch.cuda.get_device_properties(0).total_memory,
-          f"the cut's reckoned peak {reckoned} fits the card")
 
     walls, losses, auxes, per_step = [], [], [], []
     last = {"t": 0.0, "n": (0, 0)}
@@ -3799,35 +3903,35 @@ def deepseek_train_phase(torch, dev, *, steps, batch, seq, **cut_kw):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    work = ROOT / "build" / "chip_smoke_ckpt" / "deepseek"
+    work = ROOT / "build" / "chip_smoke_ckpt" / cfg.name
     shutil.rmtree(work, ignore_errors=True)
-    with MoESpy() as spy:
-        ops.reset_launch_counts()
-        last["t"] = time.perf_counter()
-        t0 = last["t"]
-        model, log = train_run(torch, dev, [
-            "--arch", cfg.name, "--steps", str(steps), "--batch", str(batch),
-            "--seq", str(seq), "--ckpt-dir", str(work), "--ckpt-every", "0",
-            "--log-every", "10"], on_step)
-        total_s = time.perf_counter() - t0
-        launches = ops.launch_counts()
+    ops.reset_launch_counts()
+    last["t"] = time.perf_counter()
+    t0 = last["t"]
+    model, log = train_run(torch, dev, [
+        "--arch", cfg.name, "--steps", str(steps), "--batch", str(batch),
+        "--seq", str(seq), "--ckpt-dir", str(work), "--ckpt-every", "0",
+        "--log-every", "10"], on_step)
+    total_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    n_mla = cfg.n_layers
     check(len(losses) == steps and all(np.isfinite(losses)),
-          "every DeepSeek training loss finite")
+          f"every {cfg.name} training loss finite")
     first, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    check(last5 < first, f"DeepSeek loss fell: mean of the first 5 {first}, "
-          f"of the last 5 {last5}")
-    check(all(n == (n_mla, n_mla) for n in per_step),
-          f"{n_mla} flash forward and gradient launches a step: "
-          f"{sorted(set(per_step))}")
-    check("training complete" in log, "the DeepSeek trainer finished")
-    check(len(spy.stats) == steps * n_moe, "one MoE call a MoE layer a step")
-    dropped = [float(st.dropped_frac) for st in spy.stats]
+    check(last5 < first, f"{cfg.name} loss fell: mean of the first 5 "
+          f"{first}, of the last 5 {last5}")
+    check(all(n == (fwd, bwd) for n in per_step),
+          f"{cfg.name}: {fwd} flash forward and {bwd} gradient launches a "
+          f"step: {sorted(set(per_step))}")
+    check("training complete" in log, f"the {cfg.name} trainer finished")
+    limit = reckoned if limit is None else limit
+    check(peak - held <= limit, f"{cfg.name}: training peak {peak - held} "
+          f"within {limit} (reckoned {reckoned})")
     steady = walls[1:]
-    out = {
+    return model, {
         "config": cfg.name, "dtype": str(cfg.dtype), "batch": batch,
-        "seq": seq, "steps": steps,
+        "seq": seq, "steps": steps, "n_layers": cfg.n_layers,
+        "remat": cfg.remat,
         "params": sum(p.numel() for p in model.parameters()),
         "step_ms_first": walls[0],
         "step_ms_p50": float(np.percentile(steady, 50)),
@@ -3838,16 +3942,23 @@ def deepseek_train_phase(torch, dev, *, steps, batch, seq, **cut_kw):
         "allocated_before_bytes": held, "training_peak_bytes": peak - held,
         "reckoned_peak_bytes": reckoned,
         "losses": losses, "mean_loss_first_5": first,
-        "mean_loss_last_5": last5,
-        "aux_first": auxes[0], "aux_last": auxes[-1],
-        "moe_dropped_frac_first": dropped[0],
-        "moe_dropped_frac_last": dropped[-1],
-        "moe_dropped_frac_mean": float(np.mean(dropped)),
+        "mean_loss_last_5": last5, "aux_first": auxes[0],
+        "aux_last": auxes[-1],
         "flash_launches_per_step": {"flash_attention": per_step[0][0],
                                     "flash_attention_bwd": per_step[0][1]},
         "launches": launches}
 
-    # the same batch twice: the same gradient bits
+
+def grads_twice(torch, dev, cfg, model, *, batch, seq):
+    """Two gradients of one batch (seeded) on the trained parameters:
+    whether every leaf has the same bits.  Returns (same, two batches)."""
+    import gc
+
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import common as cm
+    from repro_torch.models.api import model_api
+
     api = model_api(cfg)
     it = batch_iterator(batch, seq, seed=7, vocab_size=cfg.vocab_size)
     toks = [torch.from_numpy(next(it)["tokens"]).to(dev) for _ in range(2)]
@@ -3855,15 +3966,26 @@ def deepseek_train_phase(torch, dev, *, steps, batch, seq, **cut_kw):
                                            {"tokens": toks[0]})[2]))
              for _ in range(2)]
     torch.cuda.synchronize()
-    out["grads_same_bits_twice"] = sorted(twice[0]) == sorted(twice[1]) \
-        and same_bits(torch, [twice[0][p] for p in twice[0]],
-                      [twice[1][p] for p in twice[0]])
-    check(out["grads_same_bits_twice"],
-          "two DeepSeek gradients of one batch have the same bits")
+    same = sorted(twice[0]) == sorted(twice[1]) and same_bits(
+        torch, [twice[0][p] for p in twice[0]],
+        [twice[1][p] for p in twice[0]])
+    check(same, f"two {cfg.name} gradients of one batch have the same bits")
     del twice
     gc.collect()
+    return same, toks
 
-    # where a train step's time goes
+
+def train_step_profile(torch, cfg, model, toks, flash) -> dict:
+    """A ``torch.profiler`` window over one train step (after a warm one)
+    from a fresh optimizer state, with the device ms of the ``flash``
+    kernels, each of which must have run, and by kind: elementwise passes
+    (AdamW's per-leaf update, the norms), reductions, cuBLAS products
+    (gemm / nvjet)."""
+    import gc
+
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import adamw
+
     ocfg = adamw.AdamWConfig(total_steps=2)
     state = {"lm": model, "opt": adamw.init_opt_state(model, ocfg)}
     step = build_train_step(cfg, ocfg)
@@ -3872,20 +3994,100 @@ def deepseek_train_phase(torch, dev, *, steps, batch, seq, **cut_kw):
         state["lm"], state["opt"], _ = step(state["lm"], state["opt"],
                                             {"tokens": t})
     one(toks[0])                              # warm
-    flash = ("flash_wgmma_kernel<192", "flash_bwd_dq_kernel<192",
-             "flash_bwd_dkdv_kernel<192")
-    # and the device time by kind: elementwise passes (AdamW's per-leaf
-    # update, the norms), reductions, cuBLAS products (gemm / nvjet)
     prof = profiled(torch, lambda: one(toks[1]),
                     kernels=flash + ("elementwise", "reduce", "gemm",
                                      "nvjet"))
     check(all(prof["kernel_ms"][k] > 0 for k in flash),
-          f"the (192, 128) flash kernels ran in the profiled step: "
+          f"the flash kernels ran in the profiled {cfg.name} step: "
           f"{prof['kernel_ms']}")
-    out["profile"] = prof
+    del state, step
+    gc.collect()
+    return prof
+
+
+def deepseek_train_phase(torch, dev, *, steps, batch, seq, **cut_kw):
+    """(b) the full-width ``deepseek-v3-671b`` cut to ``cut_kw``, bf16,
+    through ``trainer_run``: under remat the dense prefix's MLA runs its
+    flash forward once a step and the body's twice (the forward and its
+    recomputation), one gradient launch a layer; two MoE calls a MoE layer
+    a step, the recomputed call's expert ids equal to the forward's; the
+    peak within its reckoning plus DEEPSEEK_PEAK_MARGIN; step ms,
+    tokens/s, peak bytes, the MoE's dropped share and aux loss; then,
+    on the trained weights, two gradients of one batch with the same bits
+    (the MoE's backward adds in a fixed order) and a ``torch.profiler``
+    window over one train step."""
+    import gc
+
+    from repro_torch.models import common as cm
+    from repro_torch.models.api import model_api
+
+    full, cfg = train_cut(torch, **cut_kw)
+    n_moe = cfg.n_layers - cfg.n_dense_prefix
+    specs = [s for _, s in cm.leaves(model_api(cfg).param_specs())]
+    n_params = sum(math.prod(s.shape) for s in specs)
+    largest = max(math.prod(s.shape) for s in specs)
+    # bf16 parameters and gradients, f32 masters and two moments, three
+    # f32 temporaries of the largest leaf in AdamW's update
+    reckoned = n_params * (2 + 2 + 3 * 4) + 3 * 4 * largest
+    emit("deepseek_train_cuts", {
+        "config": cfg.name,
+        "cuts": [f"depth {full.n_layers} -> {cfg.n_layers} "
+                 f"({cfg.n_dense_prefix} dense-prefix layer, d_ff "
+                 f"{cfg.d_ff_dense_prefix}, and {n_moe} MoE layer)",
+                 f"routed experts {full.moe.n_experts} -> "
+                 f"{cfg.moe.n_experts} (top-{cfg.moe.top_k} and "
+                 f"{cfg.moe.n_shared} shared expert kept)",
+                 f"B x S = {batch} x {seq}"],
+        "widths": "as published: d_model 7168, 128 heads, MLA ranks 1536 / "
+                  "512, heads 128 + 64 / 128, d_ff_expert 2048, vocab "
+                  "129280, untied",
+        "remat": cfg.remat,
+        "params": n_params, "reckoned_peak_bytes": reckoned,
+        "card_bytes": torch.cuda.get_device_properties(0).total_memory})
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(reckoned < torch.cuda.get_device_properties(0).total_memory,
+          f"the cut's reckoned peak {reckoned} fits the card")
+    check(cfg.remat, "the DeepSeek cut trains under remat, as the "
+          "reference's config does")
+    fwd = cfg.n_dense_prefix + 2 * n_moe
+    with MoESpy() as spy:
+        model, out = trainer_run(
+            torch, dev, cfg, steps=steps, batch=batch, seq=seq, fwd=fwd,
+            bwd=cfg.n_layers, reckoned=reckoned,
+            limit=reckoned + DEEPSEEK_PEAK_MARGIN)
+    # routes, counted by ``_route``: the recomputation stops (PyTorch's
+    # early stop) once it has every tensor the backward needs, before
+    # ``moe_apply`` returns, so ``spy.stats`` holds the forward's calls
+    check(len(spy.ids) == 2 * steps * n_moe,
+          f"two MoE calls a MoE layer a step (the forward and its "
+          f"recomputation): {len(spy.ids)} in {steps} steps")
+    # each step: the forward's MoE calls in layer order, then the
+    # recomputed ones, last period first
+    same_ids = True
+    for s in range(steps):
+        ids = spy.ids[2 * n_moe * s:2 * n_moe * (s + 1)]
+        for a, b in zip(ids[:n_moe], reversed(ids[n_moe:])):
+            same_ids &= torch.equal(a, b)
+    check(same_ids, "every recomputed MoE call routed to the forward's "
+          "expert ids")
+    dropped = [float(st.dropped_frac) for st in spy.stats]
+    out.update({
+        "moe_calls_per_step": len(spy.ids) // steps,
+        "moe_stats_recorded": len(spy.stats),
+        "recomputed_ids_equal_forward": same_ids,
+        "moe_dropped_frac_first": dropped[0],
+        "moe_dropped_frac_last": dropped[-1],
+        "moe_dropped_frac_mean": float(np.mean(dropped))})
+    out["grads_same_bits_twice"], toks = grads_twice(
+        torch, dev, cfg, model, batch=batch, seq=seq)
+    flash = ("flash_wgmma_kernel<192", "flash_bwd_dq_kernel<192",
+             "flash_bwd_dkdv_kernel<192")
+    out["profile"] = prof = train_step_profile(torch, cfg, model, toks,
+                                               flash)
     emit("deepseek_train_phase", out)
     emit("deepseek_train_profile", prof)
-    del state, model, step
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3909,13 +4111,14 @@ def deepseek_replay_cut(torch, dtype, *, arch, n_layers, d_model, n_heads,
 def deepseek_train_replay(torch, dev, *, batch, seq, steps):
     """(c) ``steps`` f32 train steps of DEEPSEEK_REPLAY's cut on the card
     and on the CPU port from the same weights: the same expert ids at every
-    MoE call of every step, loss, grad norm and masters within
-    TRAIN_REPLAY_TOL (``replay_train``)."""
+    MoE call of every step (the recomputed ones under remat too), loss,
+    grad norm and masters within TRAIN_REPLAY_TOL (``replay_train``)."""
     cfg = deepseek_replay_cut(torch, torch.float32, **DEEPSEEK_REPLAY)
     with MoESpy() as spy:
         out = replay_train(torch, dev, cfg, batch=batch, seq=seq,
                            steps=steps)
-    n = steps * (cfg.n_layers - cfg.n_dense_prefix)
+    # under remat each MoE call routes again in the backward pass
+    n = steps * (cfg.n_layers - cfg.n_dense_prefix) * (1 + cfg.remat)
     check(len(spy.ids) == 2 * n, f"replay MoE calls {len(spy.ids)}")
     for j, (a, b) in enumerate(zip(spy.ids[:n], spy.ids[n:])):
         check(torch.equal(a.cpu(), b.cpu()),
@@ -3926,11 +4129,11 @@ def deepseek_train_replay(torch, dev, *, batch, seq, steps):
     return out
 
 
-def deepseek_kill_resume(torch, dev, *, steps, ckpt_every, kill_at, batch,
-                         seq):
-    """(d) DEEPSEEK_REPLAY's cut in bf16 through ``launch.train.main``:
-    ``--kill-at`` exits 42, the checkpoint restores bit-equal to the
-    parameters saved, and the rerun resumes and finishes."""
+def kill_resume(torch, dev, cfg, *, steps, ckpt_every, kill_at, batch, seq):
+    """``cfg`` (registered under its name here) through
+    ``launch.train.main``: ``--kill-at`` exits 42, the checkpoint restores
+    bit-equal to the parameters saved, and the rerun resumes and
+    finishes."""
     import shutil
 
     from repro_torch import convert
@@ -3938,10 +4141,8 @@ def deepseek_kill_resume(torch, dev, *, steps, ckpt_every, kill_at, batch,
     from repro_torch.configs.base import register
     from repro_torch.models import common as cm
 
-    cfg = deepseek_replay_cut(torch, torch.bfloat16, **DEEPSEEK_REPLAY)
-    cfg = cfg.replace(name=cfg.name + "-replay-cut")
     register(cfg.name)(lambda: cfg)
-    kdir = ROOT / "build" / "chip_smoke_ckpt" / "deepseek_kill"
+    kdir = ROOT / "build" / "chip_smoke_ckpt" / f"{cfg.name}_kill"
     shutil.rmtree(kdir, ignore_errors=True)
     base = ["--arch", cfg.name, "--batch", str(batch), "--seq", str(seq),
             "--steps", str(steps), "--ckpt-dir", str(kdir), "--ckpt-every",
@@ -3953,30 +4154,39 @@ def deepseek_kill_resume(torch, dev, *, steps, ckpt_every, kill_at, batch,
             saved["tree"] = convert.lm_params_to_tree(params)
 
     code, _ = train_run(torch, dev, base + ["--kill-at", str(kill_at)], snap)
-    check(code == 42, f"DeepSeek --kill-at exits 42 (got {code!r})")
+    check(code == 42, f"{cfg.name} --kill-at exits 42 (got {code!r})")
     ck = kdir / cfg.name
     check(ckpt_mod.latest_step(ck) == ckpt_every,
-          f"latest DeepSeek checkpoint after the kill: "
+          f"latest {cfg.name} checkpoint after the kill: "
           f"{ckpt_mod.latest_step(ck)}")
     back = ckpt_mod.restore(ck, ckpt_every, saved["tree"], device=dev)
     bit_equal = same_bits(torch, [a.cpu() for _, a in cm.leaves(back)],
                           [b for _, b in cm.leaves(saved["tree"])])
-    check(bit_equal, "restored DeepSeek parameters bit-equal to the saved")
+    check(bit_equal, f"restored {cfg.name} parameters bit-equal to the "
+          "saved")
     seen = []
     _, log = train_run(torch, dev, base,
                        lambda s, m, p: seen.append((s, float(m["loss"]))))
     check(f"[restore] resuming from step {ckpt_every}" in log
           and "training complete" in log,
-          "the DeepSeek rerun resumed and finished")
+          f"the {cfg.name} rerun resumed and finished")
     check([s for s, _ in seen] == list(range(ckpt_every + 1, steps + 1)),
           f"resumed steps {[s for s, _ in seen]}")
     check(all(np.isfinite(x) for _, x in seen), "resumed losses finite")
-    out = {"config": f"{cfg.name} (DEEPSEEK_REPLAY's cut), bf16",
-           "steps": steps, "ckpt_every": ckpt_every, "kill_at": kill_at,
-           "exit_code": code, "resumed_from": ckpt_every,
-           "restored_bit_equal": bit_equal, "resumed_losses": seen}
-    emit("deepseek_train_kill_resume", out)
     shutil.rmtree(kdir, ignore_errors=True)
+    return {"steps": steps, "ckpt_every": ckpt_every, "kill_at": kill_at,
+            "batch": batch, "seq": seq, "exit_code": code,
+            "resumed_from": ckpt_every, "restored_bit_equal": bit_equal,
+            "resumed_losses": seen}
+
+
+def deepseek_kill_resume(torch, dev, **kw):
+    """(d) DEEPSEEK_REPLAY's cut in bf16 through ``kill_resume``."""
+    cfg = deepseek_replay_cut(torch, torch.bfloat16, **DEEPSEEK_REPLAY)
+    cfg = cfg.replace(name=cfg.name + "-replay-cut")
+    out = {"config": f"{cfg.name} (DEEPSEEK_REPLAY's cut), bf16",
+           **kill_resume(torch, dev, cfg, **kw)}
+    emit("deepseek_train_kill_resume", out)
     return out
 
 
@@ -4213,6 +4423,18 @@ def dense_serve_phase(torch, dev, name, *, batch, prompt, new_tokens,
     return out
 
 
+def dense_replay_cut(name, dtype, *, d_model, n_heads, n_kv_heads, d_ff,
+                     n_layers, sliding_window, vocab_size, **_):
+    """``name`` cut to DENSE_REPLAY's widths in ``dtype``: its own head
+    width, softcaps, activation and remat as published."""
+    from repro_torch.configs.base import get_config
+
+    return get_config(name).replace(
+        d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv_heads, d_ff=d_ff,
+        n_layers=n_layers, sliding_window=sliding_window,
+        vocab_size=vocab_size, dtype=dtype)
+
+
 def dense_replay_phase(torch, dev, *, d_model, n_heads, n_kv_heads, d_ff,
                        n_layers, sliding_window, vocab_size, batch, prompt,
                        new_tokens):
@@ -4222,7 +4444,6 @@ def dense_replay_phase(torch, dev, *, d_model, n_heads, n_kv_heads, d_ff,
     DENSE_REPLAY_TOL of the largest, one flash launch a layer a prefill on
     the card; then on the card each decode step's logits against the
     last-token logits of one prefill over the whole sequence so far."""
-    from repro_torch.configs.base import get_config
     from repro_torch.models.api import model_api
 
     out = {"cut": f"d_model {d_model}, {n_heads} heads / {n_kv_heads} kv, "
@@ -4233,10 +4454,11 @@ def dense_replay_phase(torch, dev, *, d_model, n_heads, n_kv_heads, d_ff,
     prompt_np = np.random.default_rng(2).integers(
         0, vocab_size, (batch, prompt)).astype(np.int32)
     for name in ("gemma2-27b", "h2o-danube-3-4b"):
-        cfg = get_config(name).replace(
-            d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv_heads,
-            d_ff=d_ff, n_layers=n_layers, sliding_window=sliding_window,
-            vocab_size=vocab_size, dtype=torch.float32)
+        cfg = dense_replay_cut(name, torch.float32, d_model=d_model,
+                               n_heads=n_heads, n_kv_heads=n_kv_heads,
+                               d_ff=d_ff, n_layers=n_layers,
+                               sliding_window=sliding_window,
+                               vocab_size=vocab_size)
         api = model_api(cfg)
         runs = {}
         for device in (dev, "cpu"):
@@ -4274,6 +4496,316 @@ def dense_replay_phase(torch, dev, *, d_model, n_heads, n_kv_heads, d_ff,
             "ring_wrapped": prompt + new_tokens > sliding_window}
         del runs, gmodel
     emit("dense_replay_phase", out)
+    return out
+
+
+# ----------------------------------------------------------------- step 20
+def widen_next_head(torch, t, to: int):
+    """[B, S, h, d] (contiguous) -> [B, S, h, to] whose columns d .. to - 1
+    are the ``to - d`` elements after each row in memory (the next head's
+    first columns; zeros past the tensor's end): what a load of ``to``
+    columns a row reads."""
+    B, S, h, d = t.shape
+    flat = torch.cat([t.reshape(-1), t.new_zeros(to - d)])
+    rows = torch.arange(B * S * h, device=t.device)[:, None] * d
+    return flat[rows + torch.arange(to, device=t.device)].reshape(B, S, h,
+                                                                  to)
+
+
+def faulty_grads(torch, q, k, v, o, do, lse, want, kw) -> dict:
+    """The gradients of faulty kernels, built from
+    ``flash_attention_bwd_plain`` on the same inputs and lse or from its
+    gradients ``want``: ``first_tile``, one whose window's lower key-tile
+    bound is a 64-key tile too high (each 64-row query tile whose
+    ``key_tiles`` begin is past 0 leaves out that first tile's keys; at a
+    window of 64 or more); ``next_head``, one whose rows of a head
+    narrower than its 128-wide tile are read 128 wide, columns 120-127 the
+    next head's first 8 (at dh 120); ``dq_tail`` and ``dv_tail``, one
+    whose dq (dv) is 0.9 of the true one on the queries (keys) at or past
+    position min(4096, S // 2) (where a row there passes the limit's
+    floor: at window 1 dq is rounding residue).  {name: ((dq, dk, dv) in
+    q's dtype, the (row, key) pairs, columns or rows it gets wrong)}."""
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    tail = min(4096, q.shape[1] // 2)
+    for i, name in ((0, "dq_tail"), (2, "dv_tail")):
+        bad = list(want)
+        bad[i] = want[i].clone()
+        bad[i][:, tail:] *= 0.9
+        n = int((row_rms(want[i][:, tail:])
+                 >= DENSE_BWD_BF16_TOL[2]).sum())
+        if n:
+            out[name] = (tuple(bad), n)
+    S, dh = q.shape[1], q.shape[3]
+    window = kw["window"]
+    if window >= 64:
+        masks = fa._bwd_masks
+        pos = torch.arange(S, device=q.device)
+        lo = (pos // 64 * 64 - window + 1).clamp(min=0) // 64
+        drop = (pos[None, :] // 64 == lo[:, None]) & (lo[:, None] > 0)
+        n = int((masks(S, kw["causal"], window, q.device) & drop).sum())
+        fa._bwd_masks = lambda *a: masks(*a) & ~drop
+        try:
+            out["first_tile"] = (fa.flash_attention_bwd_plain(
+                q, k, v, o, do, lse, **kw), n)
+        finally:
+            fa._bwd_masks = masks
+    if dh % 64:
+        wide = -(-dh // 64) * 64
+        f = (wide / dh) ** 0.5           # keeps the scale at dh^-0.5
+        w = [widen_next_head(torch, t, wide).float() for t in (q, k, v, o,
+                                                               do)]
+        dq, dk, dv = fa.flash_attention_bwd_plain(w[0] * f, *w[1:], lse,
+                                                  **kw)
+        out["next_head"] = (tuple(t[..., :dh].to(q.dtype)
+                                  for t in (dq * f, dk, dv)), wide - dh)
+    return out
+
+
+def dense_bwd_checks(torch, clock, dev):
+    """(a) ``flash_attention_bwd_cuda`` against ``flash_attention_bwd_plain``
+    at every DENSE_BWD_CASES shape through ``hold_bwd`` (the forward
+    kernel's lse held to the plain version's first): bf16 within
+    DENSE_BWD_BF16_TOL, f32 within ATTN_TOL, the same bits from two calls.
+    At each bf16 shape every gradient of ``faulty_grads`` must fail
+    DENSE_BWD_BF16_TOL.  Autograd through ``ops.flash_attention_bshd`` at
+    h2o's shape launches the kernel once and returns the direct call's
+    bits.  DENSE_BWD_TIMED (h2o's (120, 120) and gemma2's windowed (128,
+    128)) are timed by ``bwd_time``, and the (128, 128) instance at h2o's
+    (B, S, H, Kv) beside the first.  Returns the two time rows."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    tol = DENSE_BWD_BF16_TOL
+    timed = {}
+    for i, (B, S, H, Kv, dh, causal, window, cap) in enumerate(
+            DENSE_BWD_CASES):
+        for dt in (torch.bfloat16, torch.float32):
+            bf = dt == torch.bfloat16
+            q, k, v = attn_inputs(torch, B, S, H, Kv, dh, dt, 700 + i, dev)
+            kw = dict(causal=causal, window=window, softcap=cap)
+            tag = dict(B=B, S=S, H=H, Kv=Kv, dh=dh, dtype=str(dt), **kw)
+            row, (o, do, lse, want), err = hold_bwd(
+                torch, dev, q, k, v, kw, tag, 800 + i,
+                scaled=tol if bf else None)
+            if bf:
+                row["faulty"] = {}
+                for fault, (bad, n) in faulty_grads(torch, q, k, v, o, do,
+                                                    lse, want, kw).items():
+                    over = [(a.float() - b.float()).abs()
+                            / scaled_limit(b, tol) for a, b in zip(bad, want)]
+                    share = max(float(x.max()) for x in over)
+                    check(share > 1, f"DENSE_BWD_BF16_TOL rejects the "
+                          f"{fault} gradient at {tag}: {share} of the limit")
+                    row["faulty"][fault] = {
+                        "wrong": n, "limit_share": share,
+                        "entries_past_limit": sum(int((x > 1).sum())
+                                                  for x in over)}
+                    del bad, over
+            emit("dense_attention_bwd_check", row)
+            if bf and i in DENSE_BWD_TIMED:
+                timed[i] = (q, k, v, o, do, lse, kw, err)
+            del q, k, v, o, do, lse, want
+            torch.cuda.empty_cache()
+
+    q, k, v, o, do, lse, kw, _ = timed[DENSE_BWD_TIMED[0]]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention_bshd(*leaves, **kw)
+    check(torch.equal(out.grad_fn.saved_tensors[4], lse),
+          "autograd saved the (120, 120) forward kernel's lse")
+    n0 = fa.bwd_launches
+    grads = torch.autograd.grad(out, leaves, do)
+    direct = fa.flash_attention_bwd_cuda(q, k, v, out.detach(), do, lse,
+                                         **kw)
+    torch.cuda.synchronize()
+    check(fa.bwd_launches - n0 == 2, "autograd launched the (120, 120) "
+          f"backward once ({fa.bwd_launches - n0 - 1} launches)")
+    check(all(torch.equal(a, b) for a, b in zip(grads, direct)),
+          "autograd's (120, 120) gradients = the kernel's direct output")
+    del leaves, out, grads, direct
+
+    rows = [bwd_time(torch, clock, *timed[i], plain_as_called=True,
+                     plain_reps=5) for i in DENSE_BWD_TIMED]
+    B, S, H, Kv, _, causal, window, cap = DENSE_BWD_CASES[DENSE_BWD_TIMED[0]]
+    q, k, v = attn_inputs(torch, B, S, H, Kv, 128, torch.bfloat16, 7, dev)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    do = torch.randn_like(o)
+    rows[0]["dh128_same_shape_ms"] = clock.ms(
+        lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw))
+    for row in rows:
+        emit("dense_attention_bwd_time", row)
+    del timed
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dense_train_reckon(cfg, batch: int, seq: int) -> dict:
+    """Bytes of a bf16 train step of ``cfg`` at B x S, before it runs: 16
+    a parameter (bf16 parameter and gradient, f32 master and two moments)
+    and the larger of the two phases' transients: AdamW's three f32
+    temporaries of the largest leaf (the update runs once the backward
+    pass has freed its activations), and the backward pass's remat
+    activations (each period's input saved, four more d_model-wide
+    tensors around the body; one period's recomputed activations and
+    their gradients: 14 bytes a d_ff column, 28 a d_model column, q, k, v
+    and o in bf16 and 8 bytes a head, a token and a layer) with the loss:
+    the f32 logits every other 512-position chunk saved for its backward
+    (two copies under a final softcap: the tanh's output and the capped
+    logits) and the chunk in flight (five f32 copies of its logits, six
+    under a final softcap, and two of the head's weight gradient)."""
+    from repro_torch.models import common as cm
+    from repro_torch.models.lm import lm_param_specs
+
+    es = cfg.dtype.itemsize
+    sizes = [math.prod(s.shape) for _, s in cm.leaves(lm_param_specs(cfg))]
+    n, d, V = batch * seq, cfg.d_model, cfg.vocab_size
+    H, Kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    out = {"params": sum(sizes), "state_bytes": 16 * sum(sizes),
+           "adamw_bytes": 12 * max(sizes),
+           "checkpoint_bytes": (cfg.n_layers // cfg.period + 4) * n * d * es,
+           "period_bytes": cfg.period * n * (
+               14 * cfg.d_ff + 28 * d + es * (2 * H + 2 * Kv) * dh + 8 * H),
+           "loss_chunk_bytes": batch * min(512, seq) * V * 4 * (
+               6 if cfg.final_logit_softcap else 5) + 2 * V * d * es,
+           "loss_saved_bytes": (-(-seq // 512) - 1) * batch * 512 * V * 4
+           * (2 if cfg.final_logit_softcap else 1)}
+    transients = (out["checkpoint_bytes"] + out["period_bytes"]
+                  + out["loss_saved_bytes"] + out["loss_chunk_bytes"])
+    out["total_bytes"] = out["state_bytes"] + max(out["adamw_bytes"],
+                                                  transients)
+    # what one loss-and-gradient pass adds to the parameters it is given:
+    # the gradients and the transients (``backward_peak`` measures it)
+    out["backward_bytes"] = es * sum(sizes) + transients
+    return out
+
+
+def dense_train_cut(torch, name: str, batch: int, seq: int):
+    """``name`` at full width, cut in depth (by whole periods: gemma2's SWA
+    / GLOBAL pair, a layer elsewhere) while the allocated bytes plus the
+    reckoning pass DENSE_PEAK_LIMIT, and registered as ``name-train-cut``
+    when cut.  Returns (the config, its reckoning)."""
+    import gc
+
+    from repro_torch.configs.base import get_config, register
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    full = cfg = get_config(name)
+    rk = dense_train_reckon(cfg, batch, seq)
+    while before + rk["total_bytes"] > DENSE_PEAK_LIMIT:
+        cfg = cfg.replace(n_layers=cfg.n_layers - cfg.period)
+        rk = dense_train_reckon(cfg, batch, seq)
+    check(cfg.n_layers >= cfg.period, f"{name}: one period fits")
+    if cfg.n_layers != full.n_layers:
+        cfg = cfg.replace(name=f"{name}-train-cut")
+        register(cfg.name)(lambda c=cfg: c)
+    emit("dense_train_cuts", {
+        "config": cfg.name, "n_layers": f"{full.n_layers} -> {cfg.n_layers}",
+        "cut": cfg.n_layers != full.n_layers, "batch": batch, "seq": seq,
+        "why": f"reckoned peak {before + rk['total_bytes']} bytes against "
+               f"{DENSE_PEAK_LIMIT:.0f}",
+        "widths": "as published; random weights seeded on the card",
+        "reckoned": rk, "allocated_before_bytes": before})
+    return cfg, rk
+
+
+def backward_peak(torch, dev, cfg, model, *, batch, seq) -> int:
+    """The bytes one loss-and-gradient pass of ``cfg`` on a seeded B x S
+    batch allocates past what was held before it (the gradients, the remat
+    activations, the loss chunks' logits): the backward phase's own peak,
+    apart from AdamW's."""
+    import gc
+
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.api import model_api
+
+    toks = torch.from_numpy(next(batch_iterator(
+        batch, seq, seed=5, vocab_size=cfg.vocab_size))["tokens"]).to(dev)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    grads = loss_and_grads(model_api(cfg).loss, model, {"tokens": toks})[2]
+    torch.cuda.synchronize()
+    del grads
+    return torch.cuda.max_memory_allocated() - held
+
+
+def dense_train_phase(torch, dev, name, *, batch, seq, steps,
+                      profile=False):
+    """(b)-(c) ``name`` at full width, cut by ``dense_train_cut``, bf16,
+    through ``trainer_run``: under remat each layer's flash forward runs
+    twice a step (the forward and its recomputation) and its gradient
+    once, every loss finite and falling, the peak within its reckoning;
+    then ``backward_peak`` within the reckoning's backward term.
+    ``profile``: two gradients of one batch with the same bits and a
+    ``torch.profiler`` window over one train step."""
+    import gc
+
+    cfg, rk = dense_train_cut(torch, name, batch, seq)
+    check(cfg.remat, f"{name} trains under remat, as the reference's "
+          "config does")
+    model, out = trainer_run(torch, dev, cfg, steps=steps, batch=batch,
+                             seq=seq, fwd=2 * cfg.n_layers, bwd=cfg.n_layers,
+                             reckoned=rk["total_bytes"])
+    out["reckoned"] = rk
+    out["backward_peak_bytes"] = backward_peak(torch, dev, cfg, model,
+                                               batch=batch, seq=seq)
+    check(out["backward_peak_bytes"] <= rk["backward_bytes"],
+          f"{name}: backward peak {out['backward_peak_bytes']} within its "
+          f"reckoning {rk['backward_bytes']}")
+    if profile:
+        out["grads_same_bits_twice"], toks = grads_twice(
+            torch, dev, cfg, model, batch=batch, seq=seq)
+        flash = tuple(f"{k}<{cfg.d_head}" for k in (
+            "flash_wgmma_kernel", "flash_bwd_dq_kernel",
+            "flash_bwd_dkdv_kernel"))
+        out["profile"] = train_step_profile(torch, cfg, model, toks, flash)
+        emit("dense_train_profile", {"config": cfg.name, **out["profile"]})
+    emit("dense_train_phase", out)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_train_replay(torch, dev, *, batch, seq, steps):
+    """(d) gemma2 and h2o cut to DENSE_REPLAY's width (their head widths,
+    softcaps and remat as published), f32, ``steps`` train steps on the
+    card and on the CPU port from the same weights (``replay_train``):
+    loss, grad norm and masters within TRAIN_REPLAY_TOL; on the card the
+    f32 gradient kernel launched once a layer a step and the forward twice
+    (remat)."""
+    from repro_torch.kernels import ops
+
+    out = {}
+    for name in ("gemma2-27b", "h2o-danube-3-4b"):
+        cfg = dense_replay_cut(name, torch.float32, **DENSE_REPLAY)
+        ops.reset_launch_counts()
+        out[name] = replay_train(torch, dev, cfg, batch=batch, seq=seq,
+                                 steps=steps)
+        c = ops.launch_counts()
+        check((c["flash_attention"], c["flash_attention_bwd"])
+              == (2 * steps * cfg.n_layers, steps * cfg.n_layers),
+              f"{name} replay: flash launches on the card {c}")
+        out[name].update(launches=c, d_head=cfg.d_head,
+                         softcap=cfg.attn_logit_softcap)
+    emit("dense_train_replay", out)
+    return out
+
+
+def dense_kill_resume(torch, dev, **kw):
+    """(e) gemma2 at DENSE_REPLAY's width in bf16 through
+    ``kill_resume``."""
+    cfg = dense_replay_cut("gemma2-27b", torch.bfloat16, **DENSE_REPLAY)
+    cfg = cfg.replace(name=cfg.name + "-replay-cut")
+    out = {"config": f"{cfg.name} (DENSE_REPLAY's cut), bf16",
+           **kill_resume(torch, dev, cfg, **kw)}
+    emit("dense_train_kill_resume", out)
     return out
 
 
@@ -4429,6 +4961,14 @@ def main() -> int:
                          dev, name, **kw) for name, kw in DENSE_SERVE}
     timed("dense_replay_phase", dense_replay_phase, torch, dev,
           **DENSE_REPLAY)
+    dense_bwd120, dense_bwd128 = timed("dense_bwd_checks", dense_bwd_checks,
+                                       torch, clock, dev)
+    dense_train = {name: timed(f"dense_train_{name}", dense_train_phase,
+                               torch, dev, name, steps=DENSE_TRAIN_STEPS,
+                               **kw) for name, kw in DENSE_TRAIN}
+    timed("dense_train_replay", dense_train_replay, torch, dev,
+          **DENSE_TRAIN_REPLAY)
+    timed("dense_kill_resume", dense_kill_resume, torch, dev, **DENSE_KILL)
     emit("phase_seconds", phase_s)
     print(smi, flush=True)          # again, inside the tail of a long log
 
@@ -4477,10 +5017,29 @@ def main() -> int:
          "launches": train["train"]["launches"]["flash_attention_bwd"],
          "launched_on": "step 16 captioner training path (12 a step); "
                         "step 18 DeepSeek training path (2 a step, the "
-                        "(192, 128) instance)",
+                        "(192, 128) instance); step 20 the dense GQA "
+                        "configs' training paths (one a layer a step: "
+                        "(120, 120) on h2o-danube-3-4b, (128, 128) on "
+                        "gemma2-27b, yi-9b and minitron-4b)",
          **bwd_row,
          "deepseek_train_launches":
              ds_train["launches"]["flash_attention_bwd"],
+         "dense_train_launches": {
+             n: d["launches"]["flash_attention_bwd"]
+             for n, d in dense_train.items()},
+         "dh120_instance": {
+             "instance": "(dqk, dv) = (120, 120): flash_bwd_dq_kernel<120,"
+                         "120> and flash_bwd_dkdv_kernel<120,120> (bf16, on "
+                         "the 128-wide tiles, columns 120-127 zero-filled), "
+                         "the f32 pair <120,120>",
+             "launches": dense_train["h2o-danube-3-4b"]["launches"][
+                 "flash_attention_bwd"], **dense_bwd120},
+         "gqa128_training": {
+             "instance": "(dqk, dv) = (128, 128) at gemma2-27b's windowed "
+                         "training shape",
+             "launches": sum(dense_train[n]["launches"]["flash_attention_bwd"]
+                             for n in ("gemma2-27b", "yi-9b",
+                                       "minitron-4b")), **dense_bwd128},
          "mla_instance": {
              "instance": "(dqk, dv) = (192, 128): flash_bwd_dq_kernel<192,"
                          "128> and flash_bwd_dkdv_kernel<192,128> (bf16), "
@@ -4505,7 +5064,9 @@ def main() -> int:
          "launches": dense["h2o-danube-3-4b"]["flash_launches"],
          "launched_on": "step 19 h2o-danube-3-4b serving path (one a layer "
                         "a prefill, 24 layers, 2 prefills an arm, bf16 and "
-                        "int8 cache arms)", **dense120},
+                        "int8 cache arms)", **dense120,
+         "train_launches": dense_train["h2o-danube-3-4b"]["launches"][
+             "flash_attention"]},
         {"name": "flash_attention_gqa128", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:93",
@@ -4518,7 +5079,10 @@ def main() -> int:
                                           "minitron-4b")},
          "launched_on": "step 19 gemma2-27b (46 layers), yi-9b (48) and "
                         "minitron-4b (32) serving paths, one a layer a "
-                        "prefill, 2 prefills each", **dense128},
+                        "prefill, 2 prefills each", **dense128,
+         "train_launches": {n: dense_train[n]["launches"]["flash_attention"]
+                            for n in ("gemma2-27b", "yi-9b",
+                                      "minitron-4b")}},
         {"name": "nearest_dist", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pairwise.cu",
          "replaces": "src/repro/kernels/pairwise.py:59",

@@ -29,4 +29,5 @@ def config() -> cm.ArchConfig:
         moe=cm.MoEConfig(n_experts=160, top_k=6, d_ff_expert=1536, n_shared=2),
         rope_theta=10000.0,
         tie_embeddings=False,
+        remat=True,                      # the reference's ArchConfig default
     )

@@ -29,4 +29,5 @@ def config() -> cm.ArchConfig:
         moe=cm.MoEConfig(n_experts=256, top_k=8, d_ff_expert=2048, n_shared=1),
         rope_theta=10000.0,
         tie_embeddings=False,
+        remat=True,                      # the reference's ArchConfig default
     )

@@ -24,12 +24,13 @@
 // [B, S, H, dv] are read through their strides (the head dim contiguous),
 // query head h reading kv head h / (H / Kv); dk and dv of kv head j sum
 // over its G = H / Kv query heads.  dq, dk [.., dqk] and dv [.., dv] are
-// written contiguous in q's dtype.  (dqk, dv) is (64, 64), (128, 128) or
+// written contiguous in q's dtype.  (dqk, dv) is (64, 64), (128, 128),
 // (192, 128), DeepSeek MLA's prefill (a q / k head of qk_nope + qk_rope =
-// 128 + 64, a v head of 128): S = Q . K^T contracts over dqk and
-// dP = dO . V^T over dv; Q, K, dQ and dK are dqk / 64 panels of 64 columns,
-// V, dO and dV dv / 64.  Masks as the forward: causal kpos <= qpos, window
-// qpos - kpos < window, and keys at or past S never count.
+// 128 + 64, a v head of 128), or (120, 120), h2o-danube-3's head:
+// S = Q . K^T contracts over dqk and dP = dO . V^T over dv; Q, K, dQ and
+// dK are ceil(dqk / 64) panels of 64 columns, V, dO and dV ceil(dv / 64).
+// Masks as the forward: causal kpos <= qpos, window qpos - kpos < window,
+// and keys at or past S never count.
 //
 // Design: two launches, no float atomics, so two calls give the same bits.
 // The forward's lse replaces a statistics pass, so the scores are formed
@@ -71,6 +72,16 @@
 //   the mask is applied only in the tiles that need it.
 //   f32 (SIMT fp32 FMA, no TF32): the same two launches over 64 x 64 tiles
 //   in shared memory, 256 threads each owning a 4 x 4 micro-tile of scores.
+//   A head width that is not a multiple of 64 (120) runs on the tiles of
+//   the next one (128), as the forward does (csrc/flash_attention.cu): in
+//   bf16 load_tile copies the true width of each row and zero-fills the
+//   16-byte chunks past it (a cp.async of source size 0, as rows past S
+//   are filled), so S = Q . K^T, dP = dO . V^T, dQ = dS . K, dK = dS^T . Q
+//   and dV = P~^T . dO are exact in the true columns, and the stores skip
+//   the columns past it at compile time and step rows by the true width;
+//   in f32 a thread's column arrays round up to whole 16-column steps and
+//   skip the columns past the width.  q, k, v, o and do are read where
+//   they lie: no padded copy.  The scale stays the true width's dqk^-0.5.
 //
 // What bounds it on this card: bytes.  At the captioner's training shape
 // (B = 8, S = 256, H = 12, Kv = 4, dh = 64, bf16, causal) q, k, v, o, do and
@@ -162,7 +173,7 @@ constexpr int kGroups = 2;
 // [Q or K, dO or V] pair of tiles is kPair bytes)
 template <int DQK, int DV>
 struct Bwd {
-  static constexpr int PQ = DQK / 64, PV = DV / 64;
+  static constexpr int PQ = (DQK + 63) / 64, PV = (DV + 63) / 64;
   static constexpr int kQkBytes = PQ * kPanelBytes;
   static constexpr int kVBytes = PV * kPanelBytes;
   static constexpr int kPair = kQkBytes + kVBytes;
@@ -282,15 +293,15 @@ __device__ __forceinline__ void pack_a(const float (&x)[32],
   }
 }
 
-// d = A . B^T for two [64, D] tiles in shared memory (both K-major: dh
-// contiguous, D/64 swizzled panels of 64 rows); 16 of dh per wgmma
-template <int D>
+// d = A . B^T for two [64, 64 P] tiles in shared memory (both K-major: dh
+// contiguous, P swizzled panels of 64 rows); 16 of dh per wgmma
+template <int P>
 __device__ __forceinline__ void issue_ss(float (&d)[32], uint64_t da,
                                          uint64_t db) {
   fence_regs(d);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < 4 * P; ++kk) {
     const uint32_t off = ((kk / 4) * kPanelBytes + (kk % 4) * 32) / 16;
     wgmma_ss_n64(d, da + off, db + off, kk > 0);
   }
@@ -342,20 +353,22 @@ __device__ __forceinline__ void group_sync(int wg) {
 }
 
 // rows [row0, row0 + 64) of one head (base at (b, head)) into a swizzled
-// [64, D] tile at dst: 16-byte chunk c of row r lands at chunk c ^ (r % 8)
-// of its 128-byte panel row, as TMA's 128-byte swizzle would put it; rows at
-// or past S are zero-filled.  Thread i of n copies chunks i, i + n, ...
+// [64, 64 ceil(D / 64)] tile at dst: 16-byte chunk c of row r lands at
+// chunk c ^ (r % 8) of its 128-byte panel row, as TMA's 128-byte swizzle
+// would put it; rows at or past S, and the chunks past the head's D columns
+// (8 of them at D = 120), are zero-filled.  Thread i of n copies chunks
+// i, i + n, ...
 template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* base,
                                           long long stride, int row0, int S,
                                           int i0, int n) {
-  constexpr int C = D / 8;             // 16-byte chunks a row
+  constexpr int C = (D + 63) / 64 * 8;   // 16-byte chunks a tile row
   for (int i = i0; i < kRows * C; i += n) {
     const int r = i / C, c = i % C;
     const uint32_t at = dst + (c / 8) * kPanelBytes + r * 128 +
                         (((c % 8) ^ (r % 8)) << 4);
-    const bool ok = row0 + r < S;
+    const bool ok = row0 + r < S && c < D / 8;
     cp_async16(at, ok ? base + (row0 + r) * stride + c * 8 : base,
                ok ? 16 : 0);
   }
@@ -408,10 +421,13 @@ __device__ __forceinline__ void form_ds(const Args& a, float (&sc)[32],
 }
 
 // three blocks an SM at dh = 64 (168 registers): the 384 blocks of the
-// captioner's training shape then run in one wave on 132 SMs; one at
-// (192, 128), whose 121 KB of shared memory leave no room for a second
+// captioner's training shape then run in one wave on 132 SMs; two on the
+// 128-wide tiles (dh 128 and 120); one at (192, 128), whose 121 KB of
+// shared memory leave no room for a second
 template <int DQK, int DV>
-__global__ void __launch_bounds__(128, DQK == 64 ? 3 : DQK == 128 ? 2 : 1)
+__global__ void __launch_bounds__(128, (DQK + 63) / 64 == 1   ? 3
+                                       : (DQK + 63) / 64 == 2 ? 2
+                                                              : 1)
     flash_bwd_dq_kernel(const Args a) {
   using C = Bwd<DQK, DV>;
   constexpr int PQ = C::PQ, QB = C::kQkBytes, VB = C::kVBytes;
@@ -449,16 +465,21 @@ __global__ void __launch_bounds__(128, DQK == 64 ? 3 : DQK == 128 ? 2 : 1)
   load_tile<DV>(sv, V, a.vs_s, kt_begin * kRows, a.S, tid, 128);
   cp_async_commit();
 
-  // D = rowsum(do * o) in f32, two threads a row, while the tiles load;
-  // launch 2 reads it as D * scale
+  // D = rowsum(do * o) in f32, two threads a row, while the tiles load:
+  // of a row's DV / 8 16-byte chunks the first thread sums the first
+  // ceil(DV / 16) and the second the rest (8 and 7 at DV = 120), each in
+  // order, then the first adds the second's sum to its own.  Launch 2
+  // reads it as D * scale.
   {
+    constexpr int CV = DV / 8, C0 = (CV + 1) / 2;
     const int r = tid / 2, half = tid % 2;
     float acc = 0.f;
     if (q0 + r < a.S) {
-      const bf16* orow = O + (q0 + r) * a.os_s + half * (DV / 2);
-      const bf16* grow = G + (q0 + r) * a.gs_s + half * (DV / 2);
+      const bf16* orow = O + (q0 + r) * a.os_s + half * C0 * 8;
+      const bf16* grow = G + (q0 + r) * a.gs_s + half * C0 * 8;
 #pragma unroll
-      for (int c = 0; c < DV / 16; ++c) {
+      for (int c = 0; c < C0; ++c) {
+        if (half * C0 + c >= CV) break;
         const uint4 uo = *reinterpret_cast<const uint4*>(orow + 8 * c);
         const uint4 ug = *reinterpret_cast<const uint4*>(grow + 8 * c);
         const __nv_bfloat162* ho = reinterpret_cast<const __nv_bfloat162*>(&uo);
@@ -510,8 +531,8 @@ __global__ void __launch_bounds__(128, DQK == 64 ? 3 : DQK == 128 ? 2 : 1)
     }
     fence_proxy_async();
     __syncthreads();
-    issue_ss<DQK>(sc, dq_a, dk_b + st * kStageK);  // S = Q . K^T
-    issue_ss<DV>(dp, dg_a, dv_b + st * kStageV);   // dP = dO . V^T
+    issue_ss<PQ>(sc, dq_a, dk_b + st * kStageK);   // S = Q . K^T
+    issue_ss<C::PV>(dp, dg_a, dv_b + st * kStageV);  // dP = dO . V^T
     wgmma_wait<0>();
     fence_regs(sc);
     fence_regs(dp);
@@ -538,6 +559,7 @@ __global__ void __launch_bounds__(128, DQK == 64 ? 3 : DQK == 128 ? 2 : 1)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int d = p * 64 + 8 * j;
+      if (d >= DQK) break;             // columns past the head's width
       if (qpos0 < a.S)
         *reinterpret_cast<__nv_bfloat162*>(
             dQ + static_cast<long long>(qpos0) * a.H * DQK + d) =
@@ -550,10 +572,10 @@ __global__ void __launch_bounds__(128, DQK == 64 ? 3 : DQK == 128 ? 2 : 1)
 }
 
 // a warpgroup's [64 rows, P * 64] f32 accumulator as bf16 rows of an
-// output whose row r0 + i starts at out + i * stride (this thread's rows
-// r0 and r0 + 8, its column 2t already in out); rows at or past S are
-// skipped
-template <int P>
+// output of D columns whose row r0 + i starts at out + i * stride (this
+// thread's rows r0 and r0 + 8, its column 2t already in out); rows at or
+// past S and columns at or past D are skipped
+template <int P, int D>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
                                            long long stride, int r0, int S,
                                            const float (&acc)[P][32]) {
@@ -562,6 +584,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int d = p * 64 + 8 * j;
+      if (d >= D) break;
       if (r0 < S)
         *reinterpret_cast<__nv_bfloat162*>(out + r0 * stride + d) =
             __floats2bfloat162_rn(acc[p][4 * j], acc[p][4 * j + 1]);
@@ -672,8 +695,8 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
     group_sync(wg);
     const int q0 = first_row(n);
     const uint64_t q_b = dq_b + st * kStage, g_b = q_b + kQ;
-    issue_ss<DQK>(sc, dk_a, q_b);               // S^T = K . Q^T
-    issue_ss<DV>(dp, dv_a, g_b);                // dP^T = V . dO^T
+    issue_ss<PQ>(sc, dk_a, q_b);                // S^T = K . Q^T
+    issue_ss<PV>(dp, dv_a, g_b);                // dP^T = V . dO^T
     wgmma_wait<0>();
     fence_regs(sc);
     fence_regs(dp);
@@ -733,15 +756,20 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
         dv[p][r] += src[((PQ + p) * 32 + r) * 128 + lt];
   }
   const long long row = static_cast<long long>(b) * a.S * a.Kv + kvh;
-  store_rows<PQ>(static_cast<bf16*>(a.dk) + row * DQK + 2 * t,
-                 static_cast<long long>(a.Kv) * DQK, kpos0, a.S, dk);
-  store_rows<PV>(static_cast<bf16*>(a.dv) + row * DV + 2 * t,
-                 static_cast<long long>(a.Kv) * DV, kpos0, a.S, dv);
+  store_rows<PQ, DQK>(static_cast<bf16*>(a.dk) + row * DQK + 2 * t,
+                      static_cast<long long>(a.Kv) * DQK, kpos0, a.S, dk);
+  store_rows<PV, DV>(static_cast<bf16*>(a.dv) + row * DV + 2 * t,
+                     static_cast<long long>(a.Kv) * DV, kpos0, a.S, dv);
 }
 
 // ----------------------------------------------------------------- f32
 constexpr int kThreads = 256;          // 16 x 16 threads, 4 x 4 each
 constexpr int kLdw = kRows + 1;        // row stride of the [64, 64] tiles
+
+// a thread's output columns tx, tx + 16, ... of a width-D row: ceil(D / 16)
+// of them, the last past D when D is no multiple of 16 (120: 112 + tx)
+template <int D>
+__host__ __device__ constexpr int cols16() { return (D + 15) / 16; }
 
 // rows [row0, row0 + 64) of one head (base already at (b, head)) into
 // dst [64][D + 1] floats; rows at or past S are zero
@@ -783,12 +811,12 @@ __device__ __forceinline__ void tile_dot(const float* A, const float* Bm,
   }
 }
 
-// out[r][c] += sum_j W[ty + 16 r][j] * M[j][tx + 16 c]
-// (W [64][65], M [64][D + 1])
+// out[r][c] += sum_j W[ty + 16 r][j] * M[j][tx + 16 c] for the columns
+// below D (W [64][65], M [64][D + 1])
 template <int D>
 __device__ __forceinline__ void tile_acc(const float* W, const float* M,
                                          int ty, int tx,
-                                         float out[4][D / 16]) {
+                                         float out[4][cols16<D>()]) {
   constexpr int LD = D + 1;
 #pragma unroll 4
   for (int j = 0; j < kRows; ++j) {
@@ -796,10 +824,12 @@ __device__ __forceinline__ void tile_acc(const float* W, const float* M,
 #pragma unroll
     for (int r = 0; r < 4; ++r) w[r] = W[(ty + 16 * r) * kLdw + j];
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const float mv = M[j * LD + tx + 16 * c];
+    for (int c = 0; c < cols16<D>(); ++c) {
+      if (D % 16 == 0 || tx + 16 * c < D) {
+        const float mv = M[j * LD + tx + 16 * c];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) out[r][c] = fmaf(w[r], mv, out[r][c]);
+        for (int r = 0; r < 4; ++r) out[r][c] = fmaf(w[r], mv, out[r][c]);
+      }
     }
   }
 }
@@ -875,11 +905,11 @@ __global__ void __launch_bounds__(kThreads)
 
   int kt_begin, kt_end;
   key_tiles(a, q0, &kt_begin, &kt_end);
-  float dq[4][DQK / 16];
+  float dq[4][cols16<DQK>()];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int c = 0; c < DQK / 16; ++c) dq[r][c] = 0.f;
+    for (int c = 0; c < cols16<DQK>(); ++c) dq[r][c] = 0.f;
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kRows;
     __syncthreads();
@@ -915,7 +945,8 @@ __global__ void __launch_bounds__(kThreads)
     const long long row = ((static_cast<long long>(b) * a.S + qpos) * a.H + h)
                           * DQK;
 #pragma unroll
-    for (int c = 0; c < DQK / 16; ++c) dQ[row + tx + 16 * c] = dq[r][c];
+    for (int c = 0; c < cols16<DQK>(); ++c)
+      if (tx + 16 * c < DQK) dQ[row + tx + 16 * c] = dq[r][c];
   }
 }
 
@@ -944,13 +975,13 @@ __global__ void __launch_bounds__(kThreads)
   int qt_begin, qt_end;
   query_tiles(a, k0, &qt_begin, &qt_end);
 
-  float dk[4][DQK / 16], dv[4][DV / 16];
+  float dk[4][cols16<DQK>()], dv[4][cols16<DV>()];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
 #pragma unroll
-    for (int c = 0; c < DQK / 16; ++c) dk[r][c] = 0.f;
+    for (int c = 0; c < cols16<DQK>(); ++c) dk[r][c] = 0.f;
 #pragma unroll
-    for (int c = 0; c < DV / 16; ++c) dv[r][c] = 0.f;
+    for (int c = 0; c < cols16<DV>(); ++c) dv[r][c] = 0.f;
   }
 
   for (int gi = 0; gi < G; ++gi) {
@@ -1005,10 +1036,11 @@ __global__ void __launch_bounds__(kThreads)
     const long long row = (static_cast<long long>(b) * a.S + kpos) * a.Kv +
                           kvh;
 #pragma unroll
-    for (int c = 0; c < DQK / 16; ++c)
-      dK[row * DQK + tx + 16 * c] = dk[r][c];
+    for (int c = 0; c < cols16<DQK>(); ++c)
+      if (tx + 16 * c < DQK) dK[row * DQK + tx + 16 * c] = dk[r][c];
 #pragma unroll
-    for (int c = 0; c < DV / 16; ++c) dV[row * DV + tx + 16 * c] = dv[r][c];
+    for (int c = 0; c < cols16<DV>(); ++c)
+      if (tx + 16 * c < DV) dV[row * DV + tx + 16 * c] = dv[r][c];
   }
 }
 
@@ -1069,7 +1101,8 @@ int run_f32(const Args& a, cudaStream_t st) {
 // q (b, s, h), k, v, o, do.  lse [B, H, S] f32 is the forward's
 // log-sum-exp.  dq [B, S, H, dh], dk [B, S, Kv, dh] and dv [B, S, Kv, dv]
 // are contiguous in the same dtype; dsum is [B, H, S] f32 scratch.
-// (dh, dv) is (64, 64), (128, 128) or (192, 128); the scale is dh^-0.5;
+// (dh, dv) is (64, 64), (128, 128), (192, 128) or (120, 120); the scale is
+// dh^-0.5 of the true width;
 // H % Kv == 0.  Returns -1 for a shape the kernels do not take, else
 // cudaGetLastError() after the launches (0 = both launched).
 extern "C" int flash_attention_bwd_launch(
@@ -1081,6 +1114,7 @@ extern "C" int flash_attention_bwd_launch(
   const int pair = dh == 64 && dv_width == 64     ? 0
                    : dh == 128 && dv_width == 128 ? 1
                    : dh == 192 && dv_width == 128 ? 2
+                   : dh == 120 && dv_width == 120 ? 3
                                                   : -1;
   if (B < 1 || S < 1 || Kv < 1 || H % Kv != 0 || pair < 0 || window < 0 ||
       H > 65535 || B > 65535)
@@ -1102,8 +1136,10 @@ extern "C" int flash_attention_bwd_launch(
   if (is_bf16)
     return pair == 0   ? run_bf16<64, 64>(a, st)
            : pair == 1 ? run_bf16<128, 128>(a, st)
-                       : run_bf16<192, 128>(a, st);
+           : pair == 2 ? run_bf16<192, 128>(a, st)
+                       : run_bf16<120, 120>(a, st);
   return pair == 0   ? run_f32<64, 64>(a, st)
          : pair == 1 ? run_f32<128, 128>(a, st)
-                     : run_f32<192, 128>(a, st);
+         : pair == 2 ? run_f32<192, 128>(a, st)
+                     : run_f32<120, 120>(a, st);
 }

@@ -48,9 +48,9 @@ dq and dk come back at q's width and dv at v's.
 ``FlashAttention`` is the ``torch.autograd.Function`` over the pair: its
 forward runs ``flash_attention_cuda`` or ``flash_attention_plain`` with
 ``return_lse=True`` and its backward ``flash_attention_bwd_cuda`` or
-``flash_attention_bwd_plain``, each picked by the tensors' device, at any
-of the gradient kernel's head-width pairs (MLA's 192 / 128 included; the
-forward's (120, 120) serves only, and the gradient refuses it).
+``flash_attention_bwd_plain``, each picked by the tensors' device.  Both
+kernels take the same head-width pairs, ``HEAD_PAIRS``: MLA's 192 / 128
+and h2o-danube-3's 120, run on the 128-wide tiles, included.
 """
 from __future__ import annotations
 
@@ -64,10 +64,9 @@ NEG = -1e30
 BLOCK_K = 128                # keys per online-softmax step (kernel, plain)
 TILE = 128                   # the bf16 kernel's query and key tile
 PANEL = 64                   # bf16 columns of one 128-byte TMA box row
-# (q / k, v) head widths the forward kernel is built for (120: h2o-danube-3's
-# head, run on the 128-wide tiles), and those of the gradient kernel
+# (q / k, v) head widths the forward and gradient kernels are built for
+# (120: h2o-danube-3's head, run on the 128-wide tiles)
 HEAD_PAIRS = ((64, 64), (128, 128), (192, 128), (120, 120))
-HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 DTYPES = (torch.bfloat16, torch.float32)
 
 launches = 0                 # kernel launches made by flash_attention_cuda
@@ -325,15 +324,15 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              softcap: float = 0.0):
     """The hand-written gradient kernel (same contract as
     ``flash_attention_bwd_plain``): every tensor on one CUDA device, all
-    bf16 or all f32 (lse f32, contiguous), (dh, dv) one of ``HEAD_DIMS``;
+    bf16 or all f32 (lse f32, contiguous), (dh, dv) one of ``HEAD_PAIRS``;
     dq, dk, dv come back contiguous."""
     global bwd_launches
     dev = q.device
     B, S, H, Kv, dh, dv_ = _shapes(q, k, v)
-    if q.dtype not in DTYPES or (dh, dv_) not in HEAD_DIMS:
+    if q.dtype not in DTYPES or (dh, dv_) not in HEAD_PAIRS:
         raise ValueError(f"flash_attention_bwd: unsupported dtype {q.dtype} "
                          f"or head widths (q/k {dh}, v {dv_}) (kernel takes "
-                         f"{DTYPES}, {HEAD_DIMS})")
+                         f"{DTYPES}, {HEAD_PAIRS})")
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_bwd_cuda needs CUDA tensors, got "
                          f"{dev}")

@@ -1,5 +1,6 @@
 """Training launcher for any registered config of the port (the captioner,
-DeepSeek-V3 / V2 and their smoke cuts), on one device.
+DeepSeek-V3 / V2, the dense GQA configs gemma2-27b, h2o-danube-3-4b, yi-9b
+and minitron-4b, and their smoke cuts), on one device.
 
 Port of ``repro.launch.train``, with its flags and behaviour.  The
 initial parameters are drawn from a generator seeded 0 on the training
@@ -15,8 +16,10 @@ gradients to int8 with error feedback before the update.
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch semanticxr-captioner-110m --steps 200 --batch 8 --seq 256
-    PYTHONPATH=src python -m repro_torch.launch.train \
+    PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch deepseek-v3-671b-smoke --steps 4 --batch 2 --seq 32 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch gemma2-27b-smoke --steps 4 --batch 2 --seq 40 --device cpu
 
 It runs on the card unless ``--device cpu`` is given.
 """
@@ -94,6 +97,7 @@ def main(argv=None, *, device=None, on_step=None):
         if ef is not None:
             grads, ef = coll.compress_grads_ef(grads, ef)
         params, opt, om = adamw.adamw_update(grads, opt, params, ocfg)
+        del grads        # or the next step's backward holds two sets
         m = {"loss": loss, **metrics, **om}
         if on_step is not None:
             on_step(step, m, params)

@@ -13,7 +13,8 @@ prefill and training shapes, gemma2-27b's prefill (S = 5000, window 4096,
 softcap 50), ragged S, window, softcap, non-causal, MQA, bf16 and f32; at
 DeepSeek MLA's (192, 128) (``MLA_CASES``) where the checkout takes it; then ``flash_attention_bwd_cuda`` on the forward's output
 and lse at the same two pairs (``GRAD_CASES``: the captioner's training
-shape, ragged S, window, softcap, non-causal, G = 1, S = 1024); and times
+shape, ragged S, window, softcap, non-causal, G = 1, S = 1024) and at
+(192, 128) (``MLA_GRAD_CASES``, step 18's shapes); and times
 the captioner's prefill call, a dh = 128 call and the captioner's training
 gradient with a cold L2 (``chip_smoke.Clock``).  It saves the outputs and
 times to ``FILE`` (``torch.save``).  ``compare`` prints, for each file after the
@@ -60,6 +61,10 @@ GRAD_CASES = ((8, 256, 12, 4, 64, "bf16", True, 0, 0.0),
               (1, 1024, 4, 4, 64, "f32", True, 32, 30.0),
               (2, 333, 12, 4, 128, "bf16", True, 100, 30.0))
 GRAD_TIMED = 0                           # the captioner's training shape
+# the gradient at (192, 128): chip_smoke.py step 18's shapes (B, S, H,
+# dtype, causal)
+MLA_GRAD_CASES = ((1, 129, 4, "bf16", True), (2, 200, 4, "f32", True),
+                  (2, 512, 128, "bf16", True), (2, 200, 4, "bf16", False))
 
 
 def run(src: str, out: str) -> None:
@@ -99,6 +104,15 @@ def run(src: str, out: str) -> None:
             q, k, v, o, do, lse, **kw)))
         if i == GRAD_TIMED:
             timed_grad = (q, k, v, o, do, lse, kw)
+    if (192, 128) in fa.HEAD_PAIRS:
+        for i, (B, S, H, dt, causal) in enumerate(MLA_GRAD_CASES):
+            q, k, v = cs.mla_inputs(torch, B, S, H, dts[dt], 500 + i, dev)
+            o, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                             return_lse=True)
+            g = torch.Generator(device=dev).manual_seed(600 + i)
+            do = torch.randn(o.shape, generator=g, device=dev).to(dts[dt])
+            grads.append(tuple(t.cpu() for t in fa.flash_attention_bwd_cuda(
+                q, k, v, o, do, lse, causal=causal)))
     outputs.extend(grads)
     clock = cs.Clock(torch)
     times = {}
