@@ -266,6 +266,39 @@
     softcap and at (120, 120)); (e) ``dense_kill_resume``: gemma2 at that
     width in bf16, ``--kill-at 3`` of 6, restored bit-equal, resumed.
 
+21. phi-3-vision-4.2b, its 576 image tokens (seeded f32 patch embeddings,
+    the CLIP frontend's output) through ``vis_proj`` in front of the text:
+    (a) ``dense_attention_checks`` at PHI3_ATTN_CASES: the flash kernel's
+    (96, 96) instance at the serving prefill (4, 1600, 32, 32), the
+    training shape (1, 4096, 32, 32) and the 96-wide edges (S = 17 and
+    129, window 1, window 64 with softcap 50, MQA, non-causal S = 200,
+    S = 333 with every option), bf16 within DENSE_BF16_TOL and f32 within
+    ATTN_TOL, the same bits twice; the limit rejects an output whose heads
+    read the next head's first 32 columns and, at the windowed edges, one
+    that drops the window's first key tile; both phi-3 shapes timed beside
+    their operations bound, the plain version, SDPA and the (128, 128)
+    instance; (b) ``dense_bwd_checks`` at the training shape and the same
+    edges (``faulty_grads``' four faults rejected), autograd = direct, the
+    training shape timed; (c) ``dense_serve_phase`` with 576 patch tokens:
+    32 layers at full width (7.66 GB of bf16 weights seeded on the card),
+    4 prompts of 576 + 1024 positions prefilled twice, then 32 greedy
+    steps at positions 1600 + t, 32 flash launches a prefill and none
+    decoding, the peak within ``dense_reckon``'s (the cache counts the
+    image tokens), a profiler window; (d) ``dense_replay_phase`` on an f32
+    cut (d_model 768, 8 heads of 96, 2 layers, 64 patch tokens and a
+    200-token prompt): card = CPU port, decode = whole-sequence prefill;
+    (e) ``phi3_train_phase`` at 1 x 4096 whole: 10 steps of
+    ``launch.train.main`` (tokens only: ``vis_proj`` moves by weight decay
+    alone, followed by ``LeafSpy``), then 20 steps of
+    ``build_train_step`` on input_specs' ``train_4k`` cell at B = 1 (tokens
+    [1, 3520], extra_embeds [1, 576, 3072] fresh each step from
+    ``make_inputs``: ``vis_proj`` learns), 2 forward and 1 gradient launch
+    a layer a step, losses falling, peaks within ``dense_train_reckon``'s,
+    two gradients of one image batch bit-equal, a profiler window; (f)
+    ``dense_train_replay`` of (d)'s cut with image batches (f32, card =
+    CPU port) and ``dense_kill_resume`` of it in bf16 (``vis_proj`` in the
+    checkpoint, restored bit-equal).
+
 ``nearest_dist`` has no caller on any system path: its phase drives its
 entry point, ``ops.nearest_dist``, at a chamfer and a centroid shape.
 
@@ -561,6 +594,50 @@ DENSE_TRAIN = (("h2o-danube-3-4b", dict(batch=1, seq=5000, profile=True)),
 DENSE_TRAIN_STEPS = 20
 DENSE_TRAIN_REPLAY = dict(batch=1, seq=300, steps=3)
 DENSE_KILL = dict(steps=6, ckpt_every=2, kill_at=3, batch=1, seq=300)
+# step 21: phi-3-vision-4.2b, its 576 CLIP patch tokens (seeded f32
+# embeddings) through vis_proj in front of the text.  (a) the flash
+# kernel's (96, 96) instance at the serving prefill (576 + 1024 = 1600
+# positions, no multiple of 128), the training shape and the 96-wide edges
+# (B, S, H, Kv, dh, causal, window, softcap), bf16 and f32; PHI3_TIMED are
+# timed.  (b) the gradient kernel at the training shape and the same
+# edges.  (c) the model at full width and depth serving 4 x (576 + 1024)
+# prompts and 32 greedy steps; (d) an f32 cut (d_model 768, 8 heads of 96,
+# 2 layers, 64 patch tokens before a 200-token prompt), card vs CPU port
+# and decode vs whole-sequence prefill; (e) training at full width and
+# depth, B x S = 1 x 4096: the trainer (tokens only), then
+# build_train_step on input_specs' train_4k cell (tokens [1, 3520] and
+# extra_embeds [1, 576, 3072]); (f) an f32 train replay of (d)'s cut with
+# image batches, and kill / resume of that cut in bf16.
+PHI3 = "phi-3-vision-4.2b"
+PHI3_ATTN_CASES = ((4, 1600, 32, 32, 96, True, 0, 0.0),     # serving prefill
+                   (1, 4096, 32, 32, 96, True, 0, 0.0),     # training
+                   (1, 17, 4, 2, 96, True, 0, 0.0),
+                   (1, 129, 4, 2, 96, True, 0, 0.0),
+                   (1, 300, 4, 4, 96, True, 1, 0.0),
+                   (1, 200, 4, 2, 96, True, 64, 50.0),
+                   (2, 1024, 8, 1, 96, True, 0, 0.0),
+                   (2, 200, 4, 2, 96, False, 0, 0.0),
+                   (2, 333, 12, 4, 96, True, 100, 30.0))
+PHI3_TIMED = (0, 1)
+PHI3_BWD_CASES = PHI3_ATTN_CASES[1:]
+PHI3_BWD_TIMED = (0,)
+PHI3_SERVE = dict(batch=4, prompt=1024, n_vis=576, new_tokens=32,
+                  profile=True)
+PHI3_REPLAY = dict(d_model=768, n_heads=8, n_kv_heads=8, d_ff=2048,
+                   n_layers=2, sliding_window=4096, vocab_size=4096)
+PHI3_REPLAY_RUN = dict(PHI3_REPLAY, batch=1, prompt=200, new_tokens=8,
+                       n_vis=64, names=(PHI3,), tag="phi3_replay_phase")
+PHI3_TRAIN = dict(batch=1, seq=4096, trainer_steps=10, step_steps=20)
+PHI3_TRAIN_REPLAY = dict(batch=1, seq=200, steps=3, n_vis=64, names=(PHI3,),
+                         replay=PHI3_REPLAY, tag="phi3_train_replay")
+PHI3_KILL = dict(steps=6, ckpt_every=2, kill_at=3, batch=1, seq=300,
+                 name=PHI3, replay=PHI3_REPLAY, tag="phi3_train_kill_resume")
+# vis_proj's master after tokens-only steps against first * prod(1 - lr_t *
+# wd), relative to its largest entry: each step rounds mp - lr * wd * mp in
+# f32 (about 1.2e-7 relative), ten steps about 1e-6
+PHI3_DECAY_TOL = 1e-5
+# with image batches it must move past its decay by 100 times that
+PHI3_LEARN_MIN = 1e-3
 
 
 def check(cond, what: str) -> None:
@@ -1476,26 +1553,39 @@ def serve_phase(torch, dev, cfg, *, batch, prompt, new_tokens, reps):
 
 
 # ------------------------------------------------------------------ step 8
-def replay_run(torch, api, model, prompt_np, new_tokens, device):
+def frontend_batch(tokens, extra):
+    """The model batch of ``tokens``, with ``extra`` (a vision model's patch
+    embeddings [B, n_vis, d], or None) as its ``extra_embeds``."""
+    return ({"tokens": tokens} if extra is None
+            else {"tokens": tokens, "extra_embeds": extra})
+
+
+def replay_run(torch, api, model, prompt_np, new_tokens, device,
+               extra_np=None):
     """The replays' loop: the launch counters reset, ``prompt_np`` [B, S]
-    prefilled into fresh caches on ``device``, then ``new_tokens`` greedy
-    steps.  Returns (the greedy tokens [B, new_tokens + 1], the logits of
-    the prefill and every step [new_tokens + 1, B, V] on the CPU, the
-    prefill's flash launches)."""
+    (after ``extra_np``'s n_vis patch embeddings, where given) prefilled
+    into fresh caches on ``device``, then ``new_tokens`` greedy steps at
+    positions n_vis + S + i.  Returns (the greedy tokens [B, new_tokens +
+    1], the logits of the prefill and every step [new_tokens + 1, B, V] on
+    the CPU, the prefill's flash launches)."""
     from repro_torch.kernels import ops
     from repro_torch.models.lm import greedy_token
 
     batch, prompt = prompt_np.shape
-    caches = api.init_cache(batch, prompt + new_tokens, device=device)
+    front = 0 if extra_np is None else extra_np.shape[1]
+    caches = api.init_cache(batch, front + prompt + new_tokens,
+                            device=device)
     ops.reset_launch_counts()
-    logits, caches = api.prefill(
-        model, {"tokens": torch.from_numpy(prompt_np).to(device)}, caches)
+    logits, caches = api.prefill(model, frontend_batch(
+        torch.from_numpy(prompt_np).to(device),
+        None if extra_np is None else torch.from_numpy(extra_np).to(device)),
+        caches)
     flash = ops.launch_counts()["flash_attention"]
     toks, all_logits = [], [logits.cpu()]
     tok = greedy_token(logits)
     for i in range(new_tokens):
         toks.append(tok.cpu())
-        logits, caches = api.decode(model, tok, caches, prompt + i)
+        logits, caches = api.decode(model, tok, caches, front + prompt + i)
         all_logits.append(logits.cpu())
         tok = greedy_token(logits)
     toks.append(tok.cpu())
@@ -3140,9 +3230,11 @@ def train_run(torch, dev, argv, on_step=None):
     return out, buf.getvalue()
 
 
-def replay_train(torch, dev, cfg, *, batch, seq, steps):
-    """``steps`` f32 train steps of the full-width captioner from the same
-    seeded weights on the card and on the CPU port (plain versions)."""
+def replay_train(torch, dev, cfg, *, batch, seq, steps, n_vis=0):
+    """``steps`` f32 train steps of ``cfg`` (the full-width captioner, the
+    replay cuts) from the same seeded weights on the card and on the CPU
+    port (plain versions); with ``n_vis``, each batch's tokens after as
+    many seeded f32 patch embeddings (a vision model's image batch)."""
     from repro_torch import convert
     from repro_torch.data.tokens import batch_iterator
     from repro_torch.launch.steps import build_train_step
@@ -3154,7 +3246,11 @@ def replay_train(torch, dev, cfg, *, batch, seq, steps):
     ocfg = adamw.AdamWConfig(warmup_steps=1, total_steps=steps)
     cpu = model_api(cfg).init(torch.Generator().manual_seed(1), device="cpu")
     it = batch_iterator(batch, seq, seed=3, vocab_size=cfg.vocab_size)
-    batches = [torch.from_numpy(next(it)["tokens"]) for _ in range(steps)]
+    rng = np.random.default_rng(4)
+    batches = [frontend_batch(
+        torch.from_numpy(next(it)["tokens"]),
+        torch.from_numpy(rng.normal(size=(batch, n_vis, cfg.d_model)).astype(
+            np.float32)) if n_vis else None) for _ in range(steps)]
     runs = {}
     for where, lm in (("card", convert.lm_params_from_numpy(
             cfg, convert.lm_params_to_tree(cpu), device=dev)), ("cpu", cpu)):
@@ -3163,8 +3259,9 @@ def replay_train(torch, dev, cfg, *, batch, seq, steps):
         step = build_train_step(cfg, ocfg)
         t0 = time.perf_counter()
         hist = []
-        for toks in batches:
-            lm, opt, m = step(lm, opt, {"tokens": toks.to(lm.device)})
+        for b in batches:
+            lm, opt, m = step(lm, opt, {k: v.to(lm.device)
+                                        for k, v in b.items()})
             hist.append({k: float(m[k]) for k in ("loss", "grad_norm")})
         runs[where] = (hist, dict(cm.leaves(opt.master)),
                        time.perf_counter() - t0)
@@ -3182,7 +3279,8 @@ def replay_train(torch, dev, cfg, *, batch, seq, steps):
           f"train replay grad norm rel err {rel['grad_norm']}")
     check(master_rel <= TRAIN_REPLAY_TOL["master"],
           f"train replay master rel err {master_rel}")
-    return {"batch": batch, "seq": seq, "steps": steps, "card": gh,
+    return {"batch": batch, "seq": seq, "frontend_tokens": n_vis,
+            "steps": steps, "card": gh,
             "cpu": ch, "rel_err": rel, "master_rel_err_l2": master_rel,
             "master_max_abs_err": master_max, "card_s_host": gs,
             "cpu_s_host": cs, "tolerance": TRAIN_REPLAY_TOL}
@@ -3515,20 +3613,24 @@ def card_model(torch, dev, cfg) -> tuple:
 
 
 def serve_run(torch, api, model, tokens, new_tokens, forced=None,
-              spy=None):
-    """The serving loop of steps 17 and 19: counters reset, two prefills of
-    ``tokens`` into fresh caches, then ``new_tokens`` greedy steps (or the
-    tokens of ``forced`` [B, steps + 1] fed instead), the counters read;
-    ``spy`` (a context such as MoESpy) open around the passes.  Returns
-    (metrics, the tokens fed [B, new_tokens + 1], the logits of the
-    prefill and every step, the caches)."""
+              spy=None, extra=None):
+    """The serving loop of steps 17, 19 and 21: counters reset, two
+    prefills of ``tokens`` (after ``extra``, a vision model's n_vis patch
+    embeddings, where given) into fresh caches of n_vis + S + new_tokens
+    positions, then ``new_tokens`` greedy steps at positions n_vis + S + i
+    (or the tokens of ``forced`` [B, steps + 1] fed instead), the counters
+    read; ``spy`` (a context such as MoESpy) open around the passes.
+    Returns (metrics, the tokens fed [B, new_tokens + 1], the logits of
+    the prefill and every step, the caches)."""
     import contextlib
 
     from repro_torch.kernels import ops
     from repro_torch.models.lm import greedy_token
 
     batch, prompt = tokens.shape
-    caches = api.init_cache(batch, prompt + new_tokens, device=tokens.device)
+    front = 0 if extra is None else extra.shape[1]
+    caches = api.init_cache(batch, front + prompt + new_tokens,
+                            device=tokens.device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -3537,7 +3639,8 @@ def serve_run(torch, api, model, tokens, new_tokens, forced=None,
         for _ in range(2):
             n0 = ops.launch_counts()["flash_attention"]
             t0 = time.perf_counter()
-            logits, caches = api.prefill(model, {"tokens": tokens}, caches)
+            logits, caches = api.prefill(
+                model, frontend_batch(tokens, extra), caches)
             torch.cuda.synchronize()
             pre_ms.append((time.perf_counter() - t0) * 1e3)
             per_prefill.append(ops.launch_counts()["flash_attention"] - n0)
@@ -3548,7 +3651,8 @@ def serve_run(torch, api, model, tokens, new_tokens, forced=None,
         toks = [tok]
         for i in range(new_tokens):
             t0 = time.perf_counter()
-            logits, caches = api.decode(model, tok, caches, prompt + i)
+            logits, caches = api.decode(model, tok, caches,
+                                        front + prompt + i)
             tok = (greedy_token(logits) if forced is None
                    else forced[:, i + 1:i + 2])
             torch.cuda.synchronize()
@@ -3560,6 +3664,9 @@ def serve_run(torch, api, model, tokens, new_tokens, forced=None,
     metrics = {
         "prefill_ms": pre_ms,
         "prefill_tokens_per_s": batch * prompt / pre_ms[-1] * 1e3,
+        "frontend_tokens": batch * front,
+        "prefill_positions_per_s": batch * (front + prompt) / pre_ms[-1]
+        * 1e3,
         "decode_ms_per_step_p50": dec,
         "decode_ms_per_step_p95": float(np.percentile(dec_ms, 95)),
         "generated_tokens_per_s": batch / dec * 1e3,
@@ -3591,18 +3698,20 @@ def check_served(name: str, m: dict, n_layers: int, max_len: int) -> None:
     check(m["cache_length"] == max_len, f"{name}: cache length")
 
 
-def serve_profile(torch, api, model, tokens, caches, kernels=()) -> dict:
+def serve_profile(torch, api, model, tokens, caches, kernels=(),
+                  extra=None) -> dict:
     """Where the time goes, after a run's counts are read (these launches
-    are extra): one prefill of ``tokens`` into ``caches``, then
-    PROFILE_DECODE greedy steps, each under the profiler."""
+    are extra): one prefill of ``tokens`` (after ``extra``'s patch
+    embeddings, where given) into ``caches``, then PROFILE_DECODE greedy
+    steps, each under the profiler."""
     from repro_torch.models.lm import greedy_token
 
-    prompt = tokens.shape[1]
+    prompt = tokens.shape[1] + (0 if extra is None else extra.shape[1])
     state = {}
 
     def prefill_once():
         state["logits"], state["caches"] = api.prefill(
-            model, {"tokens": tokens}, caches)
+            model, frontend_batch(tokens, extra), caches)
 
     def decode_steps():
         tok = greedy_token(state["logits"])
@@ -3871,14 +3980,16 @@ def train_cut(torch, *, arch, name, n_layers, n_dense_prefix, n_experts,
 
 
 def trainer_run(torch, dev, cfg, *, steps, batch, seq, fwd, bwd, reckoned,
-                limit=None):
+                limit=None, run=None):
     """``repro_torch.launch.train.main`` on the registered ``cfg`` for
     ``steps`` steps at B x S = ``batch`` x ``seq`` and the trainer's
-    defaults (no checkpoints), counters reset just before and read just
-    after: ``fwd`` flash forward and ``bwd`` gradient launches every step,
-    every loss finite, the mean of the last 5 under that of the first 5,
-    and the peak, less what was allocated before, within ``limit`` (by
-    default ``reckoned``).
+    defaults (no checkpoints), or ``run(on_step) -> (parameters, log)``,
+    another loop that calls ``on_step(step, metrics, params)`` after each
+    of its ``steps`` steps and logs "training complete" at its end;
+    counters reset just before and read just after: ``fwd`` flash forward
+    and ``bwd`` gradient launches every step, every loss finite, the mean
+    of the last 5 under that of the first 5, and the peak, less what was
+    allocated before, within ``limit`` (by default ``reckoned``).
     Returns (the trained parameters, the row: step ms, tokens/s, peak
     bytes, losses, aux losses)."""
     import shutil
@@ -3908,10 +4019,13 @@ def trainer_run(torch, dev, cfg, *, steps, batch, seq, fwd, bwd, reckoned,
     ops.reset_launch_counts()
     last["t"] = time.perf_counter()
     t0 = last["t"]
-    model, log = train_run(torch, dev, [
-        "--arch", cfg.name, "--steps", str(steps), "--batch", str(batch),
-        "--seq", str(seq), "--ckpt-dir", str(work), "--ckpt-every", "0",
-        "--log-every", "10"], on_step)
+    if run is None:
+        def run(on_step):
+            return train_run(torch, dev, [
+                "--arch", cfg.name, "--steps", str(steps), "--batch",
+                str(batch), "--seq", str(seq), "--ckpt-dir", str(work),
+                "--ckpt-every", "0", "--log-every", "10"], on_step)
+    model, log = run(on_step)
     total_s = time.perf_counter() - t0
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -3949,9 +4063,10 @@ def trainer_run(torch, dev, cfg, *, steps, batch, seq, fwd, bwd, reckoned,
         "launches": launches}
 
 
-def grads_twice(torch, dev, cfg, model, *, batch, seq):
-    """Two gradients of one batch (seeded) on the trained parameters:
-    whether every leaf has the same bits.  Returns (same, two batches)."""
+def grads_twice(torch, dev, cfg, model, *, batch, seq, batches=None):
+    """Two gradients of one batch (seeded tokens, or the first of
+    ``batches``, two model batches) on the trained parameters: whether
+    every leaf has the same bits.  Returns (same, two batches)."""
     import gc
 
     from repro_torch.data.tokens import batch_iterator
@@ -3960,10 +4075,11 @@ def grads_twice(torch, dev, cfg, model, *, batch, seq):
     from repro_torch.models.api import model_api
 
     api = model_api(cfg)
-    it = batch_iterator(batch, seq, seed=7, vocab_size=cfg.vocab_size)
-    toks = [torch.from_numpy(next(it)["tokens"]).to(dev) for _ in range(2)]
-    twice = [dict(cm.leaves(loss_and_grads(api.loss, model,
-                                           {"tokens": toks[0]})[2]))
+    if batches is None:
+        it = batch_iterator(batch, seq, seed=7, vocab_size=cfg.vocab_size)
+        batches = [{"tokens": torch.from_numpy(next(it)["tokens"]).to(dev)}
+                   for _ in range(2)]
+    twice = [dict(cm.leaves(loss_and_grads(api.loss, model, batches[0])[2]))
              for _ in range(2)]
     torch.cuda.synchronize()
     same = sorted(twice[0]) == sorted(twice[1]) and same_bits(
@@ -3972,12 +4088,13 @@ def grads_twice(torch, dev, cfg, model, *, batch, seq):
     check(same, f"two {cfg.name} gradients of one batch have the same bits")
     del twice
     gc.collect()
-    return same, toks
+    return same, batches
 
 
-def train_step_profile(torch, cfg, model, toks, flash) -> dict:
-    """A ``torch.profiler`` window over one train step (after a warm one)
-    from a fresh optimizer state, with the device ms of the ``flash``
+def train_step_profile(torch, cfg, model, batches, flash) -> dict:
+    """A ``torch.profiler`` window over one train step on the second of
+    two model ``batches`` (after a warm one on the first) from a fresh
+    optimizer state, with the device ms of the ``flash``
     kernels, each of which must have run, and by kind: elementwise passes
     (AdamW's per-leaf update, the norms), reductions, cuBLAS products
     (gemm / nvjet)."""
@@ -3990,11 +4107,10 @@ def train_step_profile(torch, cfg, model, toks, flash) -> dict:
     state = {"lm": model, "opt": adamw.init_opt_state(model, ocfg)}
     step = build_train_step(cfg, ocfg)
 
-    def one(t):
-        state["lm"], state["opt"], _ = step(state["lm"], state["opt"],
-                                            {"tokens": t})
-    one(toks[0])                              # warm
-    prof = profiled(torch, lambda: one(toks[1]),
+    def one(b):
+        state["lm"], state["opt"], _ = step(state["lm"], state["opt"], b)
+    one(batches[0])                           # warm
+    prof = profiled(torch, lambda: one(batches[1]),
                     kernels=flash + ("elementwise", "reduce", "gemm",
                                      "nvjet"))
     check(all(prof["kernel_ms"][k] > 0 for k in flash),
@@ -4140,6 +4256,7 @@ def kill_resume(torch, dev, cfg, *, steps, ckpt_every, kill_at, batch, seq):
     from repro_torch.checkpoint import ckpt as ckpt_mod
     from repro_torch.configs.base import register
     from repro_torch.models import common as cm
+    from repro_torch.models.lm import lm_param_specs
 
     register(cfg.name)(lambda: cfg)
     kdir = ROOT / "build" / "chip_smoke_ckpt" / f"{cfg.name}_kill"
@@ -4164,6 +4281,10 @@ def kill_resume(torch, dev, cfg, *, steps, ckpt_every, kill_at, batch, seq):
                           [b for _, b in cm.leaves(saved["tree"])])
     check(bit_equal, f"restored {cfg.name} parameters bit-equal to the "
           "saved")
+    top = sorted(k for k in lm_param_specs(cfg) if k != "layers")
+    check(sorted(k for k in saved["tree"] if k not in ("prefix", "body"))
+          == top, f"the {cfg.name} checkpoint holds every top-level leaf "
+          f"{top}")
     seen = []
     _, log = train_run(torch, dev, base,
                        lambda s, m, p: seen.append((s, float(m["loss"]))))
@@ -4177,6 +4298,7 @@ def kill_resume(torch, dev, cfg, *, steps, ckpt_every, kill_at, batch, seq):
     return {"steps": steps, "ckpt_every": ckpt_every, "kill_at": kill_at,
             "batch": batch, "seq": seq, "exit_code": code,
             "resumed_from": ckpt_every, "restored_bit_equal": bit_equal,
+            "top_level_leaves": top,
             "resumed_losses": seen}
 
 
@@ -4229,23 +4351,44 @@ def first_tile_dropped(torch, q, k, v, *, causal, window, softcap):
     return out, int(drop.sum())
 
 
-def dense_attention_checks(torch, clock, dev):
-    """(a) ``flash_attention_cuda`` against ``flash_attention_plain`` at
-    every DENSE_ATTN_CASES shape, bf16 within DENSE_BF16_TOL and f32 within
-    ATTN_TOL, the same bits from two calls.  At a window of a tile or more
-    (the S = 5000 prefills, where the lower tile bound is past 0 over many
-    tiles) the output of a kernel that drops the window's first key tile
-    must fall outside DENSE_BF16_TOL.  DENSE_TIMED (h2o's prefill, (120,
-    120), and gemma2's windowed one, (128, 128)) are timed in bf16, and the
-    (128, 128) instance at h2o's (B, S, H, Kv) beside the first.  Returns
-    the two time rows."""
+def next_head_read(torch, q, k, v, kw):
+    """What a kernel reads whose rows of a head narrower than its 128-wide
+    tile are loaded 128 wide, the columns past dh the next head's first
+    (``widen_next_head``), with the scale kept at dh^-0.5: the plain
+    version's output on those rows, its first dh columns, in q's dtype."""
     from repro_torch.kernels import flash_attention as fa
 
-    rows = []
-    for i, (B, S, H, Kv, dh, causal, window, cap) in enumerate(
-            DENSE_ATTN_CASES):
+    dh = q.shape[-1]
+    wide = -(-dh // 64) * 64
+    f = (wide / dh) ** 0.5
+    w = [widen_next_head(torch, t, wide).float() for t in (q, k, v)]
+    return fa.flash_attention_plain(w[0] * f, w[1], w[2], **kw)[
+        ..., :dh].to(q.dtype)
+
+
+def dense_attention_checks(torch, clock, dev, cases=DENSE_ATTN_CASES,
+                           timed=DENSE_TIMED, tag="dense_attention",
+                           seed=190, next_head=False):
+    """(a) ``flash_attention_cuda`` against ``flash_attention_plain`` at
+    every ``cases`` shape, bf16 within DENSE_BF16_TOL and f32 within
+    ATTN_TOL, the same bits from two calls.  At a windowed bf16 shape
+    where the window's lower key-tile bound is past 0 (the S = 5000
+    prefills over many tiles, window 1, S = 333 at window 100) the output
+    of a kernel that drops the window's first key tile must fall outside
+    DENSE_BF16_TOL; with ``next_head``, at every bf16 shape of a head width
+    no multiple of 64, so must the output of one whose heads also read the
+    next head's first columns (``next_head_read``), but at window 1, where
+    each row keeps one key and its output is that key's v whatever the
+    scores.  ``timed`` (step 19:
+    h2o's prefill, (120, 120), and gemma2's windowed one, (128, 128)) are
+    timed in bf16, each not at 128 beside the (128, 128) instance at its
+    (B, S, H, Kv).  Returns the time rows."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rows, dropped = [], 0
+    for i, (B, S, H, Kv, dh, causal, window, cap) in enumerate(cases):
         for dt in (torch.bfloat16, torch.float32):
-            q, k, v = attn_inputs(torch, B, S, H, Kv, dh, dt, 190 + i, dev)
+            q, k, v = attn_inputs(torch, B, S, H, Kv, dh, dt, seed + i, dev)
             kw = dict(causal=causal, window=window, softcap=cap)
             got = fa.flash_attention_cuda(q, k, v, **kw)
             again = fa.flash_attention_cuda(q, k, v, **kw)
@@ -4254,51 +4397,70 @@ def dense_attention_checks(torch, clock, dev):
             bf = dt == torch.bfloat16
             tol = DENSE_BF16_TOL if bf else (ATTN_TOL["float32"],) * 2
             err, ok = attn_close(got, want, dt, tol)
-            tag = dict(B=B, S=S, H=H, Kv=Kv, dh=dh, dtype=str(dt), **kw)
+            where = dict(B=B, S=S, H=H, Kv=Kv, dh=dh, dtype=str(dt), **kw)
             check(tuple(got.shape) == (B, S, H, dh),
-                  f"flash_attention shape at {tag}")
+                  f"flash_attention shape at {where}")
             check(ok and bool(torch.isfinite(got).all()),
-                  f"flash_attention err {err} past {tol} at {tag}")
+                  f"flash_attention err {err} past {tol} at {where}")
             same = same_bits(torch, [got], [again])
-            check(same, f"flash_attention same bits twice at {tag}")
-            rec = {**tag, "max_abs_err": err, "tol": tol,
+            check(same, f"flash_attention same bits twice at {where}")
+            rec = {**where, "max_abs_err": err, "tol": tol,
                    "limit_share": limit_share(got, want, tol)[0],
                    "same_bits_twice": same}
-            if bf and window >= 128:
+            faults = {}
+            if bf and window:
                 bad, n_drop = first_tile_dropped(torch, q, k, v, **kw)
+                if n_drop:
+                    faults["first_tile_dropped"] = (bad, n_drop,
+                                                    "pairs_dropped")
+                    dropped += 1
+            if bf and next_head and dh % 64 and window != 1:
+                faults["next_head"] = (next_head_read(torch, q, k, v, kw),
+                                       -(-dh // 64) * 64 - dh,
+                                       "columns_read")
+            for fault, (bad, n, what) in faults.items():
                 dev_err, caught = attn_close(bad, want, dt, tol)
                 share, n_over = limit_share(bad, want, tol)
-                check(n_drop > 0 and not caught, f"DENSE_BF16_TOL rejects a "
-                      f"kernel that drops the window's first key tile at "
-                      f"{tag}: {n_drop} keys dropped, err {dev_err}")
-                rec["first_tile_dropped"] = {
-                    "pairs_dropped": n_drop, "max_abs_err": dev_err,
-                    "limit_share": share, "entries_past_limit": n_over}
-                del bad
-            emit("dense_attention_check", rec)
-            if bf and i in DENSE_TIMED:
+                check(not caught, f"DENSE_BF16_TOL rejects the {fault} "
+                      f"output at {where}: {n} {what}, err {dev_err}")
+                rec[fault] = {what: n, "max_abs_err": dev_err,
+                              "limit_share": share,
+                              "entries_past_limit": n_over}
+            del faults
+            emit(f"{tag}_check", rec)
+            if bf and i in timed:
                 rows.append(attn_time(torch, clock, q, k, v, kw, err,
                                       plain_as_called=True))
             del q, k, v, got, again, want
-    B, S, H, Kv, _, causal, window, cap = DENSE_ATTN_CASES[DENSE_TIMED[0]]
-    q, k, v = attn_inputs(torch, B, S, H, Kv, 128, torch.bfloat16, 7, dev)
-    kw = dict(causal=causal, window=window, softcap=cap)
-    rows[0]["dh128_same_shape_ms"] = clock.ms(
-        lambda: fa.flash_attention_cuda(q, k, v, **kw))
+    check(dropped or not any(c[6] for c in cases),
+          f"{tag}: a windowed shape held the first-tile fault")
+    for i, row in zip(timed, rows):
+        B, S, H, Kv, dh, causal, window, cap = cases[i]
+        if dh != 128:
+            q, k, v = attn_inputs(torch, B, S, H, Kv, 128, torch.bfloat16, 7,
+                                  dev)
+            kw = dict(causal=causal, window=window, softcap=cap)
+            row["dh128_same_shape_ms"] = clock.ms(
+                lambda: fa.flash_attention_cuda(q, k, v, **kw))
+            del q, k, v
     for row in rows:
-        emit("dense_attention_time", row)
+        emit(f"{tag}_time", row)
     torch.cuda.empty_cache()
     return rows
 
 
-def dense_reckon(cfg, batch: int, prompt: int, max_len: int) -> dict:
+def dense_reckon(cfg, batch: int, prompt: int, max_len: int,
+                 n_vis: int = 0) -> dict:
     """Bytes before a run: the weights (from the parameter specs), the
     caches (a ring of ``sliding_window`` slots on a sliding-window layer
     whose ``max_len`` reaches it; int8 values plus an f32 scale a token
     and head under ``kv_cache_dtype="int8"``), the prefill's transients
     (three d_ff-wide activations of the MLP, six f32 head-wide ones of
-    rotary embedding and four d_model-wide ones) and init's (the largest
-    leaf drawn in f32 beside its cast)."""
+    rotary embedding and four d_model-wide ones, a position each of the
+    ``n_vis`` frontend tokens and the ``prompt`` text tokens), the
+    frontend's (the f32 patch embeddings, their f32 product with an f32
+    copy of ``vis_proj`` and its cast) and init's (the largest leaf drawn
+    in f32 beside its cast).  ``max_len`` counts the frontend tokens."""
     from repro_torch.models import common as cm
     from repro_torch.models.lm import lm_param_specs
 
@@ -4312,24 +4474,30 @@ def dense_reckon(cfg, batch: int, prompt: int, max_len: int) -> dict:
              else max_len)
         caches += 2 * batch * T * cfg.n_kv_heads * (
             cfg.d_head + 4 if int8 else cfg.d_head * es)
-    n = batch * prompt
+    n = batch * (n_vis + prompt)
     transients = n * (3 * cfg.d_ff * es + 6 * cfg.n_heads * cfg.d_head * 4
                       + 4 * cfg.d_model * es)
+    d = cfg.d_model
+    frontend = (batch * n_vis * d * (8 + es) + 4 * d * d) if n_vis else 0
     out = {"weights_bytes": sum(sizes) * es, "cache_bytes": caches,
            "prefill_transient_bytes": transients,
+           "frontend_bytes": frontend,
            "init_transient_bytes": 4 * max(sizes)}
-    out["serve_bytes"] = (out["weights_bytes"] + caches + transients)
+    out["serve_bytes"] = (out["weights_bytes"] + caches + transients
+                          + frontend)
     out["init_bytes"] = out["weights_bytes"] + out["init_transient_bytes"]
     return out
 
 
 def dense_serve_phase(torch, dev, name, *, batch, prompt, new_tokens,
-                      profile=False, int8_arm=False):
+                      profile=False, int8_arm=False, n_vis=0):
     """(b)-(d) ``name`` at full width, bf16, weights seeded on the card,
     through model_api's entry points (serve_run): ``batch`` prompts of
-    ``prompt`` tokens prefilled twice, then ``new_tokens`` greedy steps;
-    check_served's checks and the peaks within their reckoning (a reckoned
-    peak past DENSE_PEAK_LIMIT cuts the depth by whole periods).
+    ``prompt`` tokens (each after ``n_vis`` seeded f32 patch embeddings,
+    a vision model's image, where given) prefilled twice, then
+    ``new_tokens`` greedy steps; check_served's checks and the peaks
+    within their reckoning (a reckoned peak past DENSE_PEAK_LIMIT cuts the
+    depth by whole periods).
     ``int8_arm``: the same with an int8 cache fed the bf16 arm's tokens,
     its logits within INT8_BOUND of the bf16 arm's at every step.
     ``profile``: a profiler window over one prefill and PROFILE_DECODE
@@ -4344,11 +4512,11 @@ def dense_serve_phase(torch, dev, name, *, batch, prompt, new_tokens,
     before = torch.cuda.memory_allocated()
     full = get_config(name)
     cfg = full
-    max_len = prompt + new_tokens
-    rk = dense_reckon(cfg, batch, prompt, max_len)
+    max_len = n_vis + prompt + new_tokens
+    rk = dense_reckon(cfg, batch, prompt, max_len, n_vis)
     while before + rk["serve_bytes"] > DENSE_PEAK_LIMIT:
         cfg = cfg.replace(n_layers=cfg.n_layers - cfg.period)
-        rk = dense_reckon(cfg, batch, prompt, max_len)
+        rk = dense_reckon(cfg, batch, prompt, max_len, n_vis)
     emit("dense_cuts", {
         "config": name, "n_layers": f"{full.n_layers} -> {cfg.n_layers}",
         "cut": cfg.n_layers != full.n_layers,
@@ -4359,8 +4527,12 @@ def dense_serve_phase(torch, dev, name, *, batch, prompt, new_tokens,
     model, init = card_model(torch, dev, cfg)
     tokens = torch.from_numpy(np.random.default_rng(19).integers(
         0, cfg.vocab_size, (batch, prompt)).astype(np.int32)).to(dev)
+    extra = None if not n_vis else torch.randn(
+        (batch, n_vis, cfg.d_model), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(21))
     out = {"config": cfg.name, "n_layers": cfg.n_layers, "batch": batch,
-           "prompt": prompt, "new_tokens": new_tokens, **init,
+           "prompt": prompt, "frontend_tokens": n_vis,
+           "new_tokens": new_tokens, **init,
            "init_peak_reckoned_bytes": before + rk["init_bytes"],
            "reckoned": rk, "arms": {}}
     check(init["weights_bytes"] == rk["weights_bytes"],
@@ -4374,10 +4546,10 @@ def dense_serve_phase(torch, dev, name, *, batch, prompt, new_tokens,
         arms.append(("int8", cfg.replace(kv_cache_dtype="int8")))
     fed = logits = None
     for arm, acfg in arms:
-        arm_rk = dense_reckon(acfg, batch, prompt, max_len)
+        arm_rk = dense_reckon(acfg, batch, prompt, max_len, n_vis)
         m, toks, arm_logits, caches = serve_run(
             torch, model_api(acfg), model, tokens, new_tokens,
-            forced=None if arm == "bf16" else fed)
+            forced=None if arm == "bf16" else fed, extra=extra)
         m["cache_bytes"] = sum(
             t.numel() * t.element_size() for c in caches for t in c
             if isinstance(t, torch.Tensor) and t.dim() > 0)
@@ -4409,7 +4581,7 @@ def dense_serve_phase(torch, dev, name, *, batch, prompt, new_tokens,
         flash = (f"flash_wgmma_kernel<{cfg.d_head}",)
         prof = serve_profile(torch, api, model, tokens,
                              api.init_cache(batch, max_len, device=dev),
-                             flash)
+                             flash, extra=extra)
         check(prof["prefill"]["kernel_ms"][flash[0]] > 0,
               f"{flash[0]}> ran in the profiled prefill")
         out["profile"] = prof
@@ -4417,7 +4589,7 @@ def dense_serve_phase(torch, dev, name, *, batch, prompt, new_tokens,
     out["flash_launches"] = sum(m["launches"]["flash_attention"]
                                 for m in out["arms"].values())
     emit("dense_serve_phase", out)
-    del model, logits
+    del model, logits, extra
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -4437,23 +4609,29 @@ def dense_replay_cut(name, dtype, *, d_model, n_heads, n_kv_heads, d_ff,
 
 def dense_replay_phase(torch, dev, *, d_model, n_heads, n_kv_heads, d_ff,
                        n_layers, sliding_window, vocab_size, batch, prompt,
-                       new_tokens):
-    """(e) gemma2 and h2o cut to these widths (their head widths, softcaps
-    and activations as published), f32, the same seeded weights on the
-    card and on the CPU port: equal greedy tokens, logits within
-    DENSE_REPLAY_TOL of the largest, one flash launch a layer a prefill on
-    the card; then on the card each decode step's logits against the
-    last-token logits of one prefill over the whole sequence so far."""
+                       new_tokens, names=("gemma2-27b", "h2o-danube-3-4b"),
+                       n_vis=0, tag="dense_replay_phase"):
+    """(e) ``names`` (gemma2 and h2o) cut to these widths (their head
+    widths, softcaps and activations as published), f32, the same seeded
+    weights on the card and on the CPU port, each prompt after ``n_vis``
+    seeded f32 patch embeddings where given: equal greedy tokens, logits
+    within DENSE_REPLAY_TOL of the largest, one flash launch a layer a
+    prefill on the card; then on the card each decode step's logits
+    against the last-token logits of one prefill over the whole sequence
+    so far (the patch embeddings in front)."""
+    from repro_torch.models import common as cm
     from repro_torch.models.api import model_api
 
     out = {"cut": f"d_model {d_model}, {n_heads} heads / {n_kv_heads} kv, "
                   f"d_ff {d_ff}, {n_layers} layers, window "
                   f"{sliding_window}, vocab {vocab_size}, f32",
-           "batch": batch, "prompt": prompt, "new_tokens": new_tokens,
-           "configs": {}}
+           "batch": batch, "prompt": prompt, "frontend_tokens": n_vis,
+           "new_tokens": new_tokens, "configs": {}}
     prompt_np = np.random.default_rng(2).integers(
         0, vocab_size, (batch, prompt)).astype(np.int32)
-    for name in ("gemma2-27b", "h2o-danube-3-4b"):
+    extra_np = None if not n_vis else np.random.default_rng(3).normal(
+        size=(batch, n_vis, d_model)).astype(np.float32)
+    for name in names:
         cfg = dense_replay_cut(name, torch.float32, d_model=d_model,
                                n_heads=n_heads, n_kv_heads=n_kv_heads,
                                d_ff=d_ff, n_layers=n_layers,
@@ -4464,7 +4642,8 @@ def dense_replay_phase(torch, dev, *, d_model, n_heads, n_kv_heads, d_ff,
         for device in (dev, "cpu"):
             model = api.init(torch.Generator().manual_seed(0), device=device)
             runs[str(device)] = (*replay_run(torch, api, model, prompt_np,
-                                             new_tokens, device), model)
+                                             new_tokens, device, extra_np),
+                                 model)
         gtok, glog, flash, gmodel = runs[str(dev)]
         ctok, clog, _, _ = runs["cpu"]
         scale = float(clog.abs().max())
@@ -4479,11 +4658,14 @@ def dense_replay_phase(torch, dev, *, d_model, n_heads, n_kv_heads, d_ff,
         # the last-token logits of the prompt and tokens 0 .. i prefilled
         seq = torch.cat([torch.from_numpy(prompt_np), gtok[:, :-1]],
                         dim=1).to(dev)
+        extra = None if extra_np is None else torch.from_numpy(extra_np).to(
+            dev)
         worst = 0.0
         for i in range(new_tokens):
             L = prompt + i + 1
-            whole, _ = api.prefill(gmodel, {"tokens": seq[:, :L]},
-                                   api.init_cache(batch, L, device=dev))
+            whole, _ = api.prefill(gmodel, frontend_batch(
+                seq[:, :L], extra), api.init_cache(
+                    batch, n_vis + L, device=dev))
             d = float((whole.cpu() - glog[i + 1]).abs().max())
             worst = max(worst, d / float(whole.abs().max()))
         check(worst <= DENSE_REPLAY_TOL, f"{name}: decode vs whole-sequence "
@@ -4492,10 +4674,11 @@ def dense_replay_phase(torch, dev, *, d_model, n_heads, n_kv_heads, d_ff,
             "tokens": gtok[0].tolist(), "max_abs_logit_err": err,
             "max_abs_logit": scale, "relative_err": err / scale,
             "flash_launches_prefill": flash,
-            "decode_vs_prefill_relative_err": worst,
-            "ring_wrapped": prompt + new_tokens > sliding_window}
+            "decode_vs_prefill_relative_err": worst, "d_head": cfg.d_head,
+            "ring_wrapped": cm.MIXER_SWA in cfg.mixers
+            and n_vis + prompt + new_tokens > sliding_window}
         del runs, gmodel
-    emit("dense_replay_phase", out)
+    emit(tag, out)
     return out
 
 
@@ -4520,7 +4703,8 @@ def faulty_grads(torch, q, k, v, o, do, lse, want, kw) -> dict:
     ``key_tiles`` begin is past 0 leaves out that first tile's keys; at a
     window of 64 or more); ``next_head``, one whose rows of a head
     narrower than its 128-wide tile are read 128 wide, columns 120-127 the
-    next head's first 8 (at dh 120); ``dq_tail`` and ``dv_tail``, one
+    next head's first 8 (at dh 120; 96-127, its first 32, at dh 96);
+    ``dq_tail`` and ``dv_tail``, one
     whose dq (dv) is 0.9 of the true one on the queries (keys) at or past
     position min(4096, S // 2) (where a row there passes the limit's
     floor: at window 1 dq is rounding residue).  {name: ((dq, dk, dv) in
@@ -4563,31 +4747,32 @@ def faulty_grads(torch, q, k, v, o, do, lse, want, kw) -> dict:
     return out
 
 
-def dense_bwd_checks(torch, clock, dev):
+def dense_bwd_checks(torch, clock, dev, cases=DENSE_BWD_CASES,
+                     timed=DENSE_BWD_TIMED, tag="dense_attention_bwd",
+                     seed=700):
     """(a) ``flash_attention_bwd_cuda`` against ``flash_attention_bwd_plain``
-    at every DENSE_BWD_CASES shape through ``hold_bwd`` (the forward
-    kernel's lse held to the plain version's first): bf16 within
-    DENSE_BWD_BF16_TOL, f32 within ATTN_TOL, the same bits from two calls.
-    At each bf16 shape every gradient of ``faulty_grads`` must fail
-    DENSE_BWD_BF16_TOL.  Autograd through ``ops.flash_attention_bshd`` at
-    h2o's shape launches the kernel once and returns the direct call's
-    bits.  DENSE_BWD_TIMED (h2o's (120, 120) and gemma2's windowed (128,
-    128)) are timed by ``bwd_time``, and the (128, 128) instance at h2o's
-    (B, S, H, Kv) beside the first.  Returns the two time rows."""
+    at every ``cases`` shape through ``hold_bwd`` (the forward kernel's lse
+    held to the plain version's first): bf16 within DENSE_BWD_BF16_TOL,
+    f32 within ATTN_TOL, the same bits from two calls.  At each bf16 shape
+    every gradient of ``faulty_grads`` must fail DENSE_BWD_BF16_TOL.
+    Autograd through ``ops.flash_attention_bshd`` at the first timed shape
+    launches the kernel once and returns the direct call's bits.
+    ``timed`` (step 20: h2o's (120, 120) and gemma2's windowed (128, 128))
+    are timed by ``bwd_time``, each not at 128 beside the (128, 128)
+    instance at its (B, S, H, Kv).  Returns the time rows."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
     tol = DENSE_BWD_BF16_TOL
-    timed = {}
-    for i, (B, S, H, Kv, dh, causal, window, cap) in enumerate(
-            DENSE_BWD_CASES):
+    held = {}
+    for i, (B, S, H, Kv, dh, causal, window, cap) in enumerate(cases):
         for dt in (torch.bfloat16, torch.float32):
             bf = dt == torch.bfloat16
-            q, k, v = attn_inputs(torch, B, S, H, Kv, dh, dt, 700 + i, dev)
+            q, k, v = attn_inputs(torch, B, S, H, Kv, dh, dt, seed + i, dev)
             kw = dict(causal=causal, window=window, softcap=cap)
-            tag = dict(B=B, S=S, H=H, Kv=Kv, dh=dh, dtype=str(dt), **kw)
+            where = dict(B=B, S=S, H=H, Kv=Kv, dh=dh, dtype=str(dt), **kw)
             row, (o, do, lse, want), err = hold_bwd(
-                torch, dev, q, k, v, kw, tag, 800 + i,
+                torch, dev, q, k, v, kw, where, seed + 100 + i,
                 scaled=tol if bf else None)
             if bf:
                 row["faulty"] = {}
@@ -4597,51 +4782,57 @@ def dense_bwd_checks(torch, clock, dev):
                             / scaled_limit(b, tol) for a, b in zip(bad, want)]
                     share = max(float(x.max()) for x in over)
                     check(share > 1, f"DENSE_BWD_BF16_TOL rejects the "
-                          f"{fault} gradient at {tag}: {share} of the limit")
+                          f"{fault} gradient at {where}: {share} of the "
+                          "limit")
                     row["faulty"][fault] = {
                         "wrong": n, "limit_share": share,
                         "entries_past_limit": sum(int((x > 1).sum())
                                                   for x in over)}
                     del bad, over
-            emit("dense_attention_bwd_check", row)
-            if bf and i in DENSE_BWD_TIMED:
-                timed[i] = (q, k, v, o, do, lse, kw, err)
+            emit(f"{tag}_check", row)
+            if bf and i in timed:
+                held[i] = (q, k, v, o, do, lse, kw, err)
             del q, k, v, o, do, lse, want
             torch.cuda.empty_cache()
 
-    q, k, v, o, do, lse, kw, _ = timed[DENSE_BWD_TIMED[0]]
+    q, k, v, o, do, lse, kw, _ = held[timed[0]]
+    pair = f"({q.shape[-1]}, {v.shape[-1]})"
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = ops.flash_attention_bshd(*leaves, **kw)
     check(torch.equal(out.grad_fn.saved_tensors[4], lse),
-          "autograd saved the (120, 120) forward kernel's lse")
+          f"autograd saved the {pair} forward kernel's lse")
     n0 = fa.bwd_launches
     grads = torch.autograd.grad(out, leaves, do)
     direct = fa.flash_attention_bwd_cuda(q, k, v, out.detach(), do, lse,
                                          **kw)
     torch.cuda.synchronize()
-    check(fa.bwd_launches - n0 == 2, "autograd launched the (120, 120) "
+    check(fa.bwd_launches - n0 == 2, f"autograd launched the {pair} "
           f"backward once ({fa.bwd_launches - n0 - 1} launches)")
     check(all(torch.equal(a, b) for a, b in zip(grads, direct)),
-          "autograd's (120, 120) gradients = the kernel's direct output")
+          f"autograd's {pair} gradients = the kernel's direct output")
     del leaves, out, grads, direct
 
-    rows = [bwd_time(torch, clock, *timed[i], plain_as_called=True,
-                     plain_reps=5) for i in DENSE_BWD_TIMED]
-    B, S, H, Kv, _, causal, window, cap = DENSE_BWD_CASES[DENSE_BWD_TIMED[0]]
-    q, k, v = attn_inputs(torch, B, S, H, Kv, 128, torch.bfloat16, 7, dev)
-    kw = dict(causal=causal, window=window, softcap=cap)
-    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
-    do = torch.randn_like(o)
-    rows[0]["dh128_same_shape_ms"] = clock.ms(
-        lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw))
+    rows = [bwd_time(torch, clock, *held[i], plain_as_called=True,
+                     plain_reps=5) for i in timed]
+    for i, row in zip(timed, rows):
+        B, S, H, Kv, dh, causal, window, cap = cases[i]
+        if dh == 128:
+            continue
+        q, k, v = attn_inputs(torch, B, S, H, Kv, 128, torch.bfloat16, 7, dev)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        do = torch.randn_like(o)
+        row["dh128_same_shape_ms"] = clock.ms(
+            lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw))
+        del q, k, v, o, do, lse
     for row in rows:
-        emit("dense_attention_bwd_time", row)
-    del timed
+        emit(f"{tag}_time", row)
+    del held
     torch.cuda.empty_cache()
     return rows
 
 
-def dense_train_reckon(cfg, batch: int, seq: int) -> dict:
+def dense_train_reckon(cfg, batch: int, seq: int, n_vis: int = 0) -> dict:
     """Bytes of a bf16 train step of ``cfg`` at B x S, before it runs: 16
     a parameter (bf16 parameter and gradient, f32 master and two moments)
     and the larger of the two phases' transients: AdamW's three f32
@@ -4654,7 +4845,11 @@ def dense_train_reckon(cfg, batch: int, seq: int) -> dict:
     the f32 logits every other 512-position chunk saved for its backward
     (two copies under a final softcap: the tanh's output and the capped
     logits) and the chunk in flight (five f32 copies of its logits, six
-    under a final softcap, and two of the head's weight gradient)."""
+    under a final softcap, and two of the head's weight gradient).  ``seq``
+    counts every position, the ``n_vis`` frontend tokens' too; those add
+    their f32 patch embeddings, the f32 product and its gradient, and two
+    f32 copies of ``vis_proj`` (the product's operand and its
+    gradient)."""
     from repro_torch.models import common as cm
     from repro_torch.models.lm import lm_param_specs
 
@@ -4673,6 +4868,9 @@ def dense_train_reckon(cfg, batch: int, seq: int) -> dict:
            * (2 if cfg.final_logit_softcap else 1)}
     transients = (out["checkpoint_bytes"] + out["period_bytes"]
                   + out["loss_saved_bytes"] + out["loss_chunk_bytes"])
+    out["frontend_bytes"] = (batch * n_vis * d * 12 + 8 * d * d
+                             if n_vis else 0)
+    transients += out["frontend_bytes"]
     out["total_bytes"] = out["state_bytes"] + max(out["adamw_bytes"],
                                                   transients)
     # what one loss-and-gradient pass adds to the parameters it is given:
@@ -4681,7 +4879,8 @@ def dense_train_reckon(cfg, batch: int, seq: int) -> dict:
     return out
 
 
-def dense_train_cut(torch, name: str, batch: int, seq: int):
+def dense_train_cut(torch, name: str, batch: int, seq: int,
+                    n_vis: int = 0):
     """``name`` at full width, cut in depth (by whole periods: gemma2's SWA
     / GLOBAL pair, a layer elsewhere) while the allocated bytes plus the
     reckoning pass DENSE_PEAK_LIMIT, and registered as ``name-train-cut``
@@ -4694,10 +4893,10 @@ def dense_train_cut(torch, name: str, batch: int, seq: int):
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
     full = cfg = get_config(name)
-    rk = dense_train_reckon(cfg, batch, seq)
+    rk = dense_train_reckon(cfg, batch, seq, n_vis)
     while before + rk["total_bytes"] > DENSE_PEAK_LIMIT:
         cfg = cfg.replace(n_layers=cfg.n_layers - cfg.period)
-        rk = dense_train_reckon(cfg, batch, seq)
+        rk = dense_train_reckon(cfg, batch, seq, n_vis)
     check(cfg.n_layers >= cfg.period, f"{name}: one period fits")
     if cfg.n_layers != full.n_layers:
         cfg = cfg.replace(name=f"{name}-train-cut")
@@ -4712,24 +4911,26 @@ def dense_train_cut(torch, name: str, batch: int, seq: int):
     return cfg, rk
 
 
-def backward_peak(torch, dev, cfg, model, *, batch, seq) -> int:
+def backward_peak(torch, dev, cfg, model, *, batch, seq, inputs=None) -> int:
     """The bytes one loss-and-gradient pass of ``cfg`` on a seeded B x S
-    batch allocates past what was held before it (the gradients, the remat
-    activations, the loss chunks' logits): the backward phase's own peak,
-    apart from AdamW's."""
+    token batch (or the model batch ``inputs``) allocates past what was
+    held before it (the gradients, the remat activations, the loss chunks'
+    logits): the backward phase's own peak, apart from AdamW's."""
     import gc
 
     from repro_torch.data.tokens import batch_iterator
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models.api import model_api
 
-    toks = torch.from_numpy(next(batch_iterator(
-        batch, seq, seed=5, vocab_size=cfg.vocab_size))["tokens"]).to(dev)
+    if inputs is None:
+        inputs = {"tokens": torch.from_numpy(next(batch_iterator(
+            batch, seq, seed=5, vocab_size=cfg.vocab_size))["tokens"]).to(
+                dev)}
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    grads = loss_and_grads(model_api(cfg).loss, model, {"tokens": toks})[2]
+    grads = loss_and_grads(model_api(cfg).loss, model, inputs)[2]
     torch.cuda.synchronize()
     del grads
     return torch.cuda.max_memory_allocated() - held
@@ -4773,39 +4974,187 @@ def dense_train_phase(torch, dev, name, *, batch, seq, steps,
     return out
 
 
-def dense_train_replay(torch, dev, *, batch, seq, steps):
-    """(d) gemma2 and h2o cut to DENSE_REPLAY's width (their head widths,
-    softcaps and remat as published), f32, ``steps`` train steps on the
-    card and on the CPU port from the same weights (``replay_train``):
-    loss, grad norm and masters within TRAIN_REPLAY_TOL; on the card the
-    f32 gradient kernel launched once a layer a step and the forward twice
-    (remat)."""
+def dense_train_replay(torch, dev, *, batch, seq, steps,
+                       names=("gemma2-27b", "h2o-danube-3-4b"),
+                       replay=DENSE_REPLAY, n_vis=0,
+                       tag="dense_train_replay"):
+    """(d) ``names`` (gemma2 and h2o) cut to ``replay``'s width (their head
+    widths, softcaps and remat as published), f32, ``steps`` train steps on
+    the card and on the CPU port from the same weights (``replay_train``,
+    image batches of ``n_vis`` patch embeddings where given): loss, grad
+    norm and masters within TRAIN_REPLAY_TOL; on the card the f32 gradient
+    kernel launched once a layer a step and the forward twice (remat)."""
     from repro_torch.kernels import ops
 
     out = {}
-    for name in ("gemma2-27b", "h2o-danube-3-4b"):
-        cfg = dense_replay_cut(name, torch.float32, **DENSE_REPLAY)
+    for name in names:
+        cfg = dense_replay_cut(name, torch.float32, **replay)
         ops.reset_launch_counts()
         out[name] = replay_train(torch, dev, cfg, batch=batch, seq=seq,
-                                 steps=steps)
+                                 steps=steps, n_vis=n_vis)
         c = ops.launch_counts()
         check((c["flash_attention"], c["flash_attention_bwd"])
               == (2 * steps * cfg.n_layers, steps * cfg.n_layers),
               f"{name} replay: flash launches on the card {c}")
         out[name].update(launches=c, d_head=cfg.d_head,
                          softcap=cfg.attn_logit_softcap)
-    emit("dense_train_replay", out)
+    emit(tag, out)
     return out
 
 
-def dense_kill_resume(torch, dev, **kw):
-    """(e) gemma2 at DENSE_REPLAY's width in bf16 through
+def dense_kill_resume(torch, dev, *, name="gemma2-27b", replay=DENSE_REPLAY,
+                      tag="dense_train_kill_resume", **kw):
+    """(e) ``name`` (gemma2) at ``replay``'s width in bf16 through
     ``kill_resume``."""
-    cfg = dense_replay_cut("gemma2-27b", torch.bfloat16, **DENSE_REPLAY)
+    cfg = dense_replay_cut(name, torch.bfloat16, **replay)
     cfg = cfg.replace(name=cfg.name + "-replay-cut")
-    out = {"config": f"{cfg.name} (DENSE_REPLAY's cut), bf16",
+    out = {"config": f"{cfg.name} (the replay's cut), bf16",
            **kill_resume(torch, dev, cfg, **kw)}
-    emit("dense_train_kill_resume", out)
+    emit(tag, out)
+    return out
+
+
+# ----------------------------------------------------------------- step 21
+class LeafSpy:
+    """While open, follows one top-level leaf's f32 master through every
+    ``optim.adamw.adamw_update`` call: its value before the first update,
+    the master itself (AdamW writes it in place), the weight decay and each
+    update's lr."""
+
+    def __init__(self, path: str):
+        from repro_torch.optim import adamw
+        self.adamw, self.path = adamw, path
+        self.first = self.master = self.decay = None
+        self.lrs = []
+
+    def __enter__(self):
+        self._update = self.adamw.adamw_update
+
+        def update(grads, opt, params, ocfg):
+            if self.first is None:
+                self.master = opt.master[self.path]
+                self.first = self.master.detach().clone()
+                self.decay = ocfg.weight_decay
+            out = self._update(grads, opt, params, ocfg)
+            self.lrs.append(out[2]["lr"])
+            return out
+
+        self.adamw.adamw_update = update
+        return self
+
+    def __exit__(self, *exc):
+        self.adamw.adamw_update = self._update
+
+    def decay_gap(self) -> float:
+        """The largest |master - first * prod(1 - lr_t * decay)| over the
+        largest |first|: how far the leaf moved past weight decay."""
+        factor = math.prod(1.0 - float(lr) * self.decay for lr in self.lrs)
+        want = self.first.double() * factor
+        return float((self.master.double() - want).abs().max()
+                     / self.first.abs().max())
+
+
+def phi3_train_phase(torch, dev, *, batch, seq, trainer_steps, step_steps):
+    """(e) ``phi-3-vision-4.2b`` at full width, cut by ``dense_train_cut``
+    (its peak reckoned with the frontend's tokens), bf16, under remat:
+    (i) ``trainer_steps`` steps of ``launch.train.main`` through
+    ``trainer_run``, tokens only (the reference trainer's path), after
+    which ``vis_proj``'s master is its first value times prod(1 - lr_t *
+    wd) within PHI3_DECAY_TOL, then ``backward_peak``; (ii) ``step_steps``
+    steps of ``launch.steps.build_train_step`` on input_specs'
+    ``train_4k`` cell at B = ``batch`` (tokens and patch embeddings drawn
+    fresh each step by ``make_inputs`` from one seeded generator), from
+    (i)'s parameters and a fresh AdamW state, through ``trainer_run`` with
+    that loop, where ``vis_proj`` moves past its decay by more than
+    PHI3_LEARN_MIN; then ``backward_peak`` on an image batch, two
+    gradients of one image batch with the same bits and a profiler window
+    over one step with device ms by kind.  In both, 2 flash forward and 1
+    gradient launch a layer a step, every loss finite and falling, the
+    peak within its reckoning."""
+    import gc
+
+    from repro_torch.configs.base import (SHAPES, get_config, input_specs,
+                                          make_inputs)
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import adamw
+
+    cell = dataclasses.replace(SHAPES["train_4k"], seq_len=seq,
+                               global_batch=batch)
+    specs = input_specs(get_config(PHI3), cell)
+    n_vis = specs["extra_embeds"].shape[1]
+    cfg, rk = dense_train_cut(torch, PHI3, batch, seq, n_vis)
+    check(cfg.remat, f"{PHI3} trains under remat, as the reference's "
+          "config does")
+    L = cfg.n_layers
+    out = {"config": cfg.name, "reckoned": rk,
+           "cell": {"name": cell.name, "batch": batch, "seq": seq,
+                    "text_tokens": specs["tokens"].shape[1],
+                    "frontend_tokens": n_vis}}
+
+    with LeafSpy("vis_proj") as spy:
+        model, row = trainer_run(torch, dev, cfg, steps=trainer_steps,
+                                 batch=batch, seq=seq, fwd=2 * L, bwd=L,
+                                 reckoned=rk["total_bytes"])
+    gap = spy.decay_gap()
+    check(len(spy.lrs) == trainer_steps and gap <= PHI3_DECAY_TOL,
+          f"{PHI3} tokens only: vis_proj moved by weight decay alone "
+          f"({gap} past it, {len(spy.lrs)} updates)")
+    row["vis_proj_past_decay"] = gap
+    del spy
+    row["backward_peak_bytes"] = backward_peak(torch, dev, cfg, model,
+                                               batch=batch, seq=seq)
+    check(row["backward_peak_bytes"] <= rk["backward_bytes"],
+          f"{PHI3} tokens only: backward peak {row['backward_peak_bytes']} "
+          f"within its reckoning {rk['backward_bytes']}")
+    out["trainer_tokens_only"] = row
+
+    ocfg = adamw.AdamWConfig(lr=3e-4, total_steps=step_steps,
+                             warmup_steps=min(50, step_steps // 4))
+    gen = torch.Generator(device=dev).manual_seed(24)
+
+    def run(on_step):
+        state = {"lm": model, "opt": adamw.init_opt_state(model, ocfg)}
+        step = build_train_step(cfg, ocfg)
+        for i in range(1, step_steps + 1):
+            b = make_inputs(cfg, cell, gen, device=dev)
+            state["lm"], state["opt"], m = step(state["lm"], state["opt"], b)
+            del b
+            on_step(i, m, state["lm"])
+        lm = state.pop("lm")
+        state.clear()                       # frees the optimizer state
+        return lm, "training complete"
+
+    with LeafSpy("vis_proj") as spy:
+        model, row = trainer_run(
+            torch, dev, cfg, steps=step_steps, batch=batch, seq=seq,
+            fwd=2 * L, bwd=L, reckoned=rk["total_bytes"], run=run,
+            limit=rk["total_bytes"] - 2 * rk["params"])
+    gap = spy.decay_gap()
+    check(gap > PHI3_LEARN_MIN, f"{PHI3} image batches: vis_proj learned "
+          f"({gap} past its decay)")
+    row["vis_proj_past_decay"] = gap
+    del spy
+    images = [make_inputs(cfg, cell, torch.Generator(
+        device=dev).manual_seed(25 + i), device=dev) for i in range(2)]
+    row["backward_peak_bytes"] = backward_peak(torch, dev, cfg, model,
+                                               batch=batch, seq=seq,
+                                               inputs=images[0])
+    check(row["backward_peak_bytes"] <= rk["backward_bytes"],
+          f"{PHI3} image batch: backward peak {row['backward_peak_bytes']} "
+          f"within its reckoning {rk['backward_bytes']}")
+    row["grads_same_bits_twice"], _ = grads_twice(
+        torch, dev, cfg, model, batch=batch, seq=seq, batches=images)
+    flash = tuple(f"{k}<{cfg.d_head}" for k in (
+        "flash_wgmma_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"))
+    row["profile"] = train_step_profile(torch, cfg, model, images, flash)
+    emit("phi3_train_profile", {"config": cfg.name, **row["profile"]})
+    out["build_train_step_images"] = row
+    out["launches"] = {k: out["trainer_tokens_only"]["launches"][k]
+                       + row["launches"][k] for k in row["launches"]}
+    emit("phi3_train_phase", out)
+    del model, images
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4969,6 +5318,21 @@ def main() -> int:
     timed("dense_train_replay", dense_train_replay, torch, dev,
           **DENSE_TRAIN_REPLAY)
     timed("dense_kill_resume", dense_kill_resume, torch, dev, **DENSE_KILL)
+    phi3_fwd = timed("phi3_attention_checks", dense_attention_checks, torch,
+                     clock, dev, cases=PHI3_ATTN_CASES, timed=PHI3_TIMED,
+                     tag="phi3_attention", seed=240, next_head=True)
+    phi3_bwd, = timed("phi3_bwd_checks", dense_bwd_checks, torch, clock, dev,
+                      cases=PHI3_BWD_CASES, timed=PHI3_BWD_TIMED,
+                      tag="phi3_attention_bwd", seed=900)
+    phi3_serve = timed("phi3_serve", dense_serve_phase, torch, dev, PHI3,
+                       **PHI3_SERVE)
+    timed("phi3_replay_phase", dense_replay_phase, torch, dev,
+          **PHI3_REPLAY_RUN)
+    phi3_train = timed("phi3_train_phase", phi3_train_phase, torch, dev,
+                       **PHI3_TRAIN)
+    timed("phi3_train_replay", dense_train_replay, torch, dev,
+          **PHI3_TRAIN_REPLAY)
+    timed("phi3_kill_resume", dense_kill_resume, torch, dev, **PHI3_KILL)
     emit("phase_seconds", phase_s)
     print(smi, flush=True)          # again, inside the tail of a long log
 
@@ -5020,13 +5384,23 @@ def main() -> int:
                         "(192, 128) instance); step 20 the dense GQA "
                         "configs' training paths (one a layer a step: "
                         "(120, 120) on h2o-danube-3-4b, (128, 128) on "
-                        "gemma2-27b, yi-9b and minitron-4b)",
+                        "gemma2-27b, yi-9b and minitron-4b); step 21 "
+                        "phi-3-vision-4.2b's training path (one a layer a "
+                        "step, the (96, 96) instance, 32 layers)",
          **bwd_row,
          "deepseek_train_launches":
              ds_train["launches"]["flash_attention_bwd"],
          "dense_train_launches": {
              n: d["launches"]["flash_attention_bwd"]
              for n, d in dense_train.items()},
+         "phi3_train_launches": phi3_train["launches"]["flash_attention_bwd"],
+         "dh96_instance": {
+             "instance": "(dqk, dv) = (96, 96): flash_bwd_dq_kernel<96,96> "
+                         "and flash_bwd_dkdv_kernel<96,96> (bf16, on the "
+                         "128-wide tiles, columns 96-127 zero-filled), the "
+                         "f32 pair <96,96>",
+             "launches": phi3_train["launches"]["flash_attention_bwd"],
+             **phi3_bwd},
          "dh120_instance": {
              "instance": "(dqk, dv) = (120, 120): flash_bwd_dq_kernel<120,"
                          "120> and flash_bwd_dkdv_kernel<120,120> (bf16, on "
@@ -5067,6 +5441,18 @@ def main() -> int:
                         "int8 cache arms)", **dense120,
          "train_launches": dense_train["h2o-danube-3-4b"]["launches"][
              "flash_attention"]},
+        {"name": "flash_attention_dh96", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:93",
+         "instance": "(dh, dv) = (96, 96): flash_wgmma_kernel<96,96> (bf16, "
+                     "on the 128-wide tiles, columns 96-127 zero-filled by "
+                     "TMA), flash_f32_kernel<96,96> (f32)",
+         "launches": phi3_serve["flash_launches"],
+         "launched_on": "step 21 phi-3-vision-4.2b serving path (one a "
+                        "layer a prefill, 32 layers, 2 prefills of 576 "
+                        "image + 1024 text positions)", **phi3_fwd[0],
+         "training_shape": phi3_fwd[1],
+         "train_launches": phi3_train["launches"]["flash_attention"]},
         {"name": "flash_attention_gqa128", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:93",

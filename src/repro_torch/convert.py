@@ -116,12 +116,20 @@ def _leaf(x, dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32)).to(dtype)
 
 
+def _top_keys(cfg: cm.ArchConfig) -> list:
+    """The leaves of ``lm_param_specs(cfg)`` outside the layer stack
+    (``embed``, ``final_scale``, ``lm_head`` where untied, ``vis_proj``
+    where the model has a vision frontend): the same names in both
+    layouts."""
+    return [k for k in lm_param_specs(cfg) if k != "layers"]
+
+
 def _from_reference(cfg: cm.ArchConfig, tree, leaf) -> dict:
     """The reference's LM layout (body leaves stacked ``[n_periods, ...]``
     per period slot, the dense prefix as a list) as the port's per-layer
-    tree: prefix first, then period by period; ``leaf(path, x)`` converts
-    each, ``path`` the leaf's path in the port's tree
-    (``layers/3/mlp/router``)."""
+    tree: prefix first, then period by period, and every top-level leaf of
+    the config's specs; ``leaf(path, x)`` converts each, ``path`` the
+    leaf's path in the port's tree (``layers/3/mlp/router``)."""
     npre = len(tree.get("prefix", []))
     layers = [cm.map_tree(lambda p, x, i=i: leaf(f"layers/{i}/{p}", x), t)
               for i, t in enumerate(tree.get("prefix", []))]
@@ -131,8 +139,7 @@ def _from_reference(cfg: cm.ArchConfig, tree, leaf) -> dict:
             layers.append(cm.map_tree(
                 lambda p, x, i=i, n=n: leaf(f"layers/{n}/{p}", x[i]),
                 tree["body"][s]))
-    out = {k: leaf(k, tree[k]) for k in ("embed", "final_scale", "lm_head")
-           if k in tree}
+    out = {k: leaf(k, tree[k]) for k in _top_keys(cfg)}
     out["layers"] = layers
     return out
 
@@ -140,8 +147,7 @@ def _from_reference(cfg: cm.ArchConfig, tree, leaf) -> dict:
 def _to_reference(cfg: cm.ArchConfig, tree) -> dict:
     """The inverse of ``_from_reference`` over CPU tensors: body layers
     stacked ``[n_periods, ...]`` per period slot."""
-    out = {k: tree[k] for k in ("embed", "final_scale", "lm_head")
-           if k in tree}
+    out = {k: tree[k] for k in _top_keys(cfg)}
     layers = tree["layers"]
     npre = cfg.n_dense_prefix
     if npre:

@@ -10,7 +10,7 @@
 // with q, k [B, S, H or Kv, dqk] and v [B, S, Kv, dv] read through their
 // strides, o [B, S, H, dv]; (dqk, dv) is (64, 64), (128, 128), (192, 128),
 // DeepSeek MLA's prefill (a q / k head of qk_nope + qk_rope = 128 + 64, a v
-// head of 128), or (120, 120), h2o-danube-3's head
+// head of 128), (120, 120), h2o-danube-3's head, or (96, 96), phi-3's
 // (the last dimension contiguous); query head h reads kv head h / (H / Kv),
 // so K and V are never repeated in memory.  Arithmetic kept from the TPU
 // kernel: scores in f32 from the input dtype, masked entries set to
@@ -59,8 +59,8 @@
 //     causal triangle's long tiles start first and every block gets about
 //     the same work; the next tile's loads run under the current one's
 //     last product and output stores.
-//   A head width that is not a multiple of 64 (120) runs on the tiles of
-//     the next one (128): the tensor maps carry the true width, so TMA
+//   A head width that is not a multiple of 64 (120, 96) runs on the tiles
+//     of the next one (128): the tensor maps carry the true width, so TMA
 //     fills the last panel's columns past it with zeros, as it fills rows
 //     past S; Q . K^T and P . V are exact with zero columns, and the
 //     epilogue stores only the columns below dv.  q, k and v are read
@@ -977,9 +977,10 @@ int launch_wgmma(int B, int S, int H, const long long* tma, const void* q,
 // elements) in the order q (b, s, h), k, v, o.  lse is null or f32
 // [B, H, S], contiguous: each row's log-sum-exp.  For bf16, tma holds q's,
 // k's and v's tensor-map layouts (11 values each, see encode).  (dh, dv)
-// is (64, 64), (128, 128), (192, 128) or (120, 120); H % Kv == 0.  Returns -1 for a
-// shape the kernel does not take, -2 / -3 when a tensor map cannot be
-// encoded, else cudaGetLastError() after the launch (0 = launched).
+// is (64, 64), (128, 128), (192, 128), (120, 120) or (96, 96); H % Kv ==
+// 0.  Returns -1 for a shape the kernel does not take, -2 / -3 when a
+// tensor map cannot be encoded, else cudaGetLastError() after the launch
+// (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       const long long* strides,
@@ -991,6 +992,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                    : dh == 128 && dv == 128 ? 1
                    : dh == 192 && dv == 128 ? 2
                    : dh == 120 && dv == 120 ? 3
+                   : dh == 96 && dv == 96   ? 4
                                             : -1;
   if (B < 1 || S < 1 || Kv < 1 || H % Kv != 0 || pair < 0) return -1;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(dh)));
@@ -1005,7 +1007,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return pair == 0   ? launch_wgmma<64, 64>(B, S, H, tma, q, k, v, t, st)
            : pair == 1 ? launch_wgmma<128, 128>(B, S, H, tma, q, k, v, t, st)
            : pair == 2 ? launch_wgmma<192, 128>(B, S, H, tma, q, k, v, t, st)
-                       : launch_wgmma<120, 120>(B, S, H, tma, q, k, v, t, st);
+           : pair == 3 ? launch_wgmma<120, 120>(B, S, H, tma, q, k, v, t, st)
+                       : launch_wgmma<96, 96>(B, S, H, tma, q, k, v, t, st);
   }
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
@@ -1024,6 +1027,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                               f32_smem_bytes<128, 128>(), st, a)
          : pair == 2 ? launch(flash_f32_kernel<192, 128>, grid, kF32Threads,
                               f32_smem_bytes<192, 128>(), st, a)
-                     : launch(flash_f32_kernel<120, 120>, grid, kF32Threads,
-                              f32_smem_bytes<120, 120>(), st, a);
+         : pair == 3 ? launch(flash_f32_kernel<120, 120>, grid, kF32Threads,
+                              f32_smem_bytes<120, 120>(), st, a)
+                     : launch(flash_f32_kernel<96, 96>, grid, kF32Threads,
+                              f32_smem_bytes<96, 96>(), st, a);
 }

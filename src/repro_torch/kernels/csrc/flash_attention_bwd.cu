@@ -26,7 +26,8 @@
 // over its G = H / Kv query heads.  dq, dk [.., dqk] and dv [.., dv] are
 // written contiguous in q's dtype.  (dqk, dv) is (64, 64), (128, 128),
 // (192, 128), DeepSeek MLA's prefill (a q / k head of qk_nope + qk_rope =
-// 128 + 64, a v head of 128), or (120, 120), h2o-danube-3's head:
+// 128 + 64, a v head of 128), (120, 120), h2o-danube-3's head, or (96, 96),
+// phi-3's:
 // S = Q . K^T contracts over dqk and dP = dO . V^T over dv; Q, K, dQ and
 // dK are ceil(dqk / 64) panels of 64 columns, V, dO and dV ceil(dv / 64).
 // Masks as the forward: causal kpos <= qpos, window qpos - kpos < window,
@@ -72,8 +73,8 @@
 //   the mask is applied only in the tiles that need it.
 //   f32 (SIMT fp32 FMA, no TF32): the same two launches over 64 x 64 tiles
 //   in shared memory, 256 threads each owning a 4 x 4 micro-tile of scores.
-//   A head width that is not a multiple of 64 (120) runs on the tiles of
-//   the next one (128), as the forward does (csrc/flash_attention.cu): in
+//   A head width that is not a multiple of 64 (120, 96) runs on the tiles
+//   of the next one (128), as the forward does (csrc/flash_attention.cu): in
 //   bf16 load_tile copies the true width of each row and zero-fills the
 //   16-byte chunks past it (a cp.async of source size 0, as rows past S
 //   are filled), so S = Q . K^T, dP = dO . V^T, dQ = dS . K, dK = dS^T . Q
@@ -356,8 +357,8 @@ __device__ __forceinline__ void group_sync(int wg) {
 // [64, 64 ceil(D / 64)] tile at dst: 16-byte chunk c of row r lands at
 // chunk c ^ (r % 8) of its 128-byte panel row, as TMA's 128-byte swizzle
 // would put it; rows at or past S, and the chunks past the head's D columns
-// (8 of them at D = 120), are zero-filled.  Thread i of n copies chunks
-// i, i + n, ...
+// (8 of them at D = 120, 16 at D = 96), are zero-filled.  Thread i of n
+// copies chunks i, i + n, ...
 template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* base,
@@ -422,7 +423,7 @@ __device__ __forceinline__ void form_ds(const Args& a, float (&sc)[32],
 
 // three blocks an SM at dh = 64 (168 registers): the 384 blocks of the
 // captioner's training shape then run in one wave on 132 SMs; two on the
-// 128-wide tiles (dh 128 and 120); one at (192, 128), whose 121 KB of
+// 128-wide tiles (dh 128, 120 and 96); one at (192, 128), whose 121 KB of
 // shared memory leave no room for a second
 template <int DQK, int DV>
 __global__ void __launch_bounds__(128, (DQK + 63) / 64 == 1   ? 3
@@ -467,7 +468,8 @@ __global__ void __launch_bounds__(128, (DQK + 63) / 64 == 1   ? 3
 
   // D = rowsum(do * o) in f32, two threads a row, while the tiles load:
   // of a row's DV / 8 16-byte chunks the first thread sums the first
-  // ceil(DV / 16) and the second the rest (8 and 7 at DV = 120), each in
+  // ceil(DV / 16) and the second the rest (8 and 7 at DV = 120, 6 and 6 at
+  // DV = 96, the second from byte 96 of the row: 16-byte aligned), each in
   // order, then the first adds the second's sum to its own.  Launch 2
   // reads it as D * scale.
   {
@@ -767,7 +769,8 @@ constexpr int kThreads = 256;          // 16 x 16 threads, 4 x 4 each
 constexpr int kLdw = kRows + 1;        // row stride of the [64, 64] tiles
 
 // a thread's output columns tx, tx + 16, ... of a width-D row: ceil(D / 16)
-// of them, the last past D when D is no multiple of 16 (120: 112 + tx)
+// of them, the last past D when D is no multiple of 16 (120: 112 + tx; 96
+// is six whole steps)
 template <int D>
 __host__ __device__ constexpr int cols16() { return (D + 15) / 16; }
 
@@ -1101,10 +1104,10 @@ int run_f32(const Args& a, cudaStream_t st) {
 // q (b, s, h), k, v, o, do.  lse [B, H, S] f32 is the forward's
 // log-sum-exp.  dq [B, S, H, dh], dk [B, S, Kv, dh] and dv [B, S, Kv, dv]
 // are contiguous in the same dtype; dsum is [B, H, S] f32 scratch.
-// (dh, dv) is (64, 64), (128, 128), (192, 128) or (120, 120); the scale is
-// dh^-0.5 of the true width;
-// H % Kv == 0.  Returns -1 for a shape the kernels do not take, else
-// cudaGetLastError() after the launches (0 = both launched).
+// (dh, dv) is (64, 64), (128, 128), (192, 128), (120, 120) or (96, 96); the
+// scale is dh^-0.5 of the true width; H % Kv == 0.  Returns -1 for a
+// shape the kernels do not take, else cudaGetLastError() after the
+// launches (0 = both launched).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
@@ -1115,6 +1118,7 @@ extern "C" int flash_attention_bwd_launch(
                    : dh == 128 && dv_width == 128 ? 1
                    : dh == 192 && dv_width == 128 ? 2
                    : dh == 120 && dv_width == 120 ? 3
+                   : dh == 96 && dv_width == 96   ? 4
                                                   : -1;
   if (B < 1 || S < 1 || Kv < 1 || H % Kv != 0 || pair < 0 || window < 0 ||
       H > 65535 || B > 65535)
@@ -1137,9 +1141,11 @@ extern "C" int flash_attention_bwd_launch(
     return pair == 0   ? run_bf16<64, 64>(a, st)
            : pair == 1 ? run_bf16<128, 128>(a, st)
            : pair == 2 ? run_bf16<192, 128>(a, st)
-                       : run_bf16<120, 120>(a, st);
+           : pair == 3 ? run_bf16<120, 120>(a, st)
+                       : run_bf16<96, 96>(a, st);
   return pair == 0   ? run_f32<64, 64>(a, st)
          : pair == 1 ? run_f32<128, 128>(a, st)
          : pair == 2 ? run_f32<192, 128>(a, st)
-                     : run_f32<120, 120>(a, st);
+         : pair == 3 ? run_f32<120, 120>(a, st)
+                     : run_f32<96, 96>(a, st);
 }

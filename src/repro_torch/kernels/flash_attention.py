@@ -49,8 +49,9 @@ dq and dk come back at q's width and dv at v's.
 forward runs ``flash_attention_cuda`` or ``flash_attention_plain`` with
 ``return_lse=True`` and its backward ``flash_attention_bwd_cuda`` or
 ``flash_attention_bwd_plain``, each picked by the tensors' device.  Both
-kernels take the same head-width pairs, ``HEAD_PAIRS``: MLA's 192 / 128
-and h2o-danube-3's 120, run on the 128-wide tiles, included.
+kernels take the same head-width pairs, ``HEAD_PAIRS``: MLA's 192 / 128,
+and h2o-danube-3's 120 and phi-3's 96, run on the 128-wide tiles,
+included.
 """
 from __future__ import annotations
 
@@ -65,8 +66,8 @@ BLOCK_K = 128                # keys per online-softmax step (kernel, plain)
 TILE = 128                   # the bf16 kernel's query and key tile
 PANEL = 64                   # bf16 columns of one 128-byte TMA box row
 # (q / k, v) head widths the forward and gradient kernels are built for
-# (120: h2o-danube-3's head, run on the 128-wide tiles)
-HEAD_PAIRS = ((64, 64), (128, 128), (192, 128), (120, 120))
+# (120: h2o-danube-3's head, 96: phi-3's, both run on the 128-wide tiles)
+HEAD_PAIRS = ((64, 64), (128, 128), (192, 128), (120, 120), (96, 96))
 DTYPES = (torch.bfloat16, torch.float32)
 
 launches = 0                 # kernel launches made by flash_attention_cuda
@@ -167,11 +168,11 @@ def tma_layout(t: torch.Tensor):
     ``csrc/flash_attention.cu`` encodes it: dims innermost first
     ``(dh, S, heads, B)``, the byte strides of S, heads and B, and the box,
     one 128-row by 64-column panel (128 bytes, the swizzle's span).  The
-    true dh goes into the map: a head narrower than its last panel (120 in
-    two panels of 64) arrives with zeros in the columns past dh, as rows
-    past S do.  TMA needs a contiguous head dim and 16-byte aligned strides
-    and base; dh must be a multiple of 8, and at most 128 when it is not a
-    multiple of 64; anything else raises ``ValueError``."""
+    true dh goes into the map: a head narrower than its last panel (120 or
+    96 in two panels of 64) arrives with zeros in the columns past dh, as
+    rows past S do.  TMA needs a contiguous head dim and 16-byte aligned
+    strides and base; dh must be a multiple of 8, and at most 128 when it
+    is not a multiple of 64; anything else raises ``ValueError``."""
     if t.dim() != 4:
         raise ValueError(f"tma_layout: {tuple(t.shape)} is not 4-D")
     B, S, heads, dh = t.shape

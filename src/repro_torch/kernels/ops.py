@@ -73,8 +73,8 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k [B, S, Kv, dh], v [B, S, Kv, dv] (any strides with a contiguous head
     dim) -> [B, S, H, dv]; query head h reads kv head h // (H / Kv).  On
     the card (dh, dv) is one of ``flash_attention.HEAD_PAIRS``: (64, 64),
-    (128, 128), (192, 128) or (120, 120), for the forward and the
-    gradient kernel alike.
+    (128, 128), (192, 128), (120, 120) or (96, 96), for the forward and
+    the gradient kernel alike.
 
     With grad enabled and an input that requires grad it goes through
     ``FlashAttention``, whose backward is the gradient kernel at the same

@@ -19,16 +19,21 @@ from repro_torch.optim import adamw
 
 def loss_and_grads(loss_fn, params, batch: dict, accum: int = 1):
     """``(loss, metrics, grads)`` of ``loss_fn(params, batch) -> (loss,
-    metrics)``.  Grads are a tree like the parameters.  With ``accum > 1``
-    the batch splits into ``accum`` microbatches along its leading axis:
-    the grads are their f32 sum divided by ``accum``, the loss is the mean,
-    and the metrics are the last microbatch's."""
+    metrics)``.  Grads are a tree like the parameters; a leaf the loss
+    does not use (``vis_proj`` under a tokens-only batch) gets zeros of
+    its own dtype, as ``jax.grad`` gives it.  With ``accum > 1`` the batch
+    (``tokens`` and, where present, ``extra_embeds``) splits into
+    ``accum`` microbatches along its leading axis: the grads are their f32
+    sum divided by ``accum``, the loss is the mean, and the metrics are
+    the last microbatch's."""
     tree = cm.as_tree(params)
     paths, leaves = zip(*cm.leaves(tree))
 
     def one(mb):
         loss, metrics = loss_fn(params, mb)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             grads
 

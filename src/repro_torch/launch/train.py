@@ -1,6 +1,8 @@
 """Training launcher for any registered config of the port (the captioner,
 DeepSeek-V3 / V2, the dense GQA configs gemma2-27b, h2o-danube-3-4b, yi-9b
-and minitron-4b, and their smoke cuts), on one device.
+and minitron-4b, phi-3-vision-4.2b, and their smoke cuts), on one device.
+It feeds tokens only, as the reference's trainer does: a vision model's
+``vis_proj`` gets a zero gradient and moves by weight decay alone.
 
 Port of ``repro.launch.train``, with its flags and behaviour.  The
 initial parameters are drawn from a generator seeded 0 on the training
@@ -20,6 +22,9 @@ gradients to int8 with error feedback before the update.
         --arch deepseek-v3-671b-smoke --steps 4 --batch 2 --seq 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch gemma2-27b-smoke --steps 4 --batch 2 --seq 40 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch phi-3-vision-4.2b-smoke --steps 4 --batch 2 --seq 40 \\
+        --device cpu
 
 It runs on the card unless ``--device cpu`` is given.
 """

@@ -4,12 +4,14 @@ Port of ``repro.models.api`` for decoder-only models:
     api = model_api(cfg)
     api.param_specs() / api.init(generator, device=...)  -> LM
     api.loss(params, batch, **kw)               -> (scalar, metrics)
-    api.forward(params, batch)                  -> logits [B, S, V]
+    api.forward(params, batch)                  -> logits [B, n + S, V]
     api.prefill(params, batch, caches)          -> (logits [B, V], caches)
     api.decode(params, tokens, caches, pos)     -> (logits [B, V], caches)
     api.init_cache(batch, max_len, device=...)  -> a KVCache / MLACache a layer
-``init`` and ``init_cache`` run on the card unless ``device="cpu"`` is
-passed.  ``init`` returns frozen parameters (serving);
+``batch`` holds ``tokens`` [B, S] and, for a vision model, may hold
+``extra_embeds`` [B, n, d] (the frontend's n patch embeddings, put in
+front of the tokens).  ``init`` and ``init_cache`` run on the card unless
+``device="cpu"`` is passed.  ``init`` returns frozen parameters (serving);
 ``.requires_grad_(True)`` on the result trains them.  The encoder-decoder
 family is not ported (ROADMAP.md section 2 item 4).
 """
@@ -52,10 +54,8 @@ def model_api(cfg: cm.ArchConfig) -> ModelAPI:
         return lm_mod.LM(cfg, lm_mod.init_lm_params(cfg, gen), device=dev)
 
     def _forward(params, batch):
-        if batch.get("extra_embeds") is not None:
-            raise NotImplementedError(f"extra_embeds (frontend tokens): "
-                                      f"{cm.NOT_PORTED}")
-        return lm_mod.forward_logits(params, batch["tokens"], cfg)
+        return lm_mod.forward_logits(params, batch["tokens"], cfg,
+                                     extra_embeds=batch.get("extra_embeds"))
 
     return ModelAPI(
         cfg=cfg,
@@ -65,7 +65,8 @@ def model_api(cfg: cm.ArchConfig) -> ModelAPI:
                                                         **kw),
         forward=_forward,
         prefill=lambda params, batch, caches: lm_mod.prefill(
-            params, batch["tokens"], cfg, caches),
+            params, batch["tokens"], cfg, caches,
+            extra_embeds=batch.get("extra_embeds")),
         decode=lambda params, tokens, caches, pos: lm_mod.decode_step(
             params, tokens, cfg, caches, pos=pos),
         init_cache=lambda batch, max_len, *, device="cuda":

@@ -69,9 +69,12 @@ class ArchConfig:
     DeepSeek's sub-configs; ``moe_groups`` is the least number of MoE
     dispatch groups.  ``moe_weight_shard`` and ``act_shard`` (the mesh's
     expert and activation shardings) are accepted and have no effect, as
-    ``donate=`` has none: the port runs on one device.  The Mamba and RWKV
-    sub-configs, the encoder-decoder and frontend fields and the other JAX
-    execution knobs (scan, the jnp attention's q-chunk) are not ported.
+    ``donate=`` has none: the port runs on one device.  ``frontend`` is
+    None or "vision" (precomputed patch embeddings, ``n_frontend_tokens``
+    an image, put in front of the text through ``vis_proj``); the audio
+    frontend, the Mamba and RWKV sub-configs, the encoder-decoder's fields
+    and the other JAX execution knobs (scan, the jnp attention's q-chunk)
+    are not ported.
     ``remat`` checkpoints each body period's activations
     (``torch.utils.checkpoint``) as the reference's ``jax.checkpoint``
     does; ``grad_accum`` splits a train step's batch into microbatches."""
@@ -104,6 +107,11 @@ class ArchConfig:
     moe: MoEConfig | None = None
 
     encdec: bool = False
+
+    # modality frontend stub: None | "vision"
+    frontend: str | None = None
+    n_frontend_tokens: int = 0            # vision: patch tokens per image
+
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     act: str = "silu"                     # mlp activation ("silu"|"gelu")

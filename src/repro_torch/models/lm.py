@@ -1,12 +1,16 @@
 """Decoder-only language model: embedding -> blocks -> final norm -> head.
 
 Port of ``repro.models.lm`` for the dense and the DeepSeek (MLA + MoE)
-decoders: ``_embed``,
-``_run_blocks``, ``forward_logits``, ``prefill``, ``decode_step`` and the
-sequence-chunked training loss ``lm_loss``.  The reference scans over
-stacked periods; the port keeps one parameter tree per layer
-(``params["layers"][i]``) and runs them in a plain loop, with no sharding
-constraint; under ``cfg.remat`` each body period runs under
+decoders and the vision frontend: ``_embed``, ``_run_blocks``,
+``forward_logits``, ``prefill``, ``decode_step`` and the sequence-chunked
+training loss ``lm_loss``.  A vision model's ``extra_embeds`` [B, n_vis,
+d] (precomputed patch embeddings) go through ``vis_proj`` and in front of
+the text tokens: the causal mask and the positions run over the whole
+sequence, so after a prefill of n_vis + S positions decode runs at
+``pos = n_vis + S + t`` and a cache counts the frontend tokens.  The
+reference scans over stacked periods; the port keeps one parameter tree
+per layer (``params["layers"][i]``) and runs them in a plain loop, with no
+sharding constraint; under ``cfg.remat`` each body period runs under
 ``torch.utils.checkpoint`` as the reference's period runs under
 ``jax.checkpoint``.  ``LM`` holds the parameters as an ``nn.Module`` on one
 device, frozen for serving; ``LM.requires_grad_(True)`` trains them.
@@ -34,6 +38,8 @@ def lm_param_specs(cfg: cm.ArchConfig) -> dict:
         blk.block_param_specs(cfg, mk, lk, (cfg.d_ff_dense_prefix or cfg.d_ff)
                               if i < cfg.n_dense_prefix else None)
         for i, (mk, lk) in enumerate(cfg.layer_kinds())]
+    if cfg.frontend == "vision":       # after the layers, as the reference
+        specs["vis_proj"] = cm.spec((d, d), cfg.dtype)
     return specs
 
 
@@ -72,9 +78,24 @@ def embed_scale(cfg: cm.ArchConfig) -> float:
     return float(torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype))
 
 
-def _embed(params, tokens: torch.Tensor, cfg: cm.ArchConfig) -> torch.Tensor:
+def _embed(params, tokens: torch.Tensor, cfg: cm.ArchConfig,
+           extra_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Scaled token embeddings [B, S, d], with ``extra_embeds`` [B, n, d]
+    (times ``vis_proj`` where the tree has one) in front of them.  The
+    reference multiplies f32 ``extra_embeds`` by the model-dtype
+    ``vis_proj`` in f32 (jnp promotes) and casts the product: so does
+    this (``resolve_device`` has switched TF32 off).  The embed scale
+    applies to the text tokens only; a tree without ``vis_proj`` takes
+    ``extra_embeds`` unprojected."""
     x = F.embedding(tokens, params["embed"])
-    return x * embed_scale(cfg)       # gemma-style embed scale
+    x = x * embed_scale(cfg)          # gemma-style embed scale
+    if extra_embeds is None:
+        return x
+    if "vis_proj" in params:
+        w = params["vis_proj"]
+        dt = torch.promote_types(extra_embeds.dtype, w.dtype)
+        extra_embeds = extra_embeds.to(dt) @ w.to(dt)
+    return torch.cat([extra_embeds.to(x.dtype), x], dim=1)
 
 
 def _run_blocks(params, x: torch.Tensor, cfg: cm.ArchConfig, *,
@@ -111,9 +132,10 @@ def _run_blocks(params, x: torch.Tensor, cfg: cm.ArchConfig, *,
     return x, aux, new_caches
 
 
-def forward_hidden(params, tokens: torch.Tensor, cfg: cm.ArchConfig):
-    """(final-normed hidden [B, S, d], the MoE aux loss)."""
-    x = _embed(params, tokens, cfg)
+def forward_hidden(params, tokens: torch.Tensor, cfg: cm.ArchConfig, *,
+                   extra_embeds: torch.Tensor | None = None):
+    """(final-normed hidden [B, n_extra + S, d], the MoE aux loss)."""
+    x = _embed(params, tokens, cfg, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, aux, _ = _run_blocks(params, x, cfg, positions=positions)
     return cm.rms_norm(x, params["final_scale"], cfg.norm_eps), aux
@@ -128,9 +150,10 @@ def _head(params, x: torch.Tensor, cfg: cm.ArchConfig) -> torch.Tensor:
     return logits
 
 
-def forward_logits(params, tokens: torch.Tensor,
-                   cfg: cm.ArchConfig) -> torch.Tensor:
-    return _head(params, forward_hidden(params, tokens, cfg)[0], cfg)
+def forward_logits(params, tokens: torch.Tensor, cfg: cm.ArchConfig, *,
+                   extra_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    return _head(params, forward_hidden(params, tokens, cfg,
+                                        extra_embeds=extra_embeds)[0], cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -140,18 +163,18 @@ def forward_logits(params, tokens: torch.Tensor,
 def lm_loss(params, batch: dict, cfg: cm.ArchConfig, *,
             loss_chunk: int = 512, aux_weight: float = 0.01):
     """Next-token cross-entropy of ``batch["tokens"]`` [B, S]: labels are
-    the tokens shifted left with -1 at the end; the logits are formed
+    the tokens shifted left with -1 at the end (and -1 at the positions of
+    ``batch["extra_embeds"]``, which predict nothing); the logits are formed
     ``loss_chunk`` positions at a time (the sequence padded to a multiple
     with label -1), ``lse - gold`` in f32 masked by ``labels >= 0``, and
     the loss is ``tot / max(cnt, 1)``.  Returns ``(loss + aux_weight *
     aux, {"ce", "aux"})``, aux the MoE layers' summed load-balance loss
     (a 0-d f32 zero for a dense model)."""
-    if batch.get("extra_embeds") is not None:
-        raise NotImplementedError(f"extra_embeds (frontend tokens): "
-                                  f"{cm.NOT_PORTED}")
     tokens = batch["tokens"]
-    x, aux = forward_hidden(params, tokens, cfg)
-    labels = F.pad(tokens[:, 1:].long(), (0, 1), value=-1)
+    x, aux = forward_hidden(params, tokens, cfg,
+                            extra_embeds=batch.get("extra_embeds"))
+    n_extra = x.shape[1] - tokens.shape[1]
+    labels = F.pad(tokens[:, 1:].long(), (n_extra, 1), value=-1)
     B, S, _ = x.shape
     loss_chunk = min(loss_chunk, S)
     pad = (-S) % loss_chunk
@@ -176,10 +199,12 @@ def lm_loss(params, batch: dict, cfg: cm.ArchConfig, *,
 # Serving entry points
 # ---------------------------------------------------------------------------
 
-def prefill(params, tokens: torch.Tensor, cfg: cm.ArchConfig, caches: list):
-    """Fill caches from a prompt [B, S]; returns (last-token logits [B, V],
+def prefill(params, tokens: torch.Tensor, cfg: cm.ArchConfig, caches: list,
+            *, extra_embeds: torch.Tensor | None = None):
+    """Fill caches from a prompt [B, S] (after ``extra_embeds`` [B, n, d],
+    which take positions 0 .. n - 1); returns (last-token logits [B, V],
     caches).  The caches are written in place."""
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, _, new_caches = _run_blocks(params, x, cfg, positions=positions,
                                    caches=caches)

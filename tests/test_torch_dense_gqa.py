@@ -281,23 +281,30 @@ def test_flash_plain_at_d_head_120(dtype):
 
 
 def test_flash_gradient_takes_120_and_refuses_96():
-    """Both kernels take (120, 120): the forward's and the gradient's
-    wrappers get past the head widths to the device check.  At (96, 96)
-    the gradient's wrapper raises the head-width error and launches
-    nothing."""
-    assert (120, 120) in tfa.HEAD_PAIRS and (96, 96) not in tfa.HEAD_PAIRS
+    """Named for the widths it held before phi-3's head was ported: both
+    kernels now take (120, 120) and (96, 96), whose wrappers get past the
+    head widths to the device check, with the true width in the tensor
+    map; at (80, 80) the gradient's wrapper raises the head-width error and
+    launches nothing."""
+    assert (120, 120) in tfa.HEAD_PAIRS and (96, 96) in tfa.HEAD_PAIRS
+    assert (80, 80) not in tfa.HEAD_PAIRS
     t = torch.zeros(2, 129, 8, 120, dtype=torch.bfloat16)
     assert tfa.tma_layout(t) == ((120, 129, 8, 2), (240 * 8, 240, 240 * 129
                                                     * 8), (64, 128, 1, 1))
-    with pytest.raises(ValueError, match="needs CUDA tensors"):
-        tfa.flash_attention_cuda(t, t, t)
     lse = torch.zeros(2, 8, 129)
     n0 = ops.launch_counts()["flash_attention_bwd"]
-    with pytest.raises(ValueError, match="flash_attention_bwd_cuda needs "
-                       "CUDA tensors"):
-        tfa.flash_attention_bwd_cuda(t, t, t, t, t, lse)
-    n = torch.zeros(2, 129, 8, 96, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match=r"head widths \(q/k 96, v 96\)"):
+    for width in (120, 96):
+        t = torch.zeros(2, 129, 8, width, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            tfa.flash_attention_cuda(t, t, t)
+        with pytest.raises(ValueError, match="flash_attention_bwd_cuda needs "
+                           "CUDA tensors"):
+            tfa.flash_attention_bwd_cuda(t, t, t, t, t, lse)
+    t = torch.zeros(2, 129, 8, 96, dtype=torch.bfloat16)
+    assert tfa.tma_layout(t) == ((96, 129, 8, 2), (192 * 8, 192, 192 * 129
+                                                   * 8), (64, 128, 1, 1))
+    n = torch.zeros(2, 129, 8, 80, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"head widths \(q/k 80, v 80\)"):
         tfa.flash_attention_bwd_cuda(n, n, n, n, n, lse)
     assert ops.launch_counts()["flash_attention_bwd"] == n0
 

@@ -85,6 +85,7 @@ def _kv_from_jax(c, layer=None):
 def test_configs_match_the_reference():
     assert list_configs() == ["deepseek-v2-236b", "deepseek-v3-671b",
                               "gemma2-27b", "h2o-danube-3-4b", "minitron-4b",
+                              "phi-3-vision-4.2b",
                               "semanticxr-captioner-110m", "yi-9b"]
     for name in ("semanticxr-captioner-110m", SMOKE):
         j, t = jget_config(name), get_config(name)
@@ -205,12 +206,9 @@ def test_unported_families_raise_naming_the_roadmap():
                   (tcm.MIXER_RWKV6, tcm.MLP_DENSE)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tblk.block_param_specs(cfg, *kinds)
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "extra_embeds": torch.zeros((1, 4, cfg.d_model))}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.model_api(cfg).forward(None, batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.model_api(cfg).loss(None, batch)
+    for name in ("rwkv6-3b", "whisper-small"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            get_config(name)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tapi.model_api(cfg.replace(encdec=True))
 

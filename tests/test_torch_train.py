@@ -134,12 +134,25 @@ def test_lm_loss_chunking_does_not_change_the_loss(ref):
 
 
 def test_lm_loss_refuses_frontend_tokens(ref):
-    cfg, lm = _port(ref["f32"])
-    with pytest.raises(NotImplementedError, match="section 2 item 4"):
-        tapi.model_api(cfg).loss(lm, {"tokens": torch.zeros((1, 4),
-                                                            dtype=torch.int32),
-                                      "extra_embeds": torch.zeros((1, 2,
-                                                                   128))})
+    """Named for the refusal it held while the vision frontend was not
+    ported: the loss now takes ``extra_embeds`` (the captioner has no
+    ``vis_proj``, so they go in front unprojected, their positions labelled
+    -1), and this holds it to the reference's loss on the same batch, f32."""
+    r = ref["f32"]
+    cfg, lm = _port(r)
+    rng = np.random.default_rng(15)
+    toks = _tokens(15)
+    extra = rng.normal(size=(B, 6, 128)).astype(np.float32)
+    want = japi.model_api(r["jcfg"]).loss(
+        r["params"], {"tokens": jnp.asarray(toks),
+                      "extra_embeds": jnp.asarray(extra)}, loss_chunk=CHUNK)
+    got = tapi.model_api(cfg).loss(lm, {"tokens": torch.from_numpy(toks),
+                                        "extra_embeds": torch.from_numpy(
+                                            extra)}, loss_chunk=CHUNK)
+    for g, w, what in ((got[0], want[0], "loss"),
+                       (got[1]["ce"], want[1]["ce"], "ce")):
+        np.testing.assert_allclose(_np(g), _np(w), err_msg=what,
+                                   **LOSS_TOL["f32"])
 
 
 def test_forward_matches_the_reference(ref):

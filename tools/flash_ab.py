@@ -11,10 +11,13 @@ builds its kernel, calls ``flash_attention_cuda`` (with and without
 since the lse was added takes, (64, 64) and (128, 128): the captioner's
 prefill and training shapes, gemma2-27b's prefill (S = 5000, window 4096,
 softcap 50), ragged S, window, softcap, non-causal, MQA, bf16 and f32; at
-DeepSeek MLA's (192, 128) (``MLA_CASES``) where the checkout takes it; then ``flash_attention_bwd_cuda`` on the forward's output
-and lse at the same two pairs (``GRAD_CASES``: the captioner's training
-shape, ragged S, window, softcap, non-causal, G = 1, S = 1024) and at
-(192, 128) (``MLA_GRAD_CASES``, step 18's shapes); and times
+DeepSeek MLA's (192, 128) (``MLA_CASES``) and h2o-danube-3's (120, 120)
+(``DH120_CASES``) where the checkout takes them; then
+``flash_attention_bwd_cuda`` on the forward's output and lse at the same
+two pairs (``GRAD_CASES``: the captioner's training shape, ragged S,
+window, softcap, non-causal, G = 1, S = 1024), at (192, 128)
+(``MLA_GRAD_CASES``, step 18's shapes) and at (120, 120)
+(``DH120_GRAD_CASES``); and times
 the captioner's prefill call, a dh = 128 call and the captioner's training
 gradient with a cold L2 (``chip_smoke.Clock``).  It saves the outputs and
 times to ``FILE`` (``torch.save``).  ``compare`` prints, for each file after the
@@ -65,6 +68,16 @@ GRAD_TIMED = 0                           # the captioner's training shape
 # dtype, causal)
 MLA_GRAD_CASES = ((1, 129, 4, "bf16", True), (2, 200, 4, "f32", True),
                   (2, 512, 128, "bf16", True), (2, 200, 4, "bf16", False))
+# (B, S, H, Kv, dtype, causal, window, softcap) at (120, 120): chip_smoke.py
+# steps 19-20's shapes, h2o-danube-3-4b's prefill and training shape first
+DH120_CASES = ((2, 5000, 32, 8, "bf16", True, 4096, 0.0),
+               (1, 129, 4, 2, "bf16", True, 0, 0.0),
+               (1, 200, 4, 2, "f32", True, 64, 50.0),
+               (2, 200, 4, 2, "bf16", False, 0, 0.0))
+DH120_GRAD_CASES = ((1, 5000, 32, 8, "bf16", True, 4096, 0.0),
+                    (1, 129, 4, 2, "bf16", True, 0, 0.0),
+                    (1, 200, 4, 2, "f32", True, 64, 50.0),
+                    (2, 333, 12, 4, "bf16", True, 100, 30.0))
 
 
 def run(src: str, out: str) -> None:
@@ -91,6 +104,15 @@ def run(src: str, out: str) -> None:
             o, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
                                              return_lse=True)
             outputs.append((o.cpu(), lse.cpu()))
+    dh120 = (120, 120) in fa.HEAD_PAIRS
+    for i, (B, S, H, Kv, dt, causal, window, cap) in enumerate(
+            DH120_CASES if dh120 else ()):
+        q, k, v = cs.attn_inputs(torch, B, S, H, Kv, 120, dts[dt], 400 + i,
+                                 dev)
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                         window=window, softcap=cap,
+                                         return_lse=True)
+        outputs.append((o.cpu(), lse.cpu()))
     grads = []
     for i, (B, S, H, Kv, dh, dt, causal, window, cap) in enumerate(
             GRAD_CASES):
@@ -113,6 +135,16 @@ def run(src: str, out: str) -> None:
             do = torch.randn(o.shape, generator=g, device=dev).to(dts[dt])
             grads.append(tuple(t.cpu() for t in fa.flash_attention_bwd_cuda(
                 q, k, v, o, do, lse, causal=causal)))
+    for i, (B, S, H, Kv, dt, causal, window, cap) in enumerate(
+            DH120_GRAD_CASES if dh120 else ()):
+        q, k, v = cs.attn_inputs(torch, B, S, H, Kv, 120, dts[dt], 700 + i,
+                                 dev)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        g = torch.Generator(device=dev).manual_seed(800 + i)
+        do = torch.randn(o.shape, generator=g, device=dev).to(dts[dt])
+        grads.append(tuple(t.cpu() for t in fa.flash_attention_bwd_cuda(
+            q, k, v, o, do, lse, **kw)))
     outputs.extend(grads)
     clock = cs.Clock(torch)
     times = {}
