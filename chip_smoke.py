@@ -299,6 +299,34 @@
     CPU port) and ``dense_kill_resume`` of it in bf16 (``vis_proj`` in the
     checkpoint, restored bit-equal).
 
+22. The recurrent families: (a) ``dense_attention_checks`` at
+    JAMBA_ATTN_CASES: the flash kernel's (128, 128) instance at
+    jamba-v0.1-52b's prefill (4, 2048, 32 heads, 8 kv, causal) and a
+    ragged S = 2000, bf16 within DENSE_BF16_TOL and f32 within ATTN_TOL,
+    the same bits twice, the prefill shape timed beside its operations
+    bound, the plain version as called and SDPA (``enable_gqa``); (b)
+    ``recurrent_serve_phase`` reckons each config's peak first
+    (``recurrent_reckon``: weights at each leaf's dtype, the Mamba / RWKV
+    / KV caches, the largest layer's prefill transients with the MoE's
+    capacity buffers, init's f32 leaf) and cuts the depth by whole periods
+    past DENSE_PEAK_LIMIT (``recurrent_cuts``): jamba keeps 2 of its 4
+    periods (16 layers, every expert, full width), rwkv6-3b runs whole;
+    (c) each served, weights seeded on the card: jamba 4 x 2048 prompts
+    and rwkv6-3b 4 x 4096, prefilled twice into zeroed caches, then 32
+    greedy steps: prefill ms and tokens/s, decode ms p50 / p95 and
+    tokens/s, peaks at init and serving within their reckoning, cache
+    bytes a sequence, jamba's MoE dropped share; one flash launch per
+    attention layer a prefill (2 on jamba's cut) and none decoding, none
+    at all on rwkv6-3b; every logit finite, the two prefills the same
+    bits; a profiler window each (``recurrent_profile``: busy share, top
+    kernels, aten ops a decode step); (d) ``recurrent_replay_phase``: f32
+    cuts at d_model 1024 (jamba: 16 heads of 128, 4 kv, 4 experts at
+    capacity factor 2, where no copy drops; rwkv: heads of 64), the scan
+    chunk 16, a ragged 45-token prompt and 8 greedy steps: card = CPU port
+    (tokens, logits within 1e-4 of the largest, expert ids at every MoE
+    call), and every decode step against a whole-sequence prefill on the
+    card (the recurrent state's handoff from prefill to decode).
+
 ``nearest_dist`` has no caller on any system path: its phase drives its
 entry point, ``ops.nearest_dist``, at a chamfer and a centroid shape.
 
@@ -638,6 +666,36 @@ PHI3_KILL = dict(steps=6, ckpt_every=2, kill_at=3, batch=1, seq=300,
 PHI3_DECAY_TOL = 1e-5
 # with image batches it must move past its decay by 100 times that
 PHI3_LEARN_MIN = 1e-3
+
+
+# step 22: the recurrent families.  (a) the flash kernel's (128, 128)
+# instance at jamba-v0.1-52b's prefill (4, 2048, 32 heads, 8 kv, causal)
+# and a ragged S = 2000, bf16 and f32; JAMBA_TIMED are timed.  (b)-(c)
+# jamba at full width, cut by whole periods to its reckoned peak, and
+# rwkv6-3b whole, serving; (d) f32 cuts at d_model 1024, the scan chunk
+# 16, card vs CPU port and decode vs whole-sequence prefill on a ragged
+# 45-token prompt.
+JAMBA = "jamba-v0.1-52b"
+RWKV6 = "rwkv6-3b"
+JAMBA_ATTN_CASES = ((4, 2048, 32, 8, 128, True, 0, 0.0),
+                    (4, 2000, 32, 8, 128, True, 0, 0.0))
+JAMBA_TIMED = (0,)
+RECURRENT_SERVE = ((JAMBA, dict(batch=4, prompt=2048, new_tokens=32)),
+                   (RWKV6, dict(batch=4, prompt=4096, new_tokens=32)))
+RECURRENT_REPLAY = {
+    JAMBA: dict(d_model=1024, n_heads=16, n_kv_heads=4, d_head=128,
+                d_ff=2048, n_layers=8, vocab_size=4096, chunk=16,
+                moe=dict(n_experts=4, d_ff_expert=2048,
+                         capacity_factor=2.0)),
+    RWKV6: dict(d_model=1024, n_heads=16, n_kv_heads=16, d_head=64,
+                d_ff=3584, n_layers=4, vocab_size=4096, chunk=16)}
+RECURRENT_REPLAY_RUN = dict(batch=2, prompt=45, new_tokens=8)
+# the init reckoning counts every byte of the weights and of the largest
+# leaf's f32 draw; rwkv6-3b draws that leaf (lm_head) last, so its peak
+# meets the count exactly when step 22 runs alone and passed it by 2.25
+# MiB of the allocator's own after steps 1-21 (an H100, before this slack
+# was set): the slack, far under a leaf's f32 copy (671 MB), covers that
+INIT_SLACK = 16 << 20
 
 
 def check(cond, what: str) -> None:
@@ -3614,12 +3672,13 @@ def card_model(torch, dev, cfg) -> tuple:
 
 def serve_run(torch, api, model, tokens, new_tokens, forced=None,
               spy=None, extra=None):
-    """The serving loop of steps 17, 19 and 21: counters reset, two
+    """The serving loop of steps 17, 19, 21 and 22: counters reset, two
     prefills of ``tokens`` (after ``extra``, a vision model's n_vis patch
-    embeddings, where given) into fresh caches of n_vis + S + new_tokens
-    positions, then ``new_tokens`` greedy steps at positions n_vis + S + i
-    (or the tokens of ``forced`` [B, steps + 1] fed instead), the counters
-    read; ``spy`` (a context such as MoESpy) open around the passes.
+    embeddings, where given) into caches of n_vis + S + new_tokens
+    positions, zeroed before each (a recurrent layer's prefill continues
+    from its cache's state), then ``new_tokens`` greedy steps at
+    positions n_vis + S + i (or the tokens of ``forced`` [B, steps + 1]
+    fed instead), the counters read; ``spy`` (a context such as MoESpy) open around the passes.
     Returns (metrics, the tokens fed [B, new_tokens + 1], the logits of
     the prefill and every step, the caches)."""
     import contextlib
@@ -3637,6 +3696,11 @@ def serve_run(torch, api, model, tokens, new_tokens, forced=None,
     pre_ms, per_prefill, dec_ms, pre_logits = [], [], [], []
     with spy or contextlib.nullcontext():
         for _ in range(2):
+            for c in caches:
+                for t in c:
+                    if isinstance(t, torch.Tensor):
+                        t.zero_()
+            torch.cuda.synchronize()
             n0 = ops.launch_counts()["flash_attention"]
             t0 = time.perf_counter()
             logits, caches = api.prefill(
@@ -3678,15 +3742,17 @@ def serve_run(torch, api, model, tokens, new_tokens, forced=None,
                              for x in all_logits),
         "prefill_logits_same_bits_twice": same_bits(torch, pre_logits[:1],
                                                     pre_logits[1:]),
-        "cache_length": int(caches[0].length),
+        "cache_length": next((int(c.length) for c in caches
+                              if hasattr(c, "length")), None),
         "first_tokens": torch.cat(toks, dim=1)[0, :8].tolist()}
     return metrics, torch.cat(toks, dim=1), all_logits, caches
 
 
 def check_served(name: str, m: dict, n_layers: int, max_len: int) -> None:
-    """A serve_run's checks: one flash launch a layer a prefill and none
-    decoding, every logit finite, the two prefills the same bits, the
-    cache's length."""
+    """A serve_run's checks: one flash launch an attention layer
+    (``n_layers`` of them) a prefill and none decoding, every logit
+    finite, the two prefills the same bits, the KV cache's length (where
+    the model has attention layers)."""
     check(m["flash_launches_per_prefill"] == [n_layers] * 2,
           f"{name}: {n_layers} flash launches a prefill: "
           f"{m['flash_launches_per_prefill']}")
@@ -3695,7 +3761,8 @@ def check_served(name: str, m: dict, n_layers: int, max_len: int) -> None:
     check(m["logits_finite"], f"{name}: every logit finite")
     check(m["prefill_logits_same_bits_twice"],
           f"{name}: the prefill's logits the same bits twice")
-    check(m["cache_length"] == max_len, f"{name}: cache length")
+    check(m["cache_length"] == (max_len if n_layers else None),
+          f"{name}: cache length")
 
 
 def serve_profile(torch, api, model, tokens, caches, kernels=(),
@@ -5158,6 +5225,285 @@ def phi3_train_phase(torch, dev, *, batch, seq, trainer_steps, step_steps):
     return out
 
 
+# ----------------------------------------------------------------- step 22
+def recurrent_reckon(cfg, batch: int, prompt: int, max_len: int) -> dict:
+    """Bytes before a run of a recurrent model (jamba's Mamba, attention
+    and MoE layers; RWKV-6): the weights (each leaf at its spec's dtype:
+    Mamba's ``A_log``, ``D``, ``dt_bias`` and RWKV's mixing, decay and
+    bonus leaves are f32), the caches (a Mamba layer's conv inputs and f32
+    scan state, an RWKV layer's two token-shift inputs and f32 wkv state,
+    an attention layer's KV cache of ``max_len`` positions), the prefill's
+    transients (four d_model-wide activations of the residual stream, and
+    the largest layer's own: a Mamba layer's projections and f32 scan
+    inputs and outputs, 10 model-dtype and 36 bytes of f32 a d_inner
+    channel a token, and eight f32 [B, chunk, d_inner, d_state] arrays of
+    a chunk's scan; an RWKV time mix's five mixed inputs and f32 r, k, v,
+    decays and outputs, 6 model-dtype and 48 f32 bytes a channel a token,
+    and six f32 [B, chunk, chunk, d_model] arrays of a chunk's scores; its
+    channel mix's three d_ff-wide and eight d_model-wide activations; an
+    attention layer's q, k, v, output and six f32 rotary copies a head; the
+    MoE's f32 router input, capacity buffer, three expert-wide activations
+    a slot, the experts' output and its padded copy, and the k gathered
+    copies of each token; a dense MLP's three d_ff-wide activations), and
+    init's (the largest leaf drawn in f32 beside its cast, and
+    INIT_SLACK)."""
+    from repro_torch.models import common as cm
+    from repro_torch.models.lm import lm_param_specs
+    from repro_torch.models.moe import expert_capacity
+
+    es = cfg.dtype.itemsize
+    specs = [s for _, s in cm.leaves(lm_param_specs(cfg))]
+    sizes = [int(np.prod(s.shape)) for s in specs]
+    d, n = cfg.d_model, batch * prompt
+    caches, layer = 0, [0]
+    for mk, lk in cfg.layer_kinds():
+        if mk == cm.MIXER_MAMBA:
+            mb = cfg.mamba
+            d_in, N = mb.expand * d, mb.d_state
+            caches += batch * d_in * ((mb.d_conv - 1) * es + N * 4)
+            layer.append(n * d_in * (10 * es + 36)
+                         + 8 * batch * min(mb.chunk, prompt) * d_in * N * 4)
+        elif mk == cm.MIXER_RWKV6:
+            h, dh = d // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+            Cn = min(cfg.rwkv.chunk, prompt)
+            caches += batch * (2 * d * es + h * dh * dh * 4)
+            layer.append(n * d * (6 * es + 48) + 6 * batch * Cn * Cn * d * 4)
+            layer.append(n * (3 * cfg.d_ff + 8 * d) * es)
+            continue
+        else:
+            hd = cfg.n_heads * cfg.d_head
+            caches += 2 * batch * max_len * cfg.n_kv_heads * cfg.d_head * es
+            layer.append(n * ((2 * hd + 2 * cfg.n_kv_heads * cfg.d_head) * es
+                              + 6 * hd * 4))
+        if lk == cm.MLP_MOE:
+            mo = cfg.moe
+            EC = mo.n_experts * expert_capacity(n, cfg)
+            layer.append(n * d * 4 + (3 * EC + 1) * d * es
+                         + 3 * EC * mo.d_ff_expert * es
+                         + 2 * n * mo.top_k * d * es)
+        else:
+            layer.append(3 * n * cfg.d_ff * es)
+    out = {"weights_bytes": sum(z * s.dtype.itemsize
+                                for z, s in zip(sizes, specs)),
+           "params": sum(sizes), "cache_bytes": caches,
+           "prefill_transient_bytes": 4 * n * d * es + max(layer),
+           "init_transient_bytes": 4 * max(sizes) + INIT_SLACK}
+    out["serve_bytes"] = (out["weights_bytes"] + caches
+                          + out["prefill_transient_bytes"])
+    out["init_bytes"] = out["weights_bytes"] + out["init_transient_bytes"]
+    return out
+
+
+def recurrent_serve_phase(torch, dev, name, *, batch, prompt, new_tokens):
+    """(b)-(c) ``name`` at full width, bf16, weights seeded on the card:
+    its peak reckoned first (``recurrent_reckon``) and its depth cut by
+    whole periods while that passes DENSE_PEAK_LIMIT; ``batch`` prompts of
+    ``prompt`` tokens prefilled twice into zeroed caches, then
+    ``new_tokens`` greedy steps through model_api's entry points
+    (serve_run, MoESpy open where the model has an MoE): one flash launch
+    an attention layer a prefill and none decoding (none at all without
+    attention), every logit finite, the two prefills the same bits, the
+    cache's bytes and both peaks within their reckoning; then a profiler
+    window over one prefill and PROFILE_DECODE steps."""
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import common as cm
+    from repro_torch.models.api import model_api
+    from repro_torch.models.blocks import ATTN_KINDS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    full = cfg = get_config(name)
+    max_len = prompt + new_tokens
+    rk = recurrent_reckon(cfg, batch, prompt, max_len)
+    while before + rk["serve_bytes"] > DENSE_PEAK_LIMIT:
+        cfg = cfg.replace(n_layers=cfg.n_layers - cfg.period)
+        rk = recurrent_reckon(cfg, batch, prompt, max_len)
+    check(cfg.n_layers >= cfg.period, f"{name}: a whole period fits")
+    kinds = cfg.layer_kinds()
+    n_attn = sum(mk in ATTN_KINDS for mk, _ in kinds)
+    n_moe = sum(lk == cm.MLP_MOE and mk != cm.MIXER_RWKV6
+                for mk, lk in kinds)
+    emit("recurrent_cuts", {
+        "config": name, "n_layers": f"{full.n_layers} -> {cfg.n_layers}",
+        "periods": f"{full.n_periods} -> {cfg.n_periods}",
+        "cut": cfg.n_layers != full.n_layers,
+        "why": f"reckoned peak {before + rk['serve_bytes']} bytes against "
+               f"{DENSE_PEAK_LIMIT:.0f}",
+        "widths": "as published (every expert); random weights seeded on "
+                  "the card",
+        "reckoned": rk, "allocated_before_bytes": before})
+    model, init = card_model(torch, dev, cfg)
+    check(init["weights_bytes"] == rk["weights_bytes"],
+          f"{name}: weights {init['weights_bytes']} bytes as reckoned "
+          f"{rk['weights_bytes']}")
+    check(init["init_peak_bytes"] <= before + rk["init_bytes"],
+          f"{name}: init peak {init['init_peak_bytes']} within "
+          f"{before + rk['init_bytes']}")
+    tokens = torch.from_numpy(np.random.default_rng(22).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)).to(dev)
+    api = model_api(cfg)
+    spy = MoESpy() if n_moe else None
+    m, _, _, caches = serve_run(torch, api, model, tokens, new_tokens,
+                                spy=spy)
+    m["cache_bytes"] = sum(t.numel() * t.element_size() for c in caches
+                           for t in c if isinstance(t, torch.Tensor)
+                           and t.dim() > 0)
+    m["cache_bytes_per_sequence"] = m["cache_bytes"] / batch
+    m["cache_types"] = sorted({type(c).__name__ for c in caches})
+    m["serve_peak_reckoned_bytes"] = before + rk["serve_bytes"]
+    check(m["cache_bytes"] == rk["cache_bytes"],
+          f"{name}: cache {m['cache_bytes']} bytes as reckoned "
+          f"{rk['cache_bytes']}")
+    check(m["max_memory_allocated_bytes"] <= m["serve_peak_reckoned_bytes"],
+          f"{name}: serving peak {m['max_memory_allocated_bytes']} within "
+          f"its reckoning {m['serve_peak_reckoned_bytes']}")
+    check_served(name, m, n_attn, max_len)
+    if spy is not None:
+        check(len(spy.ids) == n_moe * (2 + new_tokens),
+              f"{name}: one MoE call a MoE layer a pass")
+        m["moe_dropped_frac_prefill"] = [
+            float(st.dropped_frac) for st in
+            spy.stats[n_moe:2 * n_moe]]
+        m["moe_dropped_frac_decode_max"] = max(
+            float(st.dropped_frac) for st in spy.stats[2 * n_moe:])
+    del caches, spy
+    out = {"config": cfg.name, "n_layers": cfg.n_layers,
+           "n_periods": cfg.n_periods, "attention_layers": n_attn,
+           "moe_layers": n_moe, "batch": batch, "prompt": prompt,
+           "new_tokens": new_tokens, **init,
+           "init_peak_reckoned_bytes": before + rk["init_bytes"],
+           "reckoned": rk, **m}
+    flash = (f"flash_wgmma_kernel<{cfg.d_head}",) if n_attn else ()
+    t0 = time.perf_counter()
+    prof = serve_profile(torch, api, model, tokens,
+                         api.init_cache(batch, max_len, device=dev), flash)
+    prof["seconds_host"] = time.perf_counter() - t0
+    if n_attn:
+        check(prof["prefill"]["kernel_ms"][flash[0]] > 0,
+              f"{flash[0]}> ran in the profiled prefill")
+    dec = prof[f"decode_{PROFILE_DECODE}_steps"]
+    prof["decode_aten_ops_per_step"] = dec["cpu_ops"] / PROFILE_DECODE
+    prof["decode_device_busy_ms_per_step"] = (dec["device_busy_ms"]
+                                              / PROFILE_DECODE)
+    out["profile"] = prof
+    out["flash_launches"] = m["launches"]["flash_attention"]
+    emit("recurrent_profile", {"config": name, **prof})
+    emit("recurrent_serve_phase", out)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_replay_cut(torch, name, *, d_model, n_heads, n_kv_heads,
+                         d_head, d_ff, n_layers, vocab_size, chunk,
+                         moe=None):
+    """``name`` cut to these widths in f32, its scan chunk set to
+    ``chunk``, its MoE's fields replaced by ``moe``'s where given."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(name)
+    sub = ({"mamba": dataclasses.replace(cfg.mamba, chunk=chunk)}
+           if cfg.mamba else
+           {"rwkv": dataclasses.replace(cfg.rwkv, chunk=chunk)})
+    if moe:
+        sub["moe"] = dataclasses.replace(cfg.moe, **moe)
+    return cfg.replace(d_model=d_model, n_heads=n_heads,
+                       n_kv_heads=n_kv_heads, d_head=d_head, d_ff=d_ff,
+                       n_layers=n_layers, vocab_size=vocab_size,
+                       dtype=torch.float32, **sub)
+
+
+def recurrent_replay_phase(torch, dev, *, batch, prompt, new_tokens,
+                           cuts=None):
+    """(d) each of ``cuts`` (RECURRENT_REPLAY: jamba and rwkv6 at d_model
+    1024, f32, the scan chunk 16) with the same seeded weights on the card
+    and on the CPU port, a ragged ``prompt`` (45 tokens at chunk 16, the
+    length at which the reference's Mamba raises): equal greedy tokens,
+    logits within DENSE_REPLAY_TOL of the largest, the same expert ids at
+    every MoE call, one flash launch an attention layer a prefill on the
+    card; then on the card each decode step's logits against the
+    last-token logits of one prefill over the whole sequence so far: the
+    recurrent state's handoff from prefill to decode.  jamba's cut runs at
+    capacity_factor = n_experts / top_k, where no copy can drop, so a
+    whole-sequence prefill routes each token as decode does; every MoE
+    call is checked to drop none."""
+    from repro_torch.models.api import model_api
+    from repro_torch.models.blocks import ATTN_KINDS
+
+    cuts = RECURRENT_REPLAY if cuts is None else cuts
+    out = {"batch": batch, "prompt": prompt, "new_tokens": new_tokens,
+           "configs": {}}
+    for name, kw in cuts.items():
+        cfg = recurrent_replay_cut(torch, name, **kw)
+        prompt_np = np.random.default_rng(23).integers(
+            0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+        api = model_api(cfg)
+        chunk = (cfg.mamba or cfg.rwkv).chunk
+        n_attn = sum(mk in ATTN_KINDS for mk, _ in cfg.layer_kinds())
+        runs = {}
+        for device in (dev, "cpu"):
+            model = api.init(torch.Generator().manual_seed(0), device=device)
+            with MoESpy() as spy:
+                toks, logits, flash = replay_run(
+                    torch, api, model, prompt_np, new_tokens, device)
+            runs[str(device)] = (toks, logits, flash, model,
+                                 [i.cpu() for i in spy.ids],
+                                 [float(st.dropped_frac)
+                                  for st in spy.stats])
+        gtok, glog, flash, gmodel, gids, gdrop = runs[str(dev)]
+        ctok, clog, _, _, cids, cdrop = runs["cpu"]
+        scale = float(clog.abs().max())
+        err = float((glog - clog).abs().max())
+        check(torch.equal(gtok, ctok), f"{name} replay greedy tokens card "
+              f"{gtok.tolist()} vs CPU {ctok.tolist()}")
+        check(err <= DENSE_REPLAY_TOL * scale,
+              f"{name} replay f32 logits err {err} of {scale}")
+        check(flash == n_attn, f"{name}: {n_attn} f32 flash launches a "
+              f"prefill on the card: {flash}")
+        check(len(gids) == len(cids), f"{name}: as many MoE calls")
+        for j, (a, b) in enumerate(zip(gids, cids)):
+            check(torch.equal(a, b), f"{name} replay expert ids at MoE "
+                  f"call {j}")
+        seq = torch.cat([torch.from_numpy(prompt_np), gtok[:, :-1]],
+                        dim=1).to(dev)
+        worst = 0.0
+        with MoESpy() as spy:
+            for i in range(new_tokens):
+                L = prompt + i + 1
+                whole, _ = api.prefill(gmodel, {"tokens": seq[:, :L]},
+                                       api.init_cache(batch, L, device=dev))
+                d = float((whole.cpu() - glog[i + 1]).abs().max())
+                worst = max(worst, d / float(whole.abs().max()))
+        # a share under half a copy of the largest call is zero dropped
+        # (the mean's f32 rounding leaves about 2.4e-7 where none drop)
+        drops = gdrop + cdrop + [float(st.dropped_frac) for st in spy.stats]
+        half_copy = 0.5 / (batch * (prompt + new_tokens) * (
+            cfg.moe.top_k if cfg.moe else 1))
+        worst_drop = max(drops, default=0.0)
+        check(worst_drop < half_copy,
+              f"{name}: no MoE copy dropped in the replay: {worst_drop}")
+        check(worst <= DENSE_REPLAY_TOL, f"{name}: decode vs whole-sequence "
+              f"prefill relative err {worst}")
+        out["configs"][name] = {
+            "cut": kw, "n_layers": cfg.n_layers,
+            "tokens": gtok[0].tolist(), "max_abs_logit_err": err,
+            "max_abs_logit": scale, "relative_err": err / scale,
+            "flash_launches_prefill": flash,
+            "moe_calls_equal_ids": len(gids),
+            "moe_capacity_factor": cfg.moe.capacity_factor if cfg.moe
+            else None,
+            "moe_dropped_frac_max": worst_drop,
+            "ragged_prompt": prompt % chunk != 0 and prompt > chunk,
+            "decode_vs_prefill_relative_err": worst}
+        del runs, gmodel
+    emit("recurrent_replay_phase", out)
+    return out
+
+
 def kernel_resources(build) -> dict:
     """{source: {kernel: registers, static shared memory, spills}} from
     ptxas's ``-v`` report in each build log (dynamic shared memory is set
@@ -5333,6 +5679,16 @@ def main() -> int:
     timed("phi3_train_replay", dense_train_replay, torch, dev,
           **PHI3_TRAIN_REPLAY)
     timed("phi3_kill_resume", dense_kill_resume, torch, dev, **PHI3_KILL)
+    jamba_fwd, = timed("jamba_attention_checks", dense_attention_checks,
+                       torch, clock, dev, cases=JAMBA_ATTN_CASES,
+                       timed=JAMBA_TIMED, tag="jamba_attention", seed=250)
+    recurrent = {name: timed(f"recurrent_serve_{name}",
+                             recurrent_serve_phase, torch, dev, name, **kw)
+                 for name, kw in RECURRENT_SERVE}
+    check(recurrent[RWKV6]["flash_launches"] == 0,
+          f"{RWKV6}: no flash launch")
+    timed("recurrent_replay_phase", recurrent_replay_phase, torch, dev,
+          **RECURRENT_REPLAY_RUN)
     emit("phase_seconds", phase_s)
     print(smi, flush=True)          # again, inside the tail of a long log
 
@@ -5457,15 +5813,20 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:93",
          "instance": "(dh, dv) = (128, 128): flash_wgmma_kernel<128,128> "
-                     "at the dense GQA configs' prefill",
+                     "at the dense GQA configs' and jamba's prefill",
          "launches": sum(dense[n]["flash_launches"]
-                         for n in ("gemma2-27b", "yi-9b", "minitron-4b")),
-         "launches_by_config": {n: dense[n]["flash_launches"]
-                                for n in ("gemma2-27b", "yi-9b",
-                                          "minitron-4b")},
+                         for n in ("gemma2-27b", "yi-9b", "minitron-4b"))
+         + recurrent[JAMBA]["flash_launches"],
+         "launches_by_config": {
+             **{n: dense[n]["flash_launches"]
+                for n in ("gemma2-27b", "yi-9b", "minitron-4b")},
+             JAMBA: recurrent[JAMBA]["flash_launches"]},
          "launched_on": "step 19 gemma2-27b (46 layers), yi-9b (48) and "
                         "minitron-4b (32) serving paths, one a layer a "
-                        "prefill, 2 prefills each", **dense128,
+                        "prefill, 2 prefills each; step 22 jamba-v0.1-52b's "
+                        "serving path (one an attention layer a prefill, "
+                        "1 in 8 layers), 2 prefills", **dense128,
+         "jamba_prefill_shape": jamba_fwd,
          "train_launches": {n: dense_train[n]["launches"]["flash_attention"]
                             for n in ("gemma2-27b", "yi-9b",
                                       "minitron-4b")}},

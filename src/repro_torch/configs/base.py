@@ -119,8 +119,9 @@ def make_inputs(cfg: cm.ArchConfig, cell: ShapeCell,
 def smoke_config(cfg: cm.ArchConfig) -> cm.ArchConfig:
     """Same family, tiny dims: the reference's shrink for the fields the
     port has (no remat; MoE: 4 experts, top_k <= 2, d_ff_expert 64; MLA:
-    ranks 64 / 32, heads 32 + 16 / 32, so d_head 48; vision: 8 frontend
-    tokens)."""
+    ranks 64 / 32, heads 32 + 16 / 32, so d_head 48; Mamba: d_state 8,
+    chunk 16; RWKV: heads of 32, LoRAs of 8, chunk 16, 4 heads; vision: 8
+    frontend tokens)."""
     kw: dict = dict(
         name=cfg.name + "-smoke",
         n_layers=cfg.n_dense_prefix + cfg.period,
@@ -145,6 +146,13 @@ def smoke_config(cfg: cm.ArchConfig) -> cm.ArchConfig:
             kv_lora_rank=32, qk_nope_head_dim=32, qk_rope_head_dim=16,
             v_head_dim=32)
         kw["d_head"] = 48                # nope + rope
+    if cfg.mamba is not None:
+        kw["mamba"] = dataclasses.replace(cfg.mamba, d_state=8, chunk=16)
+    if cfg.rwkv is not None:
+        kw["rwkv"] = dataclasses.replace(cfg.rwkv, head_dim=32, decay_lora=8,
+                                         mix_lora=8, chunk=16)
+        kw["n_heads"] = 4
+        kw["d_head"] = 32
     if cfg.frontend == "vision":
         kw["n_frontend_tokens"] = 8
     return cfg.replace(**kw)

@@ -7,7 +7,8 @@ Port of ``repro.models.api`` for decoder-only models:
     api.forward(params, batch)                  -> logits [B, n + S, V]
     api.prefill(params, batch, caches)          -> (logits [B, V], caches)
     api.decode(params, tokens, caches, pos)     -> (logits [B, V], caches)
-    api.init_cache(batch, max_len, device=...)  -> a KVCache / MLACache a layer
+    api.init_cache(batch, max_len, device=...)  -> a KVCache / MLACache /
+                                                   MambaCache / RWKVCache a layer
 ``batch`` holds ``tokens`` [B, S] and, for a vision model, may hold
 ``extra_embeds`` [B, n, d] (the frontend's n patch embeddings, put in
 front of the tokens).  ``init`` and ``init_cache`` run on the card unless

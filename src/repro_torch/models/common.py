@@ -1,8 +1,9 @@
 """Shared building blocks of the port's language model.
 
 Port of the parts of ``repro.models.common`` that the decoder paths read
-(dense attention, and DeepSeek's MLA + MoE): the architecture config with
-its MLA and MoE sub-configs, the numerics (``rms_norm``, ``softcap``,
+(dense attention, DeepSeek's MLA + MoE, and the recurrent Mamba and RWKV-6
+mixers): the architecture config with its MLA, Mamba, RWKV and MoE
+sub-configs, the numerics (``rms_norm``, ``softcap``,
 ``act_fn``, rotary embeddings) and parameter initialisation by naming
 rule.  Parameters are nested dicts (lists for the layer stack) of
 tensors; ``ParamTree`` registers such a tree on an ``nn.Module``.
@@ -47,6 +48,25 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class MambaConfig:
+    """Mamba-1 selective SSM widths; ``chunk`` is the scan's chunk length."""
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0                 # 0 => ceil(d_model / 16)
+    chunk: int = 64
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    """RWKV-6 time-mix widths; ``chunk`` is the wkv scan's chunk length."""
+    head_dim: int = 64
+    decay_lora: int = 64
+    mix_lora: int = 32
+    chunk: int = 64
+
+
+@dataclass(frozen=True)
 class MoEConfig:
     """Shared + routed top-k experts.  ``router_dtype`` is the router's
     parameter dtype.  ``dispatch`` ("dense" / "ragged") is carried for
@@ -65,16 +85,17 @@ class ArchConfig:
     """The fields of ``repro.models.common.ArchConfig`` that the decoder
     paths read.  ``dtype`` is a ``torch.dtype``.  ``kv_cache_dtype`` is
     "bf16" (the cache in the model dtype) or "int8" (int8 values and an f32
-    scale per token and kv head).  ``mla`` and ``moe`` are
-    DeepSeek's sub-configs; ``moe_groups`` is the least number of MoE
-    dispatch groups.  ``moe_weight_shard`` and ``act_shard`` (the mesh's
-    expert and activation shardings) are accepted and have no effect, as
-    ``donate=`` has none: the port runs on one device.  ``frontend`` is
-    None or "vision" (precomputed patch embeddings, ``n_frontend_tokens``
-    an image, put in front of the text through ``vis_proj``); the audio
-    frontend, the Mamba and RWKV sub-configs, the encoder-decoder's fields
-    and the other JAX execution knobs (scan, the jnp attention's q-chunk)
-    are not ported.
+    scale per token and kv head).  ``mla`` is DeepSeek's sub-config,
+    ``moe`` DeepSeek's and jamba's, ``mamba`` and ``rwkv`` the recurrent
+    mixers'; ``moe_groups`` is the least number of MoE dispatch
+    groups.  ``moe_weight_shard``, ``act_shard`` and ``rwkv_tm_shard`` (the
+    mesh's expert, activation and RWKV time-mix shardings) are accepted and
+    have no effect, as ``donate=`` has none: the port runs on one device.
+    ``frontend`` is None or "vision" (precomputed patch embeddings,
+    ``n_frontend_tokens`` an image, put in front of the text through
+    ``vis_proj``); the audio frontend, the encoder-decoder's fields and the
+    other JAX execution knobs (scan, the jnp attention's q-chunk) are not
+    ported.
     ``remat`` checkpoints each body period's activations
     (``torch.utils.checkpoint``) as the reference's ``jax.checkpoint``
     does; ``grad_accum`` splits a train step's batch into microbatches."""
@@ -104,6 +125,8 @@ class ArchConfig:
 
     # family sub-configs
     mla: MLAConfig | None = None
+    mamba: MambaConfig | None = None
+    rwkv: RWKVConfig | None = None
     moe: MoEConfig | None = None
 
     encdec: bool = False
@@ -122,6 +145,7 @@ class ArchConfig:
     moe_groups: int = 1                   # MoE dispatch groups (at least)
     moe_weight_shard: str = "2d"          # no effect: one device
     act_shard: tuple | None = None        # no effect: one device
+    rwkv_tm_shard: str = "model"          # no effect: one device
 
     def __post_init__(self):
         if self.d_head == 0:
@@ -227,16 +251,40 @@ def spec(shape, dtype) -> Spec:
     return Spec(tuple(int(s) for s in shape), dtype)
 
 
-def _leaf_init(gen: torch.Generator, path: str, shape, dtype):
-    """Init rule by naming convention: *scale -> zeros (rms uses 1+scale),
-    *bias -> zeros, embeddings & matmuls -> truncated normal / sqrt(fan_in).
-    Drawn in f32 on the generator's device, scaled in place (one f32
-    temporary: DeepSeek-V3's [256, 7168, 2048] expert leaf is 15 GB in
-    f32), then cast."""
+def _leaf_init(gen: torch.Generator, path: str, shape, dtype,
+               fan_in: int | None = None):
+    """Init rule by naming convention, the reference's: *scale -> zeros
+    (rms uses 1+scale), *bias -> zeros (Mamba's ``dt_bias`` too: the
+    reference tests "bias" before its own ``dt_bias`` rule), Mamba's
+    ``A_log`` -> log(1 .. d_state) tiled, RWKV's ``decay_base`` -> -6 + 5
+    (i / (n-1))^0.7 (in f32 as the reference's, each log and power formed
+    in f64 and rounded once: XLA's own f32 log and pow match no other
+    library's bits, and are within two ulps of that) and ``mix_mu`` ->
+    uniform on [0.3, 0.7), embeddings & matmuls -> truncated normal /
+    sqrt(fan_in) (fan_in ``shape[-1]`` for a 1-D leaf, ``shape[-2]``
+    otherwise, unless given).  Drawn in f32 on the generator's device,
+    scaled in place (one f32 temporary: DeepSeek-V3's [256, 7168, 2048]
+    expert leaf is 15 GB in f32), then cast."""
+    dev = gen.device
     if path.endswith("scale") or path.endswith("bias"):
-        return torch.zeros(shape, dtype=dtype, device=gen.device)
-    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    if path.endswith("A_log") or path.endswith("decay_base"):
+        n = shape[-1]
+        if path.endswith("A_log"):
+            row = np.log(np.arange(1, n + 1, dtype=np.float64)).astype(
+                np.float32)
+        else:
+            f = np.arange(n, dtype=np.float32) / np.float32(max(n - 1, 1))
+            p = np.power(f.astype(np.float64), float(np.float32(0.7)))
+            row = np.float32(-6.0) + np.float32(5.0) * p.astype(np.float32)
+        row = torch.from_numpy(row).to(dev)
+        return row.expand(shape).to(dtype).contiguous()
+    if path.endswith("mix_mu"):
+        w = torch.empty(shape, dtype=torch.float32, device=dev)
+        return w.uniform_(0.3, 0.7, generator=gen).to(dtype)
+    if fan_in is None:
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    w = torch.empty(shape, dtype=torch.float32, device=dev)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return w.div_(math.sqrt(max(fan_in, 1))).to(dtype)
 
@@ -262,10 +310,13 @@ def map_tree(fn, tree, prefix=""):
     return fn(prefix[:-1], tree)
 
 
-def init_from_specs(gen: torch.Generator, specs) -> Any:
+def init_from_specs(gen: torch.Generator, specs, fan_in=None) -> Any:
     """specs: tree of ``Spec``; returns a tree of tensors, each leaf drawn
-    from ``gen`` in sorted path order (numbers differ from JAX's)."""
-    values = {p: _leaf_init(gen, p, s.shape, s.dtype)
+    from ``gen`` in sorted path order (numbers differ from JAX's).
+    ``fan_in(path, shape)``, where given, overrides a leaf's fan-in when it
+    returns a number."""
+    values = {p: _leaf_init(gen, p, s.shape, s.dtype,
+                            fan_in and fan_in(p, s.shape))
               for p, s in leaves(specs)}
     return map_tree(lambda p, _: values[p], specs)
 

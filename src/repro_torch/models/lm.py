@@ -1,16 +1,19 @@
 """Decoder-only language model: embedding -> blocks -> final norm -> head.
 
-Port of ``repro.models.lm`` for the dense and the DeepSeek (MLA + MoE)
-decoders and the vision frontend: ``_embed``, ``_run_blocks``,
-``forward_logits``, ``prefill``, ``decode_step`` and the sequence-chunked
-training loss ``lm_loss``.  A vision model's ``extra_embeds`` [B, n_vis,
-d] (precomputed patch embeddings) go through ``vis_proj`` and in front of
+Port of ``repro.models.lm`` for the dense, the DeepSeek (MLA + MoE) and
+the recurrent (jamba's Mamba + attention + MoE, RWKV-6) decoders and the
+vision frontend: ``_embed``, ``_run_blocks``, ``forward_logits``,
+``prefill``, ``decode_step`` and the sequence-chunked training loss
+``lm_loss``.  A vision model's ``extra_embeds`` [B, n_vis, d]
+(precomputed patch embeddings) go through ``vis_proj`` and in front of
 the text tokens: the causal mask and the positions run over the whole
 sequence, so after a prefill of n_vis + S positions decode runs at
-``pos = n_vis + S + t`` and a cache counts the frontend tokens.  The
-reference scans over stacked periods; the port keeps one parameter tree
-per layer (``params["layers"][i]``) and runs them in a plain loop, with no
-sharding constraint; under ``cfg.remat`` each body period runs under
+``pos = n_vis + S + t`` and a cache counts the frontend tokens.  Mamba
+and RWKV layers ignore ``positions``: their caches carry a fixed-size
+state, not a position a token.  The reference scans over stacked
+periods; the port keeps one parameter tree per layer
+(``params["layers"][i]``) and runs them in a plain loop, with no sharding
+constraint; under ``cfg.remat`` each body period runs under
 ``torch.utils.checkpoint`` as the reference's period runs under
 ``jax.checkpoint``.  ``LM`` holds the parameters as an ``nn.Module`` on one
 device, frozen for serving; ``LM.requires_grad_(True)`` trains them.
@@ -44,7 +47,17 @@ def lm_param_specs(cfg: cm.ArchConfig) -> dict:
 
 
 def init_lm_params(cfg: cm.ArchConfig, gen: torch.Generator) -> dict:
-    return cm.init_from_specs(gen, lm_param_specs(cfg))
+    """Seeded parameters by the reference's naming rules.  The reference
+    draws each body leaf stacked ``[n_periods, ...]``, so a 1-D body leaf
+    drawn from the truncated normal (Mamba's ``D``) has fan-in n_periods
+    there: so it has here."""
+    def fan_in(path, shape):
+        layer = path.split("/")[1] if path.startswith("layers/") else None
+        if len(shape) == 1 and layer and int(layer) >= cfg.n_dense_prefix:
+            return cfg.n_periods
+        return None
+
+    return cm.init_from_specs(gen, lm_param_specs(cfg), fan_in)
 
 
 class LM(cm.ParamTree):
@@ -62,7 +75,8 @@ class LM(cm.ParamTree):
 def init_lm_cache(cfg: cm.ArchConfig, batch: int, max_len: int, *,
                   device="cuda") -> list:
     """One cache per layer, zero-filled on ``device``: a ``KVCache`` for an
-    attention layer, an ``MLACache`` for an MLA layer."""
+    attention layer, an ``MLACache`` for an MLA layer, a ``MambaCache`` or
+    an ``RWKVCache`` for a recurrent one."""
     dev = resolve_device(device)
     return [blk.init_block_cache(cfg, mk, batch, max_len, device=dev)
             for mk, _ in cfg.layer_kinds()]
@@ -203,7 +217,9 @@ def prefill(params, tokens: torch.Tensor, cfg: cm.ArchConfig, caches: list,
             *, extra_embeds: torch.Tensor | None = None):
     """Fill caches from a prompt [B, S] (after ``extra_embeds`` [B, n, d],
     which take positions 0 .. n - 1); returns (last-token logits [B, V],
-    caches).  The caches are written in place."""
+    caches).  The caches are written in place.  A recurrent layer's scan
+    starts from its cache's state, so the caches must be fresh (zeros), as
+    the reference's ``init_cache`` gives them."""
     x = _embed(params, tokens, cfg, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, _, new_caches = _run_blocks(params, x, cfg, positions=positions,

@@ -88,6 +88,14 @@ def test_deepseek_modules_are_scanned_and_import_alone():
     _scanned_and_import_alone(MODEL_MODULES)
 
 
+RECURRENT_MODULES = ("models/mamba.py", "models/rwkv.py",
+                     "configs/jamba_v01_52b.py", "configs/rwkv6_3b.py")
+
+
+def test_recurrent_modules_are_scanned_and_import_alone():
+    _scanned_and_import_alone(RECURRENT_MODULES)
+
+
 def _entry_points():
     from repro_torch.core import (CloudService, DeviceClient, Knobs,
                                   MappingServer, init_local_map, init_store)
@@ -138,6 +146,12 @@ def _entry_points():
             "deepseek-v3-671b-smoke")).init(),
         "model_api.init_cache(deepseek)": lambda: model_api(get_config(
             "deepseek-v3-671b-smoke")).init_cache(1, 8),
+        "model_api.init(jamba)": lambda: model_api(get_config(
+            "jamba-v0.1-52b-smoke")).init(),
+        "model_api.init_cache(jamba)": lambda: model_api(get_config(
+            "jamba-v0.1-52b-smoke")).init_cache(1, 8),
+        "model_api.init_cache(rwkv)": lambda: model_api(get_config(
+            "rwkv6-3b-smoke")).init_cache(1, 8),
         "ClientSession": lambda: ClientSession(
             dev=DeviceClient(knobs=kn, embed_dim=4), net=NetworkModel(),
             knobs=kn),

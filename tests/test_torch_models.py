@@ -84,8 +84,9 @@ def _kv_from_jax(c, layer=None):
 # ------------------------------------------------------------- configs, data
 def test_configs_match_the_reference():
     assert list_configs() == ["deepseek-v2-236b", "deepseek-v3-671b",
-                              "gemma2-27b", "h2o-danube-3-4b", "minitron-4b",
-                              "phi-3-vision-4.2b",
+                              "gemma2-27b", "h2o-danube-3-4b",
+                              "jamba-v0.1-52b", "minitron-4b",
+                              "phi-3-vision-4.2b", "rwkv6-3b",
                               "semanticxr-captioner-110m", "yi-9b"]
     for name in ("semanticxr-captioner-110m", SMOKE):
         j, t = jget_config(name), get_config(name)
@@ -96,7 +97,7 @@ def test_configs_match_the_reference():
             assert getattr(t, f) == getattr(j, f), (name, f)
         assert t.dtype == torch.bfloat16 and j.dtype == jnp.bfloat16
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("jamba-v0.1-52b")
+        get_config("whisper-small")
 
 
 def test_caption_batches_match_the_reference():
@@ -201,16 +202,21 @@ def test_block_apply_matches(dtype):
 
 
 def test_unported_families_raise_naming_the_roadmap():
+    """The encoder-decoder (whisper-small) is the family still unported:
+    its config and an ``encdec`` model_api raise naming the roadmap.  An
+    unknown mixer or MLP kind raises ``ValueError``, as the reference's
+    blocks do."""
     cfg = get_config(SMOKE)
-    for kinds in ((tcm.MIXER_MAMBA, tcm.MLP_DENSE),
-                  (tcm.MIXER_RWKV6, tcm.MLP_DENSE)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tblk.block_param_specs(cfg, *kinds)
-    for name in ("rwkv6-3b", "whisper-small"):
+    for name in ("whisper-small", "whisper-small-smoke"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_config(name)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tapi.model_api(cfg.replace(encdec=True))
+    for kinds in (("cross_attn", tcm.MLP_DENSE), (tcm.MIXER_FULL, "glu")):
+        with pytest.raises(ValueError):
+            tblk.block_param_specs(cfg, *kinds)
+        with pytest.raises(ValueError):
+            jblk.block_param_specs(jget_config(SMOKE), *kinds)
 
 
 # --------------------------------------------------------- prefill + decode
