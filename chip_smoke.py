@@ -319,13 +319,50 @@
     attention layer a prefill (2 on jamba's cut) and none decoding, none
     at all on rwkv6-3b; every logit finite, the two prefills the same
     bits; a profiler window each (``recurrent_profile``: busy share, top
-    kernels, aten ops a decode step); (d) ``recurrent_replay_phase``: f32
+    kernels, aten ops a decode step; rwkv6-3b's prefill window over the
+    prompts' first 512 tokens); (d) ``recurrent_replay_phase``: f32
     cuts at d_model 1024 (jamba: 16 heads of 128, 4 kv, 4 experts at
     capacity factor 2, where no copy drops; rwkv: heads of 64), the scan
     chunk 16, a ragged 45-token prompt and 8 greedy steps: card = CPU port
     (tokens, logits within 1e-4 of the largest, expert ids at every MoE
     call), and every decode step against a whole-sequence prefill on the
     card (the recurrent state's handoff from prefill to decode).
+
+23. The recurrent families trained: (a) ``recurrent_train_cuts``: each
+    training peak reckoned before its run (``recurrent_train_reckon``: 16
+    bytes a parameter, then AdamW's temporaries or the backward pass's
+    transients, whichever is larger: the remat checkpoints, one period's
+    recomputed activations with each Mamba scan chunk recomputed inside
+    it, the gradients in flight through its largest layer, the loss
+    chunks) and jamba-v0.1-52b at full width cut while it passes
+    DENSE_PEAK_LIMIT, first by experts (down to its top-2), then by whole
+    periods: one period with 2 of its 16 experts a MoE layer, registered
+    as ``jamba-v0.1-52b-train-cut``; rwkv6-3b whole; (b)
+    ``dense_attention_checks`` / ``dense_bwd_checks`` at jamba's training
+    shape (1, 2048, 32 heads, 8 kv, causal, (128, 128)): the forward with
+    its lse and the gradient, bf16 within DENSE_BF16_TOL /
+    DENSE_BWD_BF16_TOL and f32 within ATTN_TOL, timed beside their bounds,
+    the plain versions as called and SDPA (``enable_gqa``, causal) with
+    its backward; (c) ``recurrent_train_phase``: 10 bf16 steps of
+    ``launch.train.main`` each through ``trainer_run``, jamba's cut at 1 x
+    2048 and rwkv6-3b at 1 x 4096 under remat: step ms p50 / p95,
+    tokens/s, peaks within their reckoning, every loss finite and the last
+    5 under the first 5, 2 flash forward and 1 gradient launch a step on
+    jamba and none on rwkv6-3b, jamba's MoE routed twice a MoE layer a
+    step (the recomputed ids the forward's), its dropped share and aux
+    loss; two gradients of one batch bit-equal, the first pass's own peak
+    within the reckoning's backward term, the step's model FLOPs over its
+    time against 989 TFLOP/s and ``roofline_terms``' bound
+    (``train_roofline``, from ``repro_torch.launch.costs``) and a profiler
+    window over one train step (at 1 x 128 on jamba, 1 x 64 on
+    rwkv6-3b); (d) ``recurrent_train_replay``: 3
+    f32 train steps of step 22d's cuts at 48 tokens, card vs CPU port
+    within TRAIN_REPLAY_TOL (rwkv6-3b within RWKV_TRAIN_REPLAY_TOL: its
+    per-head norm makes the cut's gradients spread by 4e-3 with the
+    summation order alone), jamba's expert ids equal at every MoE call,
+    the recomputed ones included; (e) ``recurrent_kill_resume``: 22d's
+    rwkv6-3b cut in bf16, ``--kill-at 3`` of 6, restored bit-equal (the
+    slash-named leaves in the checkpoint), resumed.
 
 ``nearest_dist`` has no caller on any system path: its phase drives its
 entry point, ``ops.nearest_dist``, at a chamfer and a centroid shape.
@@ -680,8 +717,13 @@ RWKV6 = "rwkv6-3b"
 JAMBA_ATTN_CASES = ((4, 2048, 32, 8, 128, True, 0, 0.0),
                     (4, 2000, 32, 8, 128, True, 0, 0.0))
 JAMBA_TIMED = (0,)
+# rwkv6-3b's profiler window prefills the prompts' first 512 tokens: the
+# window's events grow with the chunks it scans (163 aten ops a chunk and
+# layer), and the whole 4096 took 62.8 s to process on an H100's host
+# (jamba's window at 512 saved 1 s of its 30.8: its decode steps dominate)
 RECURRENT_SERVE = ((JAMBA, dict(batch=4, prompt=2048, new_tokens=32)),
-                   (RWKV6, dict(batch=4, prompt=4096, new_tokens=32)))
+                   (RWKV6, dict(batch=4, prompt=4096, new_tokens=32,
+                                profile_prompt=512)))
 RECURRENT_REPLAY = {
     JAMBA: dict(d_model=1024, n_heads=16, n_kv_heads=4, d_head=128,
                 d_ff=2048, n_layers=8, vocab_size=4096, chunk=16,
@@ -696,6 +738,35 @@ RECURRENT_REPLAY_RUN = dict(batch=2, prompt=45, new_tokens=8)
 # MiB of the allocator's own after steps 1-21 (an H100, before this slack
 # was set): the slack, far under a leaf's f32 copy (671 MB), covers that
 INIT_SLACK = 16 << 20
+# step 23: the recurrent families trained.  (a) each training peak reckoned
+# before its run (``recurrent_train_reckon``): jamba-v0.1-52b at full width
+# cut by experts (to its top-k) and then by whole periods while the
+# reckoning passes DENSE_PEAK_LIMIT, rwkv6-3b whole; (b) the flash forward
+# and gradient kernels at jamba's training shape; (c) each config through
+# the trainer, jamba at 1 x 2048 and rwkv6-3b at 1 x 4096, host-bound at
+# 4.1 and 10.7 s a step on an H100 (427,039 aten ops a step on jamba's
+# cut), so 10 steps each and the profiler windows at 1 x 128 and 1 x 64
+# (four chunks of jamba's scan, one of rwkv's): a window's events grow with
+# the chunks, and jamba's at 1 x 2048 took 108.6 s to process;
+# (d) 3 f32 train steps of step 22d's cuts at a multiple of their chunk,
+# card vs CPU port; (e) kill / resume of 22d's rwkv6-3b cut in bf16.
+JAMBA_TRAIN_CUT = JAMBA + "-train-cut"
+JAMBA_TRAIN_ATTN_CASES = ((1, 2048, 32, 8, 128, True, 0, 0.0),)
+RECURRENT_TRAIN = ((JAMBA, dict(batch=1, seq=2048, steps=10,
+                                profile_seq=128)),
+                   (RWKV6, dict(batch=1, seq=4096, steps=10,
+                                profile_seq=64)))
+RECURRENT_TRAIN_REPLAY = dict(batch=1, seq=48, steps=3)
+# rwkv6-3b's replay cut against TRAIN_REPLAY_TOL's relative limits: its time
+# mix's per-head RMS norm lifts a small row's rounding (the first tokens',
+# whose state is still empty) into layer 0's wk / wr / bonus_u gradients,
+# up to 1.7e-3 of their norm from the summation order alone, and Adam's
+# normalised steps carry that on.  The CPU port against itself at 8 and 1
+# threads on this cut spreads by 2.7e-4 (loss), 4.0e-3 (grad norm) and
+# 6.1e-5 (masters) over the 3 steps; these limits are 2.5-4 times that
+# spread (the card's grad norm came 1.13e-3 from the CPU's on an H100).
+RWKV_TRAIN_REPLAY_TOL = {"loss": 1e-3, "grad_norm": 1e-2, "master": 2.5e-4}
+RECURRENT_KILL = dict(steps=6, ckpt_every=2, kill_at=3, batch=1, seq=64)
 
 
 def check(cond, what: str) -> None:
@@ -3288,11 +3359,13 @@ def train_run(torch, dev, argv, on_step=None):
     return out, buf.getvalue()
 
 
-def replay_train(torch, dev, cfg, *, batch, seq, steps, n_vis=0):
+def replay_train(torch, dev, cfg, *, batch, seq, steps, n_vis=0,
+                 tol=TRAIN_REPLAY_TOL):
     """``steps`` f32 train steps of ``cfg`` (the full-width captioner, the
     replay cuts) from the same seeded weights on the card and on the CPU
     port (plain versions); with ``n_vis``, each batch's tokens after as
-    many seeded f32 patch embeddings (a vision model's image batch)."""
+    many seeded f32 patch embeddings (a vision model's image batch);
+    loss, grad norm and masters within ``tol``."""
     from repro_torch import convert
     from repro_torch.data.tokens import batch_iterator
     from repro_torch.launch.steps import build_train_step
@@ -3331,17 +3404,17 @@ def replay_train(torch, dev, cfg, *, batch, seq, steps, n_vis=0):
     master_rel = (num / den) ** 0.5
     master_max = max(float((gm[p].cpu() - cmast[p]).abs().max())
                      for p in cmast)
-    check(rel["loss"] <= TRAIN_REPLAY_TOL["loss"],
+    check(rel["loss"] <= tol["loss"],
           f"train replay loss rel err {rel['loss']}")
-    check(rel["grad_norm"] <= TRAIN_REPLAY_TOL["grad_norm"],
+    check(rel["grad_norm"] <= tol["grad_norm"],
           f"train replay grad norm rel err {rel['grad_norm']}")
-    check(master_rel <= TRAIN_REPLAY_TOL["master"],
+    check(master_rel <= tol["master"],
           f"train replay master rel err {master_rel}")
     return {"batch": batch, "seq": seq, "frontend_tokens": n_vis,
             "steps": steps, "card": gh,
             "cpu": ch, "rel_err": rel, "master_rel_err_l2": master_rel,
             "master_max_abs_err": master_max, "card_s_host": gs,
-            "cpu_s_host": cs, "tolerance": TRAIN_REPLAY_TOL}
+            "cpu_s_host": cs, "tolerance": tol}
 
 
 def clip_phase(torch, dev, *, batch, steps, n_objects, scene_seed,
@@ -3792,7 +3865,11 @@ def serve_profile(torch, api, model, tokens, caches, kernels=(),
 
 class MoESpy:
     """While open, records every MoE call of the port: its expert ids
-    (``moe._route``) and its ``MoEStats`` (``moe.moe_apply``)."""
+    (``moe._route``) and its ``MoEStats`` (``moe.moe_apply``), detached: a
+    stats tensor that kept its graph would keep alive, after the backward,
+    the recomputed tensors that a nested checkpoint (jamba's scan chunks
+    inside its period) stored and the backward never read (5.67 GB a step
+    on jamba's training cut)."""
 
     def __init__(self):
         from repro_torch.models import moe
@@ -3809,7 +3886,7 @@ class MoESpy:
 
         def apply(*a, **kw):
             y, st = self._apply(*a, **kw)
-            self.stats.append(st)
+            self.stats.append(type(st)(*(t.detach() for t in st)))
             return y, st
 
         moe._route, moe.moe_apply = route, apply
@@ -4130,10 +4207,13 @@ def trainer_run(torch, dev, cfg, *, steps, batch, seq, fwd, bwd, reckoned,
         "launches": launches}
 
 
-def grads_twice(torch, dev, cfg, model, *, batch, seq, batches=None):
+def grads_twice(torch, dev, cfg, model, *, batch, seq, batches=None,
+                peaks=None):
     """Two gradients of one batch (seeded tokens, or the first of
     ``batches``, two model batches) on the trained parameters: whether
-    every leaf has the same bits.  Returns (same, two batches)."""
+    every leaf has the same bits.  With a list ``peaks``, appends to it
+    the first pass's own peak as ``backward_peak`` measures it.  Returns
+    (same, two batches)."""
     import gc
 
     from repro_torch.data.tokens import batch_iterator
@@ -4146,9 +4226,17 @@ def grads_twice(torch, dev, cfg, model, *, batch, seq, batches=None):
         it = batch_iterator(batch, seq, seed=7, vocab_size=cfg.vocab_size)
         batches = [{"tokens": torch.from_numpy(next(it)["tokens"]).to(dev)}
                    for _ in range(2)]
-    twice = [dict(cm.leaves(loss_and_grads(api.loss, model, batches[0])[2]))
-             for _ in range(2)]
-    torch.cuda.synchronize()
+    twice = []
+    for _ in range(2):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        twice.append(dict(cm.leaves(loss_and_grads(api.loss, model,
+                                                   batches[0])[2])))
+        torch.cuda.synchronize()
+        if peaks is not None and len(twice) == 1:
+            peaks.append(torch.cuda.max_memory_allocated() - held)
     same = sorted(twice[0]) == sorted(twice[1]) and same_bits(
         torch, [twice[0][p] for p in twice[0]],
         [twice[1][p] for p in twice[0]])
@@ -5294,7 +5382,8 @@ def recurrent_reckon(cfg, batch: int, prompt: int, max_len: int) -> dict:
     return out
 
 
-def recurrent_serve_phase(torch, dev, name, *, batch, prompt, new_tokens):
+def recurrent_serve_phase(torch, dev, name, *, batch, prompt, new_tokens,
+                          profile_prompt=None):
     """(b)-(c) ``name`` at full width, bf16, weights seeded on the card:
     its peak reckoned first (``recurrent_reckon``) and its depth cut by
     whole periods while that passes DENSE_PEAK_LIMIT; ``batch`` prompts of
@@ -5304,7 +5393,8 @@ def recurrent_serve_phase(torch, dev, name, *, batch, prompt, new_tokens):
     an attention layer a prefill and none decoding (none at all without
     attention), every logit finite, the two prefills the same bits, the
     cache's bytes and both peaks within their reckoning; then a profiler
-    window over one prefill and PROFILE_DECODE steps."""
+    window over one prefill (of the prompts' first ``profile_prompt``
+    tokens, where given) and PROFILE_DECODE steps."""
     import gc
 
     from repro_torch.configs.base import get_config
@@ -5378,9 +5468,10 @@ def recurrent_serve_phase(torch, dev, name, *, batch, prompt, new_tokens):
            "reckoned": rk, **m}
     flash = (f"flash_wgmma_kernel<{cfg.d_head}",) if n_attn else ()
     t0 = time.perf_counter()
-    prof = serve_profile(torch, api, model, tokens,
+    prof = serve_profile(torch, api, model, tokens[:, :profile_prompt],
                          api.init_cache(batch, max_len, device=dev), flash)
     prof["seconds_host"] = time.perf_counter() - t0
+    prof["prompt"] = profile_prompt or prompt
     if n_attn:
         check(prof["prefill"]["kernel_ms"][flash[0]] > 0,
               f"{flash[0]}> ran in the profiled prefill")
@@ -5501,6 +5592,291 @@ def recurrent_replay_phase(torch, dev, *, batch, prompt, new_tokens,
             "decode_vs_prefill_relative_err": worst}
         del runs, gmodel
     emit("recurrent_replay_phase", out)
+    return out
+
+
+# ----------------------------------------------------------------- step 23
+def recurrent_train_reckon(cfg, batch: int, seq: int) -> dict:
+    """Bytes of a bf16 train step of a recurrent ``cfg`` (jamba's Mamba,
+    attention and MoE layers; RWKV-6) at B x S under remat, before it
+    runs: 16 a parameter (bf16 parameter and gradient, f32 master and two
+    moments), then the larger of AdamW's three f32 temporaries of the
+    largest leaf and the backward pass's transients.  Those are the remat
+    checkpoints (each period's input and four d_model-wide tensors around
+    the body), one period's recomputed activations, the gradients in
+    flight through its largest layer, and the loss chunks' logits (as
+    ``dense_train_reckon``).  A layer's activations, in bytes a token,
+    as ``saved_tensors_hooks`` counts what autograd saves on the CPU port
+    at these configs' ratios (d_model 256 and 512): its two norms' f32
+    copies and inputs; a Mamba mixer's projections and scan inputs (three
+    f32 and eight model-dtype d_inner-wide arrays) and, with each scan
+    chunk recomputed, one f32 state a chunk; an attention
+    mixer's q, output and input, k and v, the rotary key's f32 halves and
+    the lse; an MoE's k * capacity_factor expert slots a token (their
+    four d_ff_expert-wide activations and their input), its f32 router
+    input and the k gathered copies; a dense MLP's four d_ff-wide
+    activations; an RWKV time mix's two f32 [chunk, d_model] arrays a
+    token of each chunk's scores, six model-dtype and eighteen f32
+    d_model-wide arrays, its channel mix's two d_ff-wide and five
+    d_model-wide ones.  In flight through the largest layer: its
+    activations' gradients (an RWKV layer's chunk scores only a chunk at
+    a time) and, for a Mamba layer, one chunk's recomputed scan (18 f32
+    [B, chunk, d_inner, d_state] arrays) and their gradients.  Both
+    totals are upper bounds: they hold every gradient beside every
+    transient, where the backward frees a layer's activations as its
+    gradients form."""
+    from repro_torch.models import common as cm
+    from repro_torch.models.lm import lm_param_specs
+
+    es = cfg.dtype.itemsize
+    sizes = [math.prod(s.shape) for _, s in cm.leaves(lm_param_specs(cfg))]
+    n, d, V = batch * seq, cfg.d_model, cfg.vocab_size
+    H, Kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    flight = []              # (bytes a token, bytes of one chunk in flight)
+
+    def layer(mk, lk) -> int:
+        b = 16 * d + 2 * es * d                  # two norms and their outputs
+        chunk = 0
+        if mk == cm.MIXER_MAMBA:
+            mb = cfg.mamba
+            d_in, C = mb.expand * d, min(mb.chunk, seq)
+            b += d_in * (12 + 8 * es) + 4 * d_in * mb.d_state / C + 4 * d
+            chunk = 2 * 18 * batch * C * d_in * mb.d_state * 4
+        elif mk == cm.MIXER_RWKV6:
+            C = min(cfg.rwkv.chunk, seq)
+            scores = 2 * C * d * 4
+            b += scores + d * (6 * es + 18 * 4) + es * (2 * cfg.d_ff + 5 * d)
+            flight.append((b - scores, 6 * batch * C * C * d * 4))
+            return b
+        else:
+            b += es * (3 * H * dh + 2 * Kv * dh + d) + 8 * Kv * dh + 4 * H
+        if lk == cm.MLP_MOE:
+            mo = cfg.moe
+            slots = mo.top_k * mo.capacity_factor
+            b += (slots * (4 * mo.d_ff_expert + d) * es + 4 * d
+                  + mo.top_k * d * es)
+        else:
+            b += 4 * cfg.d_ff * es
+        flight.append((b, chunk))
+        return b
+
+    check(cfg.n_dense_prefix == 0, f"{cfg.name}: no dense prefix")
+    period = sum(layer(*cfg.block_kinds(s)) for s in range(cfg.period))
+    out = {"params": sum(sizes), "state_bytes": 16 * sum(sizes),
+           "adamw_bytes": 12 * max(sizes),
+           "checkpoint_bytes": (cfg.n_layers // cfg.period + 4) * n * d * es,
+           "period_bytes": int(period * n),
+           "period_bytes_per_token": period,
+           "in_flight_bytes": int(max(t * n + c for t, c in flight)),
+           "loss_chunk_bytes": batch * min(512, seq) * V * 4 * (
+               6 if cfg.final_logit_softcap else 5) + 2 * V * d * es,
+           "loss_saved_bytes": (-(-seq // 512) - 1) * batch * 512 * V * 4
+           * (2 if cfg.final_logit_softcap else 1)}
+    transients = (out["checkpoint_bytes"] + out["period_bytes"]
+                  + out["in_flight_bytes"] + out["loss_saved_bytes"]
+                  + out["loss_chunk_bytes"])
+    out["transient_bytes"] = transients
+    out["total_bytes"] = out["state_bytes"] + max(out["adamw_bytes"],
+                                                  transients)
+    out["backward_bytes"] = es * sum(sizes) + transients
+    return out
+
+
+def recurrent_train_cut(torch, name: str, batch: int, seq: int):
+    """``name`` at full width, cut while the allocated bytes plus
+    ``recurrent_train_reckon``'s pass DENSE_PEAK_LIMIT: first its routed
+    experts, one at a time down to its top-k, then its depth by whole
+    periods; registered as ``name-train-cut`` when cut.  Returns (the
+    config, its reckoning)."""
+    import gc
+
+    from repro_torch.configs.base import get_config, register
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    full = cfg = get_config(name)
+    rk = recurrent_train_reckon(cfg, batch, seq)
+    while before + rk["total_bytes"] > DENSE_PEAK_LIMIT:
+        if cfg.moe is not None and cfg.moe.n_experts > cfg.moe.top_k:
+            cfg = cfg.replace(moe=dataclasses.replace(
+                cfg.moe, n_experts=cfg.moe.n_experts - 1))
+        else:
+            cfg = cfg.replace(n_layers=cfg.n_layers - cfg.period)
+        check(cfg.n_layers >= cfg.period, f"{name}: one period trains")
+        rk = recurrent_train_reckon(cfg, batch, seq)
+    cuts = [f"depth {full.n_layers} -> {cfg.n_layers} ({full.n_periods} "
+            f"-> {cfg.n_periods} periods)"]
+    if cfg.moe is not None:
+        cuts.append(f"routed experts {full.moe.n_experts} -> "
+                    f"{cfg.moe.n_experts} a MoE layer (top-"
+                    f"{cfg.moe.top_k} kept)")
+    if cfg != full:
+        cfg = cfg.replace(name=f"{name}-train-cut")
+        register(cfg.name)(lambda c=cfg: c)
+    emit("recurrent_train_cuts", {
+        "config": cfg.name, "cut": cfg.name != name, "cuts": cuts,
+        "batch": batch, "seq": seq,
+        "why": f"reckoned peak {before + rk['total_bytes']} bytes against "
+               f"{DENSE_PEAK_LIMIT:.0f}",
+        "widths": "as published; random weights seeded on the card",
+        "reckoned": rk, "allocated_before_bytes": before})
+    return cfg, rk
+
+
+def train_roofline(cfg, batch: int, seq: int, step_ms: float) -> dict:
+    """The train step against the analytic cost model
+    (``repro_torch.launch.costs``): its model FLOPs (6 N_active B S) over
+    the measured step time against the card's dense bf16 peak (the step's
+    MFU), and ``roofline_terms``' bound and dominant term on one H100."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import costs
+
+    c = costs.step_costs(cfg, ShapeCell(cfg.name, seq, batch, "train"))
+    terms = costs.roofline_terms(c, 0.0, chips=1)
+    return {"model_flops": c.model_flops, "flops": c.flops,
+            "hbm_bytes": c.hbm_bytes, "n_params": c.n_params,
+            "n_active": c.n_active, "breakdown": c.breakdown,
+            "mfu": c.model_flops / (step_ms / 1e3) / BF16_FLOP_PER_S,
+            "roofline": terms,
+            "step_over_bound": step_ms / 1e3 / terms["bound_s"]}
+
+
+def recurrent_train_phase(torch, dev, name, *, batch, seq, steps,
+                          profile_seq=None):
+    """(a), (c) ``name`` at full width, cut by ``recurrent_train_cut``,
+    bf16, through ``trainer_run`` under remat (each period and, inside it,
+    each Mamba scan chunk recomputed): 2 flash forward and 1 gradient
+    launch an attention layer a step (none on rwkv6-3b), every loss finite
+    and falling, the peak within its reckoning; jamba's MoE calls counted
+    (each routed twice a step, the recomputed ids equal to the forward's),
+    its dropped share and aux loss; then two gradients of one batch with
+    the same bits, the first pass's own peak (``backward_peak``'s
+    measure) within the reckoning's backward term, the step against
+    ``train_roofline`` and a ``torch.profiler`` window over one train step
+    at ``profile_seq`` (the window's events grow with the scan chunks)."""
+    import gc
+
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.models import common as cm
+    from repro_torch.models.blocks import ATTN_KINDS
+
+    cfg, rk = recurrent_train_cut(torch, name, batch, seq)
+    check(cfg.remat, f"{name} trains under remat, as the reference's "
+          "config does")
+    kinds = cfg.layer_kinds()
+    n_attn = sum(mk in ATTN_KINDS for mk, _ in kinds)
+    n_moe = sum(lk == cm.MLP_MOE and mk != cm.MIXER_RWKV6
+                for mk, lk in kinds)
+    with MoESpy() as spy:
+        model, out = trainer_run(torch, dev, cfg, steps=steps, batch=batch,
+                                 seq=seq, fwd=2 * n_attn, bwd=n_attn,
+                                 reckoned=rk["total_bytes"])
+    out["reckoned"] = rk
+    out["attention_layers"], out["moe_layers"] = n_attn, n_moe
+    if n_moe:
+        # each step: the forward's MoE calls in layer order, then the
+        # recomputed ones, last period first and in layer order inside it
+        check(len(spy.ids) == 2 * steps * n_moe,
+              f"{name}: two MoE routes a MoE layer a step: {len(spy.ids)}")
+        m = n_moe // cfg.n_periods
+        same_ids = True
+        for s in range(steps):
+            ids = spy.ids[2 * n_moe * s:2 * n_moe * (s + 1)]
+            rec = [ids[n_moe + i * m:n_moe + (i + 1) * m]
+                   for i in range(cfg.n_periods)][::-1]
+            for a, b in zip(ids[:n_moe], [x for p in rec for x in p]):
+                same_ids &= torch.equal(a, b)
+        check(same_ids, f"{name}: every recomputed MoE call routed to the "
+              "forward's expert ids")
+        dropped = [float(st.dropped_frac) for st in spy.stats]
+        out.update({"moe_calls_per_step": len(spy.ids) // steps,
+                    "recomputed_ids_equal_forward": same_ids,
+                    "moe_dropped_frac_max": max(dropped),
+                    "moe_dropped_frac_mean": float(np.mean(dropped)),
+                    "moe_experts": cfg.moe.n_experts})
+    del spy
+    out["roofline"] = train_roofline(cfg, batch, seq, out["step_ms_p50"])
+    peaks = []
+    out["grads_same_bits_twice"], toks = grads_twice(
+        torch, dev, cfg, model, batch=batch, seq=seq, peaks=peaks)
+    out["backward_peak_bytes"] = peaks[0]
+    check(peaks[0] <= rk["backward_bytes"], f"{name}: backward peak "
+          f"{peaks[0]} within its reckoning {rk['backward_bytes']}")
+    if profile_seq:
+        it = batch_iterator(batch, profile_seq, seed=8,
+                            vocab_size=cfg.vocab_size)
+        toks = [{"tokens": torch.from_numpy(next(it)["tokens"]).to(dev)}
+                for _ in range(2)]
+    flash = tuple(f"{k}<{cfg.d_head}" for k in (
+        "flash_wgmma_kernel", "flash_bwd_dq_kernel",
+        "flash_bwd_dkdv_kernel")) if n_attn else ()
+    t0 = time.perf_counter()
+    prof = train_step_profile(torch, cfg, model, toks, flash)
+    prof["seconds_host"] = time.perf_counter() - t0
+    prof["seq"] = profile_seq or seq
+    out["profile"] = prof
+    emit("recurrent_train_profile", {"config": cfg.name, **prof})
+    emit("recurrent_train_phase", out)
+    del model, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_train_replay(torch, dev, *, batch, seq, steps, cuts=None):
+    """(d) each of ``cuts`` (RECURRENT_REPLAY, step 22d's: d_model 1024,
+    f32, the scan chunk 16, remat as published) for ``steps`` train steps on
+    the card and on the CPU port from the same weights at a ``seq`` that
+    is a multiple of the chunk (``replay_train``): loss, grad norm and
+    masters within TRAIN_REPLAY_TOL (rwkv6-3b's within
+    RWKV_TRAIN_REPLAY_TOL); jamba's expert ids equal at every MoE
+    call, the recomputed ones included; on the card the f32 flash kernels
+    launched twice (forward) and once (gradient) an attention layer a
+    step."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import common as cm
+    from repro_torch.models.blocks import ATTN_KINDS
+
+    out = {}
+    for name, kw in (RECURRENT_REPLAY if cuts is None else cuts).items():
+        cfg = recurrent_replay_cut(torch, name, **kw)
+        check(seq % (cfg.mamba or cfg.rwkv).chunk == 0,
+              f"{name}: the replay's {seq} tokens a multiple of the chunk")
+        kinds = cfg.layer_kinds()
+        n_attn = sum(mk in ATTN_KINDS for mk, _ in kinds)
+        n_moe = sum(lk == cm.MLP_MOE and mk != cm.MIXER_RWKV6
+                    for mk, lk in kinds)
+        tol = RWKV_TRAIN_REPLAY_TOL if cfg.rwkv else TRAIN_REPLAY_TOL
+        ops.reset_launch_counts()
+        with MoESpy() as spy:
+            out[name] = replay_train(torch, dev, cfg, batch=batch, seq=seq,
+                                     steps=steps, tol=tol)
+        c = ops.launch_counts()
+        check((c["flash_attention"], c["flash_attention_bwd"])
+              == (2 * steps * n_attn, steps * n_attn),
+              f"{name} train replay: flash launches on the card {c}")
+        # the card's run, then the CPU's; each routes again under remat
+        n = steps * n_moe * (1 + cfg.remat)
+        check(len(spy.ids) == 2 * n, f"{name} train replay MoE calls "
+              f"{len(spy.ids)}")
+        for j, (a, b) in enumerate(zip(spy.ids[:n], spy.ids[n:])):
+            check(torch.equal(a.cpu(), b.cpu()),
+                  f"{name} train replay expert ids at MoE call {j}")
+        out[name].update(launches=c, moe_calls_equal_ids=n, cut=kw,
+                         remat=cfg.remat, tol=tol)
+    emit("recurrent_train_replay", out)
+    return out
+
+
+def recurrent_kill_resume(torch, dev, **kw):
+    """(e) step 22d's rwkv6-3b cut in bf16 through ``kill_resume``: its
+    slash-named leaves go through the checkpoint."""
+    cfg = recurrent_replay_cut(torch, RWKV6, **RECURRENT_REPLAY[RWKV6])
+    cfg = cfg.replace(name=cfg.name + "-replay-cut", dtype=torch.bfloat16)
+    out = {"config": f"{cfg.name} (step 22d's cut), bf16",
+           **kill_resume(torch, dev, cfg, **kw)}
+    emit("recurrent_train_kill_resume", out)
     return out
 
 
@@ -5689,6 +6065,23 @@ def main() -> int:
           f"{RWKV6}: no flash launch")
     timed("recurrent_replay_phase", recurrent_replay_phase, torch, dev,
           **RECURRENT_REPLAY_RUN)
+    jamba_train_fwd, = timed("jamba_train_attention_checks",
+                             dense_attention_checks, torch, clock, dev,
+                             cases=JAMBA_TRAIN_ATTN_CASES, timed=(0,),
+                             tag="jamba_train_attention", seed=260)
+    jamba_train_bwd, = timed("jamba_train_bwd_checks", dense_bwd_checks,
+                             torch, clock, dev, cases=JAMBA_TRAIN_ATTN_CASES,
+                             timed=(0,), tag="jamba_train_attention_bwd",
+                             seed=960)
+    rec_train = {name: timed(f"recurrent_train_{name}",
+                             recurrent_train_phase, torch, dev, name, **kw)
+                 for name, kw in RECURRENT_TRAIN}
+    check(rec_train[RWKV6]["launches"]["flash_attention"] == 0,
+          f"{RWKV6} training: no flash launch")
+    timed("recurrent_train_replay", recurrent_train_replay, torch, dev,
+          **RECURRENT_TRAIN_REPLAY)
+    timed("recurrent_kill_resume", recurrent_kill_resume, torch, dev,
+          **RECURRENT_KILL)
     emit("phase_seconds", phase_s)
     print(smi, flush=True)          # again, inside the tail of a long log
 
@@ -5742,7 +6135,9 @@ def main() -> int:
                         "(120, 120) on h2o-danube-3-4b, (128, 128) on "
                         "gemma2-27b, yi-9b and minitron-4b); step 21 "
                         "phi-3-vision-4.2b's training path (one a layer a "
-                        "step, the (96, 96) instance, 32 layers)",
+                        "step, the (96, 96) instance, 32 layers); step 23 "
+                        "jamba-v0.1-52b-train-cut's (one a step, the "
+                        "(128, 128) instance at its attention layer)",
          **bwd_row,
          "deepseek_train_launches":
              ds_train["launches"]["flash_attention_bwd"],
@@ -5769,7 +6164,20 @@ def main() -> int:
                          "training shape",
              "launches": sum(dense_train[n]["launches"]["flash_attention_bwd"]
                              for n in ("gemma2-27b", "yi-9b",
-                                       "minitron-4b")), **dense_bwd128},
+                                       "minitron-4b"))
+             + rec_train[JAMBA]["launches"]["flash_attention_bwd"],
+             "launches_by_config": {
+                 **{n: dense_train[n]["launches"]["flash_attention_bwd"]
+                    for n in ("gemma2-27b", "yi-9b", "minitron-4b")},
+                 JAMBA_TRAIN_CUT:
+                     rec_train[JAMBA]["launches"]["flash_attention_bwd"]},
+             **dense_bwd128,
+             "jamba_training_shape": {
+                 "launches": rec_train[JAMBA]["launches"][
+                     "flash_attention_bwd"],
+                 "launched_on": "step 23 jamba-v0.1-52b-train-cut's "
+                                "training path (one a step: its attention "
+                                "layer)", **jamba_train_bwd}},
          "mla_instance": {
              "instance": "(dqk, dv) = (192, 128): flash_bwd_dq_kernel<192,"
                          "128> and flash_bwd_dkdv_kernel<192,128> (bf16), "
@@ -5825,11 +6233,20 @@ def main() -> int:
                         "minitron-4b (32) serving paths, one a layer a "
                         "prefill, 2 prefills each; step 22 jamba-v0.1-52b's "
                         "serving path (one an attention layer a prefill, "
-                        "1 in 8 layers), 2 prefills", **dense128,
+                        "1 in 8 layers), 2 prefills; step 23 its training "
+                        "cut's (two a step under remat)", **dense128,
          "jamba_prefill_shape": jamba_fwd,
-         "train_launches": {n: dense_train[n]["launches"]["flash_attention"]
-                            for n in ("gemma2-27b", "yi-9b",
-                                      "minitron-4b")}},
+         "jamba_training_shape": {
+             "launches": rec_train[JAMBA]["launches"]["flash_attention"],
+             "launched_on": "step 23 jamba-v0.1-52b-train-cut's training "
+                            "path (two a step under remat: its attention "
+                            "layer's forward and recomputation)",
+             **jamba_train_fwd},
+         "train_launches": {
+             **{n: dense_train[n]["launches"]["flash_attention"]
+                for n in ("gemma2-27b", "yi-9b", "minitron-4b")},
+             JAMBA_TRAIN_CUT: rec_train[JAMBA]["launches"][
+                 "flash_attention"]}},
         {"name": "nearest_dist", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pairwise.cu",
          "replaces": "src/repro/kernels/pairwise.py:59",

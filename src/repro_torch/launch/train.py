@@ -1,8 +1,13 @@
 """Training launcher for any registered config of the port (the captioner,
 DeepSeek-V3 / V2, the dense GQA configs gemma2-27b, h2o-danube-3-4b, yi-9b
-and minitron-4b, phi-3-vision-4.2b, and their smoke cuts), on one device.
-It feeds tokens only, as the reference's trainer does: a vision model's
-``vis_proj`` gets a zero gradient and moves by weight decay alone.
+and minitron-4b, phi-3-vision-4.2b, the recurrent jamba-v0.1-52b and
+rwkv6-3b, and their smoke cuts), on one device.  It feeds tokens only, as
+the reference's trainer does: a vision model's ``vis_proj`` gets a zero
+gradient and moves by weight decay alone.  Under a config's ``remat`` each
+period is recomputed in the backward pass, and inside it each Mamba scan
+chunk too.  A jamba ``--seq`` longer than its scan chunk (32; 16 in the
+smoke cut) is best a multiple of it: the reference's Mamba raises at any
+other, so only then can the two trainers resume each other's run.
 
 Port of ``repro.launch.train``, with its flags and behaviour.  The
 initial parameters are drawn from a generator seeded 0 on the training
@@ -25,6 +30,10 @@ gradients to int8 with error feedback before the update.
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch phi-3-vision-4.2b-smoke --steps 4 --batch 2 --seq 40 \\
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch jamba-v0.1-52b-smoke --steps 4 --batch 2 --seq 32 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch rwkv6-3b-smoke --steps 4 --batch 2 --seq 40 --device cpu
 
 It runs on the card unless ``--device cpu`` is given.
 """

@@ -4,9 +4,10 @@ Port of the parts of ``repro.models.common`` that the decoder paths read
 (dense attention, DeepSeek's MLA + MoE, and the recurrent Mamba and RWKV-6
 mixers): the architecture config with its MLA, Mamba, RWKV and MoE
 sub-configs, the numerics (``rms_norm``, ``softcap``,
-``act_fn``, rotary embeddings) and parameter initialisation by naming
-rule.  Parameters are nested dicts (lists for the layer stack) of
-tensors; ``ParamTree`` registers such a tree on an ``nn.Module``.
+``act_fn``, rotary embeddings), parameter initialisation by naming
+rule and ``count_params``.  Parameters are nested dicts (lists for the
+layer stack) of tensors; ``ParamTree`` registers such a tree on an
+``nn.Module``.
 """
 from __future__ import annotations
 
@@ -249,6 +250,11 @@ class Spec(NamedTuple):
 
 def spec(shape, dtype) -> Spec:
     return Spec(tuple(int(s) for s in shape), dtype)
+
+
+def count_params(specs) -> int:
+    """The number of parameters of a tree of ``Spec``."""
+    return int(sum(math.prod(s.shape) for _, s in leaves(specs)))
 
 
 def _leaf_init(gen: torch.Generator, path: str, shape, dtype,

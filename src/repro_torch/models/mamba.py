@@ -16,6 +16,15 @@ wherever it runs.  A ``MambaCache`` is written IN PLACE: the conv inputs
 and the scan state of the call are copied into the cache's buffers, and
 the same cache is returned, as ``attention_mixer`` does with a
 ``KVCache``.
+
+Training differentiates the chunk loop with autograd.  The log-step scan
+keeps its ``torch.cat`` form under grad: an in-place add gives the same
+bits but its backward raises (the product saves the slice it overwrites).
+Each chunk's scan saves about 11 f32 ``[d_inner, d_state]`` arrays a token
+for its backward, so under ``cfg.remat`` (grad on, no cache) each chunk
+runs under ``torch.utils.checkpoint``: the backward recomputes it from
+its inputs and the carried state, the same forward with the same bits,
+and the scan keeps about 0.2 such arrays a token.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import common as cm
 
@@ -92,14 +102,37 @@ def _chunk_scan(lam, drive):
 
 def _ssm_chunk(h0, u, B_, C_, dt, A):
     """One time chunk. h0: [B,d_in,N] f32; u, dt: [B,C,d_in]; B_, C_:
-    [B,C,N].  Returns (h at the chunk's end, y [B,C,d_in])."""
+    [B,C,N].  Returns (h at the chunk's end, y [B,C,d_in]).  The end state
+    is a copy: a view would keep the whole chunk's h alive for as long as
+    the next chunk's checkpoint holds its input."""
     lam = torch.exp(dt[..., None] * A)                      # decay factors
     drive = (dt * u)[..., None] * B_[:, :, None, :]         # [B,C,d_in,N]
     drive = torch.cat([drive[:, :1] + lam[:, :1] * h0[:, None], drive[:, 1:]],
                       dim=1)
     h_all = _chunk_scan(lam, drive)
     y = torch.einsum("bcdn,bcn->bcd", h_all, C_)
-    return h_all[:, -1], y
+    return h_all[:, -1].clone(), y
+
+
+def _scan(h, u, B_, C_, dt, A, Cn: int, *, recompute: bool = False):
+    """The selective scan over S steps in chunks of ``Cn``, from the state
+    h [B,d_in,N] f32: returns (h after step S, y [B,S,d_in] f32).  With
+    ``recompute`` each chunk runs under ``checkpoint``, which saves only
+    its inputs (the carried h and views of u, B_, C_, dt) for the
+    backward."""
+    S = u.shape[1]
+    pad = (-S) % Cn
+    # padded steps have dt = 0: decay 1 and drive 0 carry h unchanged
+    up, Bp, Cp, dtp = (F.pad(t, (0, 0, 0, pad)) if pad else t
+                       for t in (u, B_, C_, dt))
+    ys = []
+    for c0 in range(0, S + pad, Cn):
+        c = slice(c0, c0 + Cn)
+        args = (h, up[:, c], Bp[:, c], Cp[:, c], dtp[:, c], A)
+        h, yc = (checkpoint(_ssm_chunk, *args, use_reentrant=False)
+                 if recompute else _ssm_chunk(*args))
+        ys.append(yc)
+    return h, torch.cat(ys, dim=1)[:, :S]
 
 
 def mamba_mixer(params, x: torch.Tensor, cfg: cm.ArchConfig, *,
@@ -126,19 +159,11 @@ def mamba_mixer(params, x: torch.Tensor, cfg: cm.ArchConfig, *,
     u = xc.float()
 
     if cache is None or S > 1:
-        Cn = min(cfg.mamba.chunk, S)
-        pad = (-S) % Cn
-        # padded steps have dt = 0: decay 1 and drive 0 carry h unchanged
-        up, Bp, Cp, dtp = (F.pad(t, (0, 0, 0, pad)) if pad else t
-                           for t in (u, B_, C_, dt))
         h = (torch.zeros((B, d_in, d_state), dtype=torch.float32,
                          device=x.device) if cache is None else cache.ssm)
-        ys = []
-        for c0 in range(0, S + pad, Cn):
-            c = slice(c0, c0 + Cn)
-            h, yc = _ssm_chunk(h, up[:, c], Bp[:, c], Cp[:, c], dtp[:, c], A)
-            ys.append(yc)
-        y = torch.cat(ys, dim=1)[:, :S]
+        h, y = _scan(h, u, B_, C_, dt, A, min(cfg.mamba.chunk, S),
+                     recompute=(cfg.remat and cache is None
+                                and torch.is_grad_enabled()))
     else:
         lam = torch.exp(dt[:, 0, :, None] * A)
         h = lam * cache.ssm + (dt * u)[:, 0, :, None] * B_[:, 0, None, :]

@@ -8,6 +8,13 @@ decay is exp(L_a - L_b) with a >= b (L the cumulative log-decay, which
 only falls), so every exponent is <= 0; the pairs j >= t are masked to
 -inf before the exponent.
 
+Training differentiates the chunk loop with autograd; the -inf mask
+before the exponent carries a zero gradient.  Under ``cfg.remat`` the
+period (one layer) is recomputed whole: its chunks' scores keep about two
+f32 [chunk, d_model] arrays a token for the backward, which one layer at
+a time can afford (rwkv6-3b at 1 x 4096), so unlike Mamba's scan the
+chunks are not recomputed one by one.
+
 Parameter names keep the reference's slash (``mix_base/mix_mu``,
 ``cmix_k/mix_mu``): each is one key, one leaf.  ``rwkv_time_mix`` returns
 the new (state, last input) and ``rwkv_channel_mix`` its last input; the

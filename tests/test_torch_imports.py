@@ -68,7 +68,7 @@ def _scanned_and_import_alone(modules) -> None:
                      for m in modules)
     code = (
         "import importlib, sys\n"
-        f"for m in ({mods}):\n"
+        f"for m in ({mods},):\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -94,6 +94,10 @@ RECURRENT_MODULES = ("models/mamba.py", "models/rwkv.py",
 
 def test_recurrent_modules_are_scanned_and_import_alone():
     _scanned_and_import_alone(RECURRENT_MODULES)
+
+
+def test_cost_model_is_scanned_and_imports_alone():
+    _scanned_and_import_alone(("launch/costs.py",))
 
 
 def _entry_points():
@@ -179,6 +183,10 @@ def _entry_points():
         "ckpt.restore": lambda: ckpt.restore("absent", 1, {}),
         "launch.train.main": lambda: train.main(
             ["--arch", "semanticxr-captioner-110m-smoke", "--steps", "1"]),
+        "launch.train.main(jamba)": lambda: train.main(
+            ["--arch", "jamba-v0.1-52b-smoke", "--steps", "1"]),
+        "launch.train.main(rwkv)": lambda: train.main(
+            ["--arch", "rwkv6-3b-smoke", "--steps", "1"]),
     }
 
 
