@@ -30,6 +30,8 @@ from repro_torch.models.moe import expert_capacity
 
 # dense bf16 tensor-core FLOP/s, HBM3 bytes/s and NVLink bytes/s a direction
 H100_SXM = dict(peak_flops=989e12, hbm_bw=3.35e12, ici_bw=450e9)
+# token groups the MoE's capacity is reckoned over
+MOE_GROUPS = 32
 
 
 def _mm(m, n, k):
@@ -69,21 +71,14 @@ def param_counts(cfg: cm.ArchConfig) -> tuple[int, int]:
 # per-layer forward FLOPs (mirrors the reference's models/*.py)
 # ---------------------------------------------------------------------------
 
-def _visited_tiles_frac(cfg, S, T, window) -> float:
-    """Fraction of the S*T tile grid the blocked attention touches: the
-    full sweep.  The reference prunes fully-masked tiles only under its
-    ``prune_tiles`` option, which no registered config turns on and the
-    port's config does not carry."""
-    return 1.0
-
-
-def _attn_flops(cfg, B, S, T, *, decode=False, window=0):
+def _attn_flops(cfg, B, S, T):
     H, K, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
     proj = _mm(B * S, H * dh, d) + 2 * _mm(B * S, K * dh, d) \
         + _mm(B * S, d, H * dh)
-    # blocked attention: the full S*T tile sweep
-    core = 2 * (2.0 * B * H * S * T * dh) * _visited_tiles_frac(cfg, S, T,
-                                                                window)
+    # blocked attention: the full S*T tile sweep (the reference prunes
+    # masked tiles only under its prune_tiles option, which no registered
+    # config turns on and the port's config does not carry)
+    core = 2 * (2.0 * B * H * S * T * dh)
     return proj + core
 
 
@@ -160,10 +155,10 @@ def _mlp_flops(cfg, B, S, d_ff):
     return 3 * _mm(B * S, d_ff, cfg.d_model)
 
 
-def _moe_flops(cfg, B, S, n_groups):
+def _moe_flops(cfg, B, S):
     mo = cfg.moe
     T = B * S
-    g = max(1, n_groups)
+    g = MOE_GROUPS
     while T % g:
         g -= 1
     Tg = T // g
@@ -175,13 +170,12 @@ def _moe_flops(cfg, B, S, n_groups):
     return f
 
 
-def _layer_fwd_flops(cfg, mixer, mlp, B, S, T, *, decode, n_groups):
+def _layer_fwd_flops(cfg, mixer, mlp, B, S, T, *, decode):
     if mixer in (cm.MIXER_FULL, cm.MIXER_SWA, cm.MIXER_GLOBAL):
-        win = cfg.sliding_window if mixer == cm.MIXER_SWA else 0
-        f = _attn_flops(cfg, B, S, T, decode=decode, window=win)
         if mixer == cm.MIXER_SWA and decode:
-            Tw = min(T, cfg.sliding_window)
-            f = _attn_flops(cfg, B, S, Tw, decode=True)
+            f = _attn_flops(cfg, B, S, min(T, cfg.sliding_window))
+        else:
+            f = _attn_flops(cfg, B, S, T)
     elif mixer == cm.MIXER_MLA:
         f = _mla_flops(cfg, B, S, T, decode=decode)
         if not decode:
@@ -197,7 +191,7 @@ def _layer_fwd_flops(cfg, mixer, mlp, B, S, T, *, decode, n_groups):
     if mixer == cm.MIXER_RWKV6:
         f += _rwkv_cm_flops(cfg, B, S)
     elif mlp == cm.MLP_MOE:
-        f += _moe_flops(cfg, B, S, n_groups)
+        f += _moe_flops(cfg, B, S)
     else:
         f += _mlp_flops(cfg, B, S, cfg.d_ff)
     return f
@@ -207,8 +201,7 @@ def _layer_fwd_flops(cfg, mixer, mlp, B, S, T, *, decode, n_groups):
 # cell-level costs
 # ---------------------------------------------------------------------------
 
-def step_costs(cfg: cm.ArchConfig, cell: ShapeCell, *, n_groups: int = 32,
-               dp: int = 32) -> CellCosts:
+def step_costs(cfg: cm.ArchConfig, cell: ShapeCell) -> CellCosts:
     if cfg.encdec:
         return _encdec_costs(cfg, cell)
     B, S = cell.global_batch, cell.seq_len
@@ -228,11 +221,11 @@ def step_costs(cfg: cm.ArchConfig, cell: ShapeCell, *, n_groups: int = 32,
                                          cfg.d_ff_dense_prefix) else cfg.d_ff
         if i < cfg.n_dense_prefix:
             fwd += _layer_fwd_flops(cfg, mixer, cm.MLP_DENSE, Bs, Ss, T,
-                                    decode=decode, n_groups=n_groups) \
+                                    decode=decode) \
                 - _mlp_flops(cfg, Bs, Ss, cfg.d_ff) + _mlp_flops(cfg, Bs, Ss, d_ff)
         else:
             fwd += _layer_fwd_flops(cfg, mixer, mlp, Bs, Ss, T,
-                                    decode=decode, n_groups=n_groups)
+                                    decode=decode)
     bk["layers_fwd"] = fwd
     # train computes the full-sequence chunked loss; prefill/decode only the
     # final-position logits
