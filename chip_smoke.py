@@ -366,6 +366,33 @@
     rwkv6-3b cut in bf16, ``--kill-at 3`` of 6, restored bit-equal (the
     slash-named leaves in the checkpoint), resumed.
 
+24. whisper-small, the encoder-decoder, whole: (a)
+    ``whisper_attention_checks``: both flash kernels with k / v of their
+    own length T at WHISPER_ATTN_CASES (the encoder at S = T = 1500, the
+    decoder's causal self-attention at 448, the cross-attention at S =
+    448 and 1 against T = 1500, and the T != S edges: T < S, T = 1, T
+    one past a 128- and a 64-key tile, GQA), bf16 and f32, against their
+    plain versions, lse included, the same bits twice, autograd = the
+    direct call at the cross-attention's training shape, and the three
+    training shapes timed beside their bounds, the plain versions and
+    SDPA (with its backward); (b) ``whisper_serve_phase``: 32 x 1500
+    seeded f32 frames, prefill (encoder, cross k / v, BOS step) and 64
+    greedy decode steps, twice: prefill ms, decode ms a step p50 / p95,
+    tokens/s, 36 flash launches a prefill and 12 a step, the self cache
+    given back unwritten by the prefill, the peak within
+    ``whisper_serve_reckon``; (c) ``whisper_replay_phase``: the whole
+    model in f32 at 1 x 1500, 8 greedy steps, card vs CPU port: tokens
+    equal, logits within LOGIT_TOL; (d) ``whisper_train_phase``: 20 bf16
+    steps of ``build_train_step`` at 16 x (1500 frames + 448 caption
+    tokens) through ``trainer_run``, remat only where
+    ``whisper_train_reckon`` passes DENSE_PEAK_LIMIT: step ms p50 / p95,
+    frames + tokens a second, 36 flash forward and gradient launches a
+    step, losses finite and falling, the peak within its reckoning, MFU
+    and roofline bound from ``launch.costs``; (e)
+    ``whisper_train_replay``: a 2 + 2 layer cut at full width in f32, 3
+    steps at 1 x (1500 frames + 64 tokens), card vs CPU port within
+    TRAIN_REPLAY_TOL.
+
 ``nearest_dist`` has no caller on any system path: its phase drives its
 entry point, ``ops.nearest_dist``, at a chamfer and a centroid shape.
 
@@ -771,6 +798,41 @@ RECURRENT_TRAIN_REPLAY = dict(batch=1, seq=48, steps=3)
 # it runs once.
 REPLAY_SPREAD_THREADS = (1, 2, 4)
 RECURRENT_KILL = dict(steps=6, ckpt_every=2, kill_at=3, batch=1, seq=64)
+# step 24: whisper-small, the encoder-decoder, served and trained whole.
+# (a) both flash kernels with k / v of another length T than q (the
+# decoder's cross-attention) and at the encoder's S = T = 1500 (no
+# multiple of either kernel's tile), dh 64: (B, S, T, H, Kv, causal,
+# dtypes, timed).  The encoder, the decoder's causal self-attention and the
+# cross-attention at the training batch (16: bf16, timed beside their
+# bounds, the plain versions as called and SDPA, with their gradients), the
+# cross-attention of a decode step at the serving batch (32 x 1 query), f32
+# at small batches, and the T != S edges: T < S, T = 1, T one past the
+# forward's 128-key tile and the gradient's 64-key tile, GQA.  (b) serving
+# at 32 x 1500 seeded f32 frames, prefill and 64 greedy steps, twice; (c)
+# the whole model in f32 at 1 x 1500, 8 greedy steps, card vs CPU port;
+# (d) 20 bf16 steps of build_train_step at 16 x (1500 frames + 448 caption
+# tokens), under remat only if the reckoned peak passes
+# DENSE_PEAK_LIMIT; (e) 3 f32 train steps of a 2 + 2 layer cut at full
+# width, 1 x (1500 frames + 64 tokens), card vs CPU port.
+WHISPER = "whisper-small"
+_BF, _F32 = ("bfloat16",), ("bfloat16", "float32")
+WHISPER_ATTN_CASES = (
+    (16, 1500, 1500, 12, 12, False, _BF, True),     # encoder, training
+    (16, 448, 448, 12, 12, True, _BF, True),        # decoder self, training
+    (16, 448, 1500, 12, 12, False, _BF, True),      # cross, training
+    (32, 1, 1500, 12, 12, False, _F32, False),      # cross, a decode step
+    (4, 1500, 1500, 12, 12, False, ("float32",), False),
+    (2, 448, 1500, 12, 12, False, ("float32",), False),
+    (2, 448, 448, 12, 12, True, ("float32",), False),
+    (2, 300, 77, 12, 12, False, _F32, False),       # T < S
+    (2, 200, 1, 12, 12, False, _F32, False),        # T = 1
+    (2, 200, 129, 12, 12, False, _F32, False),      # one past a 128-key tile
+    (2, 100, 65, 12, 12, False, _F32, False),       # one past a 64-key tile
+    (2, 130, 333, 12, 4, False, _F32, False))       # GQA, T != S
+WHISPER_SERVE = dict(batch=32, frames=1500, new_tokens=64)
+WHISPER_REPLAY = dict(frames=1500, new_tokens=8)
+WHISPER_TRAIN = dict(batch=16, frames=1500, tokens=448, steps=20)
+WHISPER_TRAIN_REPLAY = dict(n_layers=2, frames=1500, tokens=64, steps=3)
 
 
 def check(cond, what: str) -> None:
@@ -1093,27 +1155,36 @@ def topk_any_k_checks(torch, clock, dev) -> list:
     return rows
 
 
-def attn_inputs(torch, B, S, H, Kv, dh, dtype, seed, dev):
+def attn_inputs(torch, B, S, H, Kv, dh, dtype, seed, dev, T=None):
+    """Seeded q [B, S, H, dh] and k, v [B, T, Kv, dh] (T = S by
+    default) on ``dev``."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    return [torch.randn((B, S, h, dh), generator=g, device=dev).to(dtype)
-            for h in (H, Kv, Kv)]
+    T = S if T is None else T
+    return [torch.randn((B, n, h, dh), generator=g, device=dev).to(dtype)
+            for n, h in ((S, H), (T, Kv), (T, Kv))]
 
 
 def attn_cost(q, k, causal, window, elt, dv=None):
     """(bytes, flops) of one attention call: q, k, v read and o written
     once; 2 * (dh + dv) flops for each (query, key) pair the masks keep
-    (v and o of head width ``dv``, by default q's dh)."""
+    (v and o of head width ``dv``, by default q's dh; k and v of their own
+    length T)."""
     B, S, H, dh = q.shape
     dv = dh if dv is None else dv
     qp = np.arange(S)[:, None]
-    kp = np.arange(S)[None, :]
-    keep = np.ones((S, S), bool)
+    kp = np.arange(k.shape[1])[None, :]
+    keep = np.ones((S, k.shape[1]), bool)
     if causal:
         keep &= kp <= qp
     if window:
         keep &= qp - kp < window
     return ((q.numel() + k.numel()) * (dh + dv) // dh * elt,
             2 * (dh + dv) * B * H * int(keep.sum()))
+
+
+def tlen(q, k) -> str:
+    """" T=<keys>" where k's length differs from q's, else ""."""
+    return "" if k.shape[1] == q.shape[1] else f" T={k.shape[1]}"
 
 
 def attn_close(got, want, dtype, tol=None):
@@ -1173,8 +1244,9 @@ def attn_time(torch, clock, q, k, v, kw, err, plain_as_called=False):
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "library_ms": None if cap else lib_ms, "library": lib,
            "max_abs_err": err, "flops": flops, "bytes": nbytes,
-           "shape": f"B={B} S={S} H={H} Kv={Kv} dqk={dh} dv={dv} bf16 "
-                    f"causal={causal} window={window} softcap={cap}"}
+           "shape": f"B={B} S={S}{tlen(q, k)} H={H} Kv={Kv} dqk={dh} "
+                    f"dv={dv} bf16 causal={causal} window={window} "
+                    f"softcap={cap}"}
     if plain_as_called:
         row["plain_timed"] = "call"
     if cap and lib_ms is not None:
@@ -3255,8 +3327,9 @@ def bwd_time(torch, clock, q, k, v, o, do, lse, kw, err, *,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "library_ms": None if cap else lib_ms, "library": lib,
            "max_abs_err": err, "flops": flops, "bytes": nbytes,
-           "shape": f"B={B} S={S} H={H} Kv={Kv} dqk={dh} dv={dvw} "
-                    f"{'bf16' if elt == 2 else 'f32'} causal={causal} "
+           "shape": f"B={B} S={S}{tlen(q, k)} H={H} Kv={Kv} dqk={dh} "
+                    f"dv={dvw} {'bf16' if elt == 2 else 'f32'} "
+                    f"causal={causal} "
                     f"window={window} softcap={cap}"}
     if plain_as_called:
         row["plain_timed"] = "call"
@@ -5858,6 +5931,486 @@ def recurrent_kill_resume(torch, dev, **kw):
     return out
 
 
+# ----------------------------------------------------------------- step 24
+def whisper_attention_checks(torch, clock, dev, cases=WHISPER_ATTN_CASES,
+                             seed=2400):
+    """(a) Both flash kernels at whisper's shapes and the T != S edges: at
+    each case and dtype ``flash_attention_cuda`` against
+    ``flash_attention_plain`` (bf16 within DENSE_BF16_TOL, f32 within
+    ATTN_TOL, the same bits twice), then ``hold_bwd``: the forward kernel's
+    lse against the plain version's, its output bits unchanged by the lse,
+    and ``flash_attention_bwd_cuda`` against ``flash_attention_bwd_plain``
+    (bf16 within DENSE_BWD_BF16_TOL, f32 within ATTN_TOL, dk and dv at T,
+    the same bits twice).  Autograd through ``ops.flash_attention_bshd`` at
+    the cross-attention's training shape launches the gradient once and
+    returns the direct call's bits.  The timed (training) shapes are timed
+    in bf16: the forward by ``attn_time`` and the gradient by ``bwd_time``,
+    beside their bounds, the plain versions as called and SDPA.  Returns
+    (forward time rows, gradient time rows)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    fwd_rows, bwd_rows, held = [], [], None
+    for i, (B, S, T, H, Kv, causal, dtypes, timed) in enumerate(cases):
+        for name in dtypes:
+            dt = getattr(torch, name)
+            bf = dt == torch.bfloat16
+            q, k, v = attn_inputs(torch, B, S, H, Kv, 64, dt, seed + i, dev,
+                                  T=T)
+            kw = dict(causal=causal, window=0, softcap=0.0)
+            where = dict(B=B, S=S, T=T, H=H, Kv=Kv, dh=64, dtype=name,
+                         causal=causal)
+            got = fa.flash_attention_cuda(q, k, v, **kw)
+            again = fa.flash_attention_cuda(q, k, v, **kw)
+            want = fa.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            tol = DENSE_BF16_TOL if bf else (ATTN_TOL["float32"],) * 2
+            err, ok = attn_close(got, want, dt, tol)
+            check(tuple(got.shape) == (B, S, H, 64),
+                  f"flash_attention shape at {where}")
+            check(ok and bool(torch.isfinite(got).all()),
+                  f"flash_attention err {err} past {tol} at {where}")
+            same = same_bits(torch, [got], [again])
+            check(same, f"flash_attention same bits twice at {where}")
+            del got, again, want
+            row, (o, do, lse, _), gerr = hold_bwd(
+                torch, dev, q, k, v, kw, where, seed + 100 + i,
+                scaled=DENSE_BWD_BF16_TOL if bf else None)
+            emit("whisper_attention_check", {
+                **row, "max_abs_err": {"o": err, **row["max_abs_err"]},
+                "tol": tol, "same_bits_twice": {
+                    "o": same, "grads": row["same_bits_twice"]}})
+            if bf and timed:
+                fwd_rows.append(attn_time(torch, clock, q, k, v, kw, err,
+                                          plain_as_called=True))
+                bwd_rows.append(bwd_time(torch, clock, q, k, v, o, do, lse,
+                                         kw, gerr, plain_as_called=True,
+                                         plain_reps=5))
+                if S != T:
+                    held = (q, k, v, o, do, lse, kw)
+            del q, k, v, o, do, lse
+            torch.cuda.empty_cache()
+
+    q, k, v, o, do, lse, kw = held
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention_bshd(*leaves, **kw)
+    check(torch.equal(out.grad_fn.saved_tensors[4], lse),
+          "autograd saved the cross-attention forward kernel's lse")
+    n0 = fa.bwd_launches
+    grads = torch.autograd.grad(out, leaves, do)
+    direct = fa.flash_attention_bwd_cuda(q, k, v, out.detach(), do, lse,
+                                         **kw)
+    torch.cuda.synchronize()
+    check(fa.bwd_launches - n0 == 2, "autograd launched the cross-attention "
+          f"backward once ({fa.bwd_launches - n0 - 1} launches)")
+    check([tuple(g.shape) for g in grads] == [tuple(t.shape)
+                                              for t in (q, k, v)]
+          and all(torch.equal(a, b) for a, b in zip(grads, direct)),
+          "autograd's cross-attention gradients = the kernel's direct "
+          "output, dk and dv at T")
+    del held, leaves, out, grads, direct
+    for row in fwd_rows:
+        emit("whisper_attention_time", row)
+    for row in bwd_rows:
+        emit("whisper_attention_bwd_time", row)
+    torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
+
+
+def whisper_serve_reckon(cfg, batch: int, frames: int, max_len: int) -> dict:
+    """The serving peak, reckoned before the run as an upper bound: the
+    weights, the f32 frames, the cache given to the prefill (a
+    ``max_len``-slot self cache a decoder layer and cross k / v at
+    ``enc_seq``), the prefill's cross k / v at the frames' length twice
+    (the per-layer tensors and their stack), the encoder's output, and one
+    encoder layer's transients a frame: two norms' f32 copies and outputs,
+    q, k, v and their f32 rotary copies, the attention's output, the
+    MLP's four d_ff-wide tensors."""
+    from repro_torch.models import common as cm
+    from repro_torch.models.encdec import encdec_param_specs
+
+    es, d, ff = cfg.dtype.itemsize, cfg.d_model, cfg.d_ff
+    L, H, Kv, dh = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    n = batch * frames
+    out = {"weights_bytes": es * cm.count_params(encdec_param_specs(cfg)),
+           "frames_bytes": 4 * n * d,
+           "given_cache_bytes": 2 * L * batch * (max_len * Kv
+                                                 + cfg.enc_seq * H) * dh * es,
+           "cross_bytes": 2 * 2 * L * n * H * dh * es,
+           "encoder_out_bytes": n * d * es,
+           "encoder_layer_bytes": n * (d * (16 + 4 * es)
+                                       + (H + 2 * Kv) * dh * (es + 12)
+                                       + H * dh * es + 4 * ff * es)}
+    out["total_bytes"] = sum(out.values())
+    return out
+
+
+def whisper_serve_phase(torch, dev, *, batch, frames, new_tokens):
+    """(b) whisper-small whole in bf16 at ``batch`` x ``frames`` seeded f32
+    frames: ``api.prefill`` (the encoder, the cross k / v, the BOS step)
+    into a cache of ``new_tokens`` self slots, then ``new_tokens`` greedy
+    ``api.decode`` steps at pos 1 + i, twice.  Requires: 3 flash launches
+    a decoder layer a prefill (the encoder's layers, the BOS step's
+    self-attention on the token alone and its cross-attention) and one a
+    decoder layer a decode step (the cross-attention; the self-attention
+    decodes from the cache in plain PyTorch), the self cache given back
+    unwritten by each prefill and ``new_tokens`` long after the steps,
+    every logit finite, the two runs' tokens and logits the same bits, and
+    the peak within ``whisper_serve_reckon``."""
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import model_api
+    from repro_torch.models.lm import greedy_token
+
+    cfg = get_config(WHISPER)
+    api = model_api(cfg)
+    L = cfg.n_layers
+    rk = whisper_serve_reckon(cfg, batch, frames, new_tokens)
+    model, init = card_model(torch, dev, cfg)
+    held = init["allocated_before_bytes"]
+    gen = torch.Generator(device=dev).manual_seed(2410)
+    x = torch.randn((batch, frames, cfg.d_model), generator=gen, device=dev)
+    caches = api.init_cache(batch, new_tokens, device=dev)
+    ops.reset_launch_counts()
+    runs = []
+    for _ in range(2):
+        for c in caches.self_kv:
+            for t in c:
+                if isinstance(t, torch.Tensor):
+                    t.zero_()
+        torch.cuda.synchronize()
+        n0 = ops.launch_counts()["flash_attention"]
+        t0 = time.perf_counter()
+        logits, st = api.prefill(model, {"frames": x}, caches)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        pre_n = ops.launch_counts()["flash_attention"] - n0
+        given_back = st.self_kv is caches.self_kv and all(
+            int(c.length) == 0 and not c.k.any() for c in st.self_kv)
+        cross_shape = tuple(st.cross_k.shape)
+        bad = (~torch.isfinite(logits)).sum()
+        toks, all_logits, dec_ms, per_step = [], [logits], [], []
+        tok = greedy_token(logits)
+        toks.append(tok)
+        for i in range(new_tokens):
+            n1 = ops.launch_counts()["flash_attention"]
+            t0 = time.perf_counter()
+            logits, st = api.decode(model, tok, st, 1 + i)
+            tok = greedy_token(logits)
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append(ops.launch_counts()["flash_attention"] - n1)
+            bad = bad + (~torch.isfinite(logits)).sum()
+            toks.append(tok)
+            all_logits.append(logits)
+        runs.append({"prefill_ms": pre_ms, "prefill_launches": pre_n,
+                     "given_back": given_back, "cross_shape": cross_shape,
+                     "decode_ms": dec_ms, "per_step": per_step,
+                     "nonfinite": int(bad),
+                     "lengths": [int(c.length) for c in st.self_kv],
+                     "tokens": torch.cat(toks, dim=1),
+                     "logits": torch.stack(all_logits)})
+        del st
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = ops.launch_counts()
+    want_cross = (L, batch, frames, cfg.n_heads, cfg.d_head)
+    for r in runs:
+        check(r["prefill_launches"] == 3 * L, f"{WHISPER}: {3 * L} flash "
+              f"launches a prefill: {r['prefill_launches']}")
+        check(set(r["per_step"]) == {L}, f"{WHISPER}: {L} flash launches a "
+              f"decode step: {sorted(set(r['per_step']))}")
+        check(r["given_back"], f"{WHISPER}: the prefill gave the self cache "
+              "back unwritten")
+        check(r["cross_shape"] == want_cross, f"{WHISPER}: cross k / v "
+              f"{r['cross_shape']} at the frames' length {want_cross}")
+        check(r["nonfinite"] == 0, f"{WHISPER}: every logit finite "
+              f"({r['nonfinite']} not)")
+        check(r["lengths"] == [new_tokens] * L, f"{WHISPER}: self cache "
+              f"lengths {r['lengths']}")
+    check(launches["flash_attention"] == 2 * L * (3 + new_tokens),
+          f"{WHISPER}: flash launches {launches['flash_attention']}")
+    same = same_bits(torch, [runs[0]["tokens"], runs[0]["logits"]],
+                     [runs[1]["tokens"], runs[1]["logits"]])
+    check(same, f"{WHISPER}: the two runs' tokens and logits the same bits")
+    check(peak <= rk["total_bytes"], f"{WHISPER}: serving peak {peak} within "
+          f"its reckoning {rk['total_bytes']}")
+    dec = runs[1]["decode_ms"]
+    dec_p50 = float(np.percentile(dec, 50))
+    out = {"config": WHISPER, "dtype": "bfloat16", "batch": batch,
+           "frames": frames, "new_tokens": new_tokens,
+           "params": init["params"], "weights_bytes": init["weights_bytes"],
+           "prefill_ms": [r["prefill_ms"] for r in runs],
+           "prefill_frames_per_s": batch * frames / runs[1]["prefill_ms"]
+           * 1e3,
+           "decode_ms_per_step_p50": dec_p50,
+           "decode_ms_per_step_p95": float(np.percentile(dec, 95)),
+           "generated_tokens_per_s": batch / dec_p50 * 1e3,
+           "flash_launches_per_prefill": [r["prefill_launches"]
+                                          for r in runs],
+           "flash_launches_per_decode_step": L, "launches": launches,
+           "flash_launches": launches["flash_attention"],
+           "two_runs_same_bits": same, "peak_bytes": peak,
+           "reckoned": rk, "peak_share_of_reckoning": peak / rk[
+               "total_bytes"],
+           "first_tokens": runs[1]["tokens"][0, :8].tolist()}
+    emit("whisper_serve_phase", out)
+    del model, caches, x, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_replay_phase(torch, dev, *, frames, new_tokens):
+    """(c) The whole model in f32 (the same seeded draw on both, not
+    rounded to bf16) at 1 x ``frames`` seeded frames on the card and on
+    the CPU port: prefill and ``new_tokens`` greedy steps, tokens equal
+    and logits within LOGIT_TOL; 3 flash launches a decoder layer on the
+    card's prefill and one a layer a step."""
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import model_api
+    from repro_torch.models.lm import greedy_token
+
+    cfg = get_config(WHISPER).replace(dtype=torch.float32)
+    api = model_api(cfg)
+    x = torch.from_numpy(np.random.default_rng(2420).normal(
+        size=(1, frames, cfg.d_model)).astype(np.float32))
+
+    def run(device):
+        model = api.init(torch.Generator().manual_seed(0), device=device)
+        ops.reset_launch_counts()
+        caches = api.init_cache(1, new_tokens, device=device)
+        logits, caches = api.prefill(model, {"frames": x.to(device)}, caches)
+        toks, out = [], [logits.cpu()]
+        tok = greedy_token(logits)
+        for i in range(new_tokens):
+            toks.append(tok.cpu())
+            logits, caches = api.decode(model, tok, caches, 1 + i)
+            out.append(logits.cpu())
+            tok = greedy_token(logits)
+        toks.append(tok.cpu())
+        return (torch.cat(toks, dim=1), torch.stack(out),
+                ops.launch_counts()["flash_attention"])
+
+    t0 = time.perf_counter()
+    gtok, glog, n = run(dev)
+    t1 = time.perf_counter()
+    ctok, clog, _ = run("cpu")
+    err = float((glog - clog).abs().max())
+    L = cfg.n_layers
+    check(n == L * (3 + new_tokens), f"{WHISPER} f32 replay: flash launches "
+          f"{n}")
+    check(torch.equal(gtok, ctok), f"{WHISPER} f32 greedy tokens card "
+          f"{gtok.tolist()} vs CPU {ctok.tolist()}")
+    check(err <= LOGIT_TOL, f"{WHISPER} f32 logits card vs CPU err {err}")
+    out = {"config": WHISPER, "dtype": "float32", "batch": 1,
+           "frames": frames, "new_tokens": new_tokens,
+           "tokens": gtok[0].tolist(), "max_abs_logit_err": err,
+           "max_abs_logit": float(clog.abs().max()), "flash_launches": n,
+           "card_s_host": t1 - t0, "cpu_s_host": time.perf_counter() - t1}
+    emit("whisper_replay_phase", out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_train_reckon(cfg, batch: int, frames: int, tokens: int) -> dict:
+    """The training peak of a bf16 step, reckoned before the run as an
+    upper bound: 16 bytes a parameter (bf16 parameter and gradient, f32
+    master and two moments), then the larger of AdamW's three f32
+    temporaries of the largest leaf and what the backward pass holds.
+    That is the f32 frames and the encoder's output, each layer's saved
+    activations (as ``saved_tensors_hooks`` counts them on the CPU port,
+    within 5 % at a quarter of the width), and the loss's.  Without remat,
+    an encoder layer keeps a frame's two norms' f32 copies and outputs, q
+    and k's f32 rotary halves, q, k, v, o and the lse, and the MLP's four
+    d_ff-wide tensors; a decoder layer keeps the same for a token with a
+    third norm, the cross-attention's q and o and lse, and the cross k / v
+    of every frame.  The loss keeps the f32 logits (and the bf16 ones) of
+    every token, and its backward adds ten bytes a logit (the f32 gradient,
+    its bf16 cast, the softmax).  Under remat a layer keeps only its
+    input, and one layer's activations are recomputed at a time."""
+    from repro_torch.models import common as cm
+    from repro_torch.models.encdec import encdec_param_specs
+
+    es, d, ff, V = cfg.dtype.itemsize, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    H, Kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    sizes = [math.prod(s.shape) for _, s in cm.leaves(
+        encdec_param_specs(cfg))]
+    ne, nd = batch * frames, batch * tokens
+    norm = 8 * d + 4 + es * d
+    attn = 4 * (H + Kv) * dh + es * 2 * (H + Kv) * dh + 4 * H
+    mlp = 4 * ff * es
+    enc = ne * (2 * norm + attn + mlp)
+    dec = nd * (3 * norm + attn + es * 2 * H * dh + 4 * H + mlp) \
+        + ne * 2 * H * dh * es
+    out = {"params": sum(sizes), "state_bytes": 16 * sum(sizes),
+           "adamw_bytes": 12 * max(sizes),
+           "inputs_bytes": ne * d * (4 + es) + nd * 4,
+           "loss_bytes": nd * V * (4 + es),
+           "loss_backward_bytes": nd * V * 10}
+    if cfg.remat:
+        out["layers_bytes"] = (cfg.n_enc_layers * ne + cfg.n_layers * nd) \
+            * d * es + max(enc, dec)
+    else:
+        out["layers_bytes"] = cfg.n_enc_layers * enc + cfg.n_layers * dec
+    act = (out["inputs_bytes"] + out["layers_bytes"] + out["loss_bytes"]
+           + out["loss_backward_bytes"])
+    out["activation_bytes"] = act
+    out["total_bytes"] = out["state_bytes"] + max(out["adamw_bytes"], act)
+    return out
+
+
+def whisper_train_phase(torch, dev, *, batch, frames, tokens, steps):
+    """(d) whisper-small whole, bf16, ``steps`` steps of
+    ``launch.steps.build_train_step`` through ``trainer_run``: each step a
+    fresh batch of ``batch`` x ``frames`` seeded f32 frames and
+    ``tokens`` caption tokens (``data.tokens.batch_iterator``), AdamW at
+    lr 3e-4 after 5 warmup steps; remat only if the reckoned peak without
+    it passes DENSE_PEAK_LIMIT.  Requires: 3 flash forward (the encoder's
+    layers, the decoder's self- and cross-attention; twice that under
+    remat) and 3 gradient launches a decoder layer a step, every loss
+    finite and the mean of the last 5 under that of the first 5, the peak
+    within its reckoning.  Reports step ms, frames + tokens a second, and
+    the step's MFU and roofline bound from ``launch.costs``."""
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import adamw
+
+    base = get_config(WHISPER)
+    rk = whisper_train_reckon(base.replace(remat=False), batch, frames,
+                              tokens)
+    cfg = base.replace(remat=rk["total_bytes"] > DENSE_PEAK_LIMIT)
+    if cfg.remat:
+        rk = whisper_train_reckon(cfg, batch, frames, tokens)
+    emit("whisper_train_cut", {"config": cfg.name, "remat": cfg.remat,
+                               "reckoned": rk})
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    model, _ = card_model(torch, dev, cfg)
+    model.requires_grad_(True)
+    ocfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=steps)
+    gen = torch.Generator(device=dev).manual_seed(2430)
+    it = batch_iterator(batch, tokens, seed=5, vocab_size=cfg.vocab_size)
+
+    def run(on_step):
+        state = {"m": model, "opt": adamw.init_opt_state(model, ocfg)}
+        step = build_train_step(cfg, ocfg)
+        for i in range(1, steps + 1):
+            b = {"frames": torch.randn((batch, frames, cfg.d_model),
+                                       generator=gen, device=dev),
+                 "tokens": torch.from_numpy(next(it)["tokens"]).to(dev)}
+            state["m"], state["opt"], m = step(state["m"], state["opt"], b)
+            del b
+            on_step(i, m, state["m"])
+        trained = state.pop("m")
+        state.clear()                     # frees the optimizer state
+        return trained, "training complete"
+
+    model, row = trainer_run(
+        torch, dev, cfg, steps=steps, batch=batch, seq=frames + tokens,
+        fwd=n_attn * (2 if cfg.remat else 1), bwd=n_attn,
+        reckoned=rk["total_bytes"], run=run)
+    row.update(frames=frames, tokens=tokens,
+               seq=f"{frames} frames + {tokens} tokens",
+               frames_tokens_per_s=row.pop("tokens_per_s"),
+               frames_tokens_per_s_overall=row.pop("tokens_per_s_overall"),
+               n_enc_layers=cfg.n_enc_layers,
+               peak_share_of_reckoning=row["training_peak_bytes"]
+               / rk["total_bytes"],
+               roofline=train_roofline(cfg, batch, frames,
+                                       row["step_ms_p50"]))
+    row["reckoned"] = rk
+    emit("whisper_train_phase", row)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def whisper_train_replay(torch, dev, *, n_layers, frames, tokens, steps,
+                         tol=TRAIN_REPLAY_TOL):
+    """(e) whisper-small at full width cut to ``n_layers`` encoder and as
+    many decoder layers, f32: ``steps`` train steps on 1 x (``frames``
+    seeded frames, ``tokens`` caption tokens) from the same seeded weights
+    on the card and on the CPU port; loss, grad norm and masters within
+    ``tol``, and 3 flash forward and gradient launches a decoder layer a
+    step on the card."""
+    import gc
+
+    from repro_torch import convert
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import common as cm
+    from repro_torch.models.api import model_api
+    from repro_torch.optim import adamw
+
+    cfg = get_config(WHISPER).replace(
+        n_layers=n_layers, n_enc_layers=n_layers, dtype=torch.float32,
+        remat=False)
+    ocfg = adamw.AdamWConfig(warmup_steps=1, total_steps=steps)
+    cpu = model_api(cfg).init(torch.Generator().manual_seed(1), device="cpu")
+    tree = convert.encdec_params_to_numpy(cpu)      # copies: training is in
+    it = batch_iterator(1, tokens, seed=3, vocab_size=cfg.vocab_size)
+    rng = np.random.default_rng(2440)
+    batches = [{"frames": torch.from_numpy(rng.normal(
+        size=(1, frames, cfg.d_model)).astype(np.float32)),
+        "tokens": torch.from_numpy(next(it)["tokens"])}
+        for _ in range(steps)]
+    runs = {}
+    for where in ("card", "cpu"):
+        m = cpu if where == "cpu" else convert.encdec_params_from_numpy(
+            cfg, tree, device=dev)
+        m.requires_grad_(True)
+        opt = adamw.init_opt_state(m, ocfg)
+        step = build_train_step(cfg, ocfg)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = []
+        for b in batches:
+            m, opt, met = step(m, opt, {k: v.to(m.device)
+                                        for k, v in b.items()})
+            hist.append({k: float(met[k]) for k in ("loss", "grad_norm")})
+        runs[where] = (hist, dict(cm.leaves(opt.master)),
+                       time.perf_counter() - t0, ops.launch_counts())
+    (gh, gm, gs, gl), (ch, cmast, cs, _) = runs["card"], runs["cpu"]
+    err = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(gh, ch))
+           for k in ("loss", "grad_norm")}
+    num = sum(float(((gm[p].cpu() - cmast[p]) ** 2).sum()) for p in cmast)
+    den = sum(float((cmast[p] ** 2).sum()) for p in cmast)
+    err["master"] = (num / den) ** 0.5
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    check(gl["flash_attention"] == steps * n_attn
+          and gl["flash_attention_bwd"] == steps * n_attn,
+          f"{WHISPER} train replay: flash launches {gl}")
+    for k in ("loss", "grad_norm", "master"):
+        check(err[k] <= tol[k], f"{WHISPER} train replay {k} rel err "
+              f"{err[k]} within {tol[k]}")
+    out = {"config": f"{WHISPER} cut to {n_layers} + {n_layers} layers, f32",
+           "batch": 1, "frames": frames, "tokens": tokens, "steps": steps,
+           "card": gh, "cpu": ch,
+           "rel_err": {k: err[k] for k in ("loss", "grad_norm")},
+           "master_rel_err_l2": err["master"],
+           "master_max_abs_err": max(float((gm[p].cpu() - cmast[p]).abs()
+                                           .max()) for p in cmast),
+           "launches": gl, "card_s_host": gs, "cpu_s_host": cs,
+           "tolerance": tol}
+    emit("whisper_train_replay", out)
+    del runs, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_resources(build) -> dict:
     """{source: {kernel: registers, static shared memory, spills}} from
     ptxas's ``-v`` report in each build log (dynamic shared memory is set
@@ -6060,6 +6613,17 @@ def main() -> int:
           **RECURRENT_TRAIN_REPLAY)
     timed("recurrent_kill_resume", recurrent_kill_resume, torch, dev,
           **RECURRENT_KILL)
+    whisper_fwd, whisper_bwd = timed("whisper_attention_checks",
+                                     whisper_attention_checks, torch, clock,
+                                     dev)
+    whisper_serve = timed("whisper_serve_phase", whisper_serve_phase, torch,
+                          dev, **WHISPER_SERVE)
+    timed("whisper_replay_phase", whisper_replay_phase, torch, dev,
+          **WHISPER_REPLAY)
+    whisper_train = timed("whisper_train_phase", whisper_train_phase, torch,
+                          dev, **WHISPER_TRAIN)
+    timed("whisper_train_replay", whisper_train_replay, torch, dev,
+          **WHISPER_TRAIN_REPLAY)
     emit("phase_seconds", phase_s)
     print(smi, flush=True)          # again, inside the tail of a long log
 
@@ -6099,7 +6663,19 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:93",
          "launches": serve["launches"]["flash_attention"],
          "launched_on": "step 7 captioner serving path", **flash_row,
-         "train_launches": train["train"]["launches"]["flash_attention"]},
+         "train_launches": train["train"]["launches"]["flash_attention"],
+         "whisper": {
+             "instance": "(dh, dv) = (64, 64) with k / v of their own "
+                         "length T: the encoder's self-attention (S = T = "
+                         "1500), the decoder's causal self-attention and "
+                         "its cross-attention (S = 448 or 1 against T = "
+                         "1500)",
+             "launches": whisper_serve["flash_launches"],
+             "launched_on": "step 24 whisper-small serving path (36 a "
+                            "prefill, 12 a decode step, 2 x (prefill + 64 "
+                            "steps))",
+             "train_launches": whisper_train["launches"]["flash_attention"],
+             "training_shapes": whisper_fwd}},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:93",
@@ -6123,6 +6699,15 @@ def main() -> int:
              n: d["launches"]["flash_attention_bwd"]
              for n, d in dense_train.items()},
          "phi3_train_launches": phi3_train["launches"]["flash_attention_bwd"],
+         "whisper": {
+             "instance": "(dqk, dv) = (64, 64) with k / v of their own "
+                         "length T (dk, dv at T): the encoder, the "
+                         "decoder's causal self-attention and its "
+                         "cross-attention (448 against 1500)",
+             "launches": whisper_train["launches"]["flash_attention_bwd"],
+             "launched_on": "step 24 whisper-small training path (36 a "
+                            "step: 12 encoder, 12 decoder self, 12 cross)",
+             "training_shapes": whisper_bwd},
          "dh96_instance": {
              "instance": "(dqk, dv) = (96, 96): flash_bwd_dq_kernel<96,96> "
                          "and flash_bwd_dkdv_kernel<96,96> (bf16, on the "

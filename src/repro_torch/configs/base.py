@@ -1,8 +1,9 @@
 """Config registry, the assigned shape cells, input specs, and the smoke
 shrink.
 
-Port of ``repro.configs.base``.  Only the configs whose families the port
-runs are registered; asking for another raises.  ``input_specs`` gives a
+Port of ``repro.configs.base``: every config of the reference's registry
+is registered; asking for another name raises ``KeyError``, as the
+reference's lookup does.  ``input_specs`` gives a
 cell's model inputs as ``cm.Spec`` (shape, torch dtype), the port's
 stand-in for ``jax.ShapeDtypeStruct``; ``make_inputs`` draws them from an
 explicit ``torch.Generator`` (its bits differ from ``jax.random``'s: the
@@ -34,8 +35,8 @@ def get_config(name: str) -> cm.ArchConfig:
     if name.endswith("-smoke"):
         return smoke_config(get_config(name[:-len("-smoke")]))
     if name not in _REGISTRY:
-        raise NotImplementedError(f"config {name!r}: {cm.NOT_PORTED} (the "
-                                  f"port has {list_configs()})")
+        raise KeyError(f"unknown config {name!r} (the registry has "
+                       f"{list_configs()})")
     return _REGISTRY[name]()
 
 
@@ -120,8 +121,9 @@ def smoke_config(cfg: cm.ArchConfig) -> cm.ArchConfig:
     """Same family, tiny dims: the reference's shrink for the fields the
     port has (no remat; MoE: 4 experts, top_k <= 2, d_ff_expert 64; MLA:
     ranks 64 / 32, heads 32 + 16 / 32, so d_head 48; Mamba: d_state 8,
-    chunk 16; RWKV: heads of 32, LoRAs of 8, chunk 16, 4 heads; vision: 8
-    frontend tokens)."""
+    chunk 16; RWKV: heads of 32, LoRAs of 8, chunk 16, 4 heads;
+    encoder-decoder: 2 + 2 layers, ``enc_seq`` 32; vision: 8 frontend
+    tokens)."""
     kw: dict = dict(
         name=cfg.name + "-smoke",
         n_layers=cfg.n_dense_prefix + cfg.period,
@@ -153,6 +155,10 @@ def smoke_config(cfg: cm.ArchConfig) -> cm.ArchConfig:
                                          mix_lora=8, chunk=16)
         kw["n_heads"] = 4
         kw["d_head"] = 32
+    if cfg.encdec:
+        kw["n_layers"] = 2
+        kw["n_enc_layers"] = 2
+        kw["enc_seq"] = 32
     if cfg.frontend == "vision":
         kw["n_frontend_tokens"] = 8
     return cfg.replace(**kw)

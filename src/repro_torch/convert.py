@@ -17,6 +17,7 @@ from repro_torch.core.store import ObjectStore
 from repro_torch.device import resolve_device
 from repro_torch.index.cluster import ClusterSummaries
 from repro_torch.models import common as cm
+from repro_torch.models.encdec import EncDec, encdec_param_specs
 from repro_torch.models.lm import LM, lm_param_specs
 from repro_torch.optim.adamw import OptState
 from repro_torch.perception.embedder import OracleEmbedder
@@ -124,12 +125,44 @@ def _top_keys(cfg: cm.ArchConfig) -> list:
     return [k for k in lm_param_specs(cfg) if k != "layers"]
 
 
+# the encoder-decoder's layer lists and the reference's stacked names
+_ENCDEC_STACKS = (("enc_layers", "enc_body"), ("dec_layers", "dec_body"))
+
+
+def _encdec_from_reference(tree, leaf) -> dict:
+    """The reference's encoder-decoder layout (each side's layers stacked
+    ``[n, ...]`` under ``enc_body`` / ``dec_body``) as the port's per-layer
+    lists; ``leaf(path, x)`` converts each, ``path`` in the port's tree
+    (``dec_layers/3/cross/wq``)."""
+    out = {k: leaf(k, v) for k, v in tree.items()
+           if k not in dict(_ENCDEC_STACKS).values()}
+    for mine, ref in _ENCDEC_STACKS:
+        n = next(x for _, x in cm.leaves(tree[ref])).shape[0]
+        out[mine] = [cm.map_tree(
+            lambda p, x, i=i: leaf(f"{mine}/{i}/{p}", x[i]), tree[ref])
+            for i in range(n)]
+    return out
+
+
+def _encdec_to_reference(tree) -> dict:
+    """The inverse of ``_encdec_from_reference`` over CPU tensors."""
+    out = {k: v for k, v in tree.items() if k not in dict(_ENCDEC_STACKS)}
+    for mine, ref in _ENCDEC_STACKS:
+        layers = [dict(cm.leaves(t)) for t in tree[mine]]
+        out[ref] = cm.map_tree(
+            lambda p, _: torch.stack([t[p] for t in layers]), tree[mine][0])
+    return out
+
+
 def _from_reference(cfg: cm.ArchConfig, tree, leaf) -> dict:
     """The reference's LM layout (body leaves stacked ``[n_periods, ...]``
     per period slot, the dense prefix as a list) as the port's per-layer
     tree: prefix first, then period by period, and every top-level leaf of
     the config's specs; ``leaf(path, x)`` converts each, ``path`` the
-    leaf's path in the port's tree (``layers/3/mlp/router``)."""
+    leaf's path in the port's tree (``layers/3/mlp/router``).  An
+    encoder-decoder's tree goes through ``_encdec_from_reference``."""
+    if cfg.encdec:
+        return _encdec_from_reference(tree, leaf)
     npre = len(tree.get("prefix", []))
     layers = [cm.map_tree(lambda p, x, i=i: leaf(f"layers/{i}/{p}", x), t)
               for i, t in enumerate(tree.get("prefix", []))]
@@ -147,6 +180,8 @@ def _from_reference(cfg: cm.ArchConfig, tree, leaf) -> dict:
 def _to_reference(cfg: cm.ArchConfig, tree) -> dict:
     """The inverse of ``_from_reference`` over CPU tensors: body layers
     stacked ``[n_periods, ...]`` per period slot."""
+    if cfg.encdec:
+        return _encdec_to_reference(tree)
     out = {k: tree[k] for k in _top_keys(cfg)}
     layers = tree["layers"]
     npre = cfg.n_dense_prefix
@@ -201,6 +236,26 @@ def lm_params_to_numpy(lm: LM) -> dict:
     of the same values, which ``lm_params_from_numpy`` reads back
     exactly."""
     return cm.map_tree(lambda _, t: _numpy(t), lm_params_to_tree(lm))
+
+
+def encdec_params_from_numpy(cfg: cm.ArchConfig, tree, *,
+                             device="cuda") -> EncDec:
+    """The reference's encoder-decoder parameters (``repro.models.encdec``
+    pytree, each side's layers stacked ``[n, ...]``) as the port's
+    ``EncDec`` on ``device``, one tree a layer, frozen, each leaf in
+    ``cfg.dtype``."""
+    dtypes = {p: s.dtype for p, s in cm.leaves(encdec_param_specs(cfg))}
+    return EncDec(cfg, _encdec_from_reference(
+        tree, lambda p, x: _leaf(x, dtypes[p])), device=device)
+
+
+def encdec_params_to_numpy(model: EncDec) -> dict:
+    """The inverse of ``encdec_params_from_numpy``: the reference's layout,
+    numpy leaves (bf16 as f32 of the same values, which read back
+    exactly)."""
+    return cm.map_tree(lambda _, t: _numpy(t), _encdec_to_reference(
+        cm.map_tree(lambda _, p: p.detach().to("cpu", copy=True),
+                    model.tree())))
 
 
 def opt_state_from_numpy(cfg: cm.ArchConfig, state, *,

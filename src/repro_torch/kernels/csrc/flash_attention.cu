@@ -7,15 +7,17 @@
 //
 // What it computes, per (batch b, query head h):
 //   o = softmax(mask(softcap(q . k^T * dqk^-0.5))) . v
-// with q, k [B, S, H or Kv, dqk] and v [B, S, Kv, dv] read through their
-// strides, o [B, S, H, dv]; (dqk, dv) is (64, 64), (128, 128), (192, 128),
+// with q [B, S, H, dqk], k [B, T, Kv, dqk] and v [B, T, Kv, dv] read through
+// their strides, o [B, S, H, dv]; T, the keys, may differ from S only
+// without the causal mask and the window (whisper's cross-attention: 448 or
+// 1 decoder queries against 1500 encoder keys); (dqk, dv) is (64, 64), (128, 128), (192, 128),
 // DeepSeek MLA's prefill (a q / k head of qk_nope + qk_rope = 128 + 64, a v
 // head of 128), (120, 120), h2o-danube-3's head, or (96, 96), phi-3's
 // (the last dimension contiguous); query head h reads kv head h / (H / Kv),
 // so K and V are never repeated in memory.  Arithmetic kept from the TPU
 // kernel: scores in f32 from the input dtype, masked entries set to
 // NEG = -1e30 (causal kpos <= qpos, window qpos - kpos < window, and always
-// kpos < S: the TPU kernel leaves zero-padded keys unmasked when S is not a
+// kpos < T: the TPU kernel leaves zero-padded keys unmasked when S is not a
 // multiple of its tile, the port masks them as the oracles do), the running
 // (m, l, acc) state in f32, p rounded to v's dtype before the PV product,
 // and the output acc / max(l, 1e-30) in q's dtype.  When asked (a non-null
@@ -36,7 +38,8 @@
 //   bf16 (flash_wgmma_kernel): 128-query x 128-key tiles, the Pallas
 //     kernel's own tile.  Three warpgroups, specialised:
 //     - a producer warp issues TMA loads (one 4-D tensor map per operand,
-//       dims (dh, S, heads, B), 128-byte swizzle, rows past S zero-filled)
+//       dims (dh, S or T, heads, B), 128-byte swizzle, rows past each
+//       operand's own length zero-filled)
 //       of the Q tile once, then of each K and V tile into a ring of
 //       stages guarded by full / empty mbarriers (K and V have separate
 //       full barriers, so Q . K^T starts before V lands);
@@ -129,7 +132,7 @@ struct Cfg {
 struct Tile {                          // what the consumers need besides TMA
   __nv_bfloat16* o;
   long long os_b, os_s, os_h;          // element strides of o
-  int B, S, H, Kv, causal, window;
+  int B, S, T, H, Kv, causal, window;  // S queries, T keys
   float scale;                         // dqk^-0.5
   float softcap;                       // 0 = off
   float* lse;                          // [B, H, S] or null
@@ -144,11 +147,12 @@ __device__ __forceinline__ void block_tile(int i, int n_q, int BH, int H,
   *h = bh % H;
 }
 
-// the key-tile range [begin, end) that the query tile starting at q0 needs
-__device__ __forceinline__ void key_range(int S, int causal, int window,
+// the key-tile range [begin, end) of T keys that the query tile starting at
+// q0 needs
+__device__ __forceinline__ void key_range(int T, int causal, int window,
                                           int q0, int block_q, int block_k,
                                           int* begin, int* end) {
-  int e = (S + block_k - 1) / block_k;
+  int e = (T + block_k - 1) / block_k;
   if (causal) e = min(e, (q0 + block_q - 1) / block_k + 1);
   *end = e;
   *begin = window > 0 ? max(0, q0 - window + 1) / block_k : 0;
@@ -381,12 +385,12 @@ __device__ __forceinline__ void online_softmax(
     for (int j = 0; j < 4 * NJ; ++j) sc[j] = tanhf(sc[j] * cin) * cout;
     c = 1.f;
   }
-  if (k0 + kTile > a.S || (a.causal && k0 + kTile - 1 > rmin) ||
+  if (k0 + kTile > a.T || (a.causal && k0 + kTile - 1 > rmin) ||
       (a.window > 0 && rmin + 63 - k0 >= a.window)) {
-    // key k0 + 2t + c of row qpos is kept when lo < c <= hi: c < S - k0 -
+    // key k0 + 2t + c of row qpos is kept when lo < c <= hi: c < T - k0 -
     // 2t, c <= qpos - k0 - 2t (causal), c > qpos - k0 - 2t - window
     const int base = k0 + 2 * t;
-    int hi0 = a.S - 1 - base, hi1 = hi0, lo0 = -1, lo1 = -1;
+    int hi0 = a.T - 1 - base, hi1 = hi0, lo0 = -1, lo1 = -1;
     if (a.causal) {
       hi0 = min(hi0, qpos0 - base);
       hi1 = min(hi1, qpos1 - base);
@@ -532,7 +536,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (tile >= n_tiles) break;
         int qt, b, h, kt_begin, kt_end;
         block_tile(tile, n_q, a.B * a.H, a.H, &qt, &b, &h);
-        key_range(a.S, a.causal, a.window, qt * kTile, kTile, kTile,
+        key_range(a.T, a.causal, a.window, qt * kTile, kTile, kTile,
                   &kt_begin, &kt_end);
         const int qb = q_buf(r);                // Q buffer of this tile
         mbar_wait(smem_u32(&bar_q_empty[qb]), q_phase(r) ^ 1);
@@ -588,7 +592,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     auto start_tile = [&](int tile) {
       int qt, b, h, kt_end;
       block_tile(tile, n_q, a.B * a.H, a.H, &qt, &b, &h);
-      key_range(a.S, a.causal, a.window, qt * kTile, kTile, kTile,
+      key_range(a.T, a.causal, a.window, qt * kTile, kTile, kTile,
                 &kt_begin, &kt_end);
       nk = kt_end - kt_begin;
       rmin = qt * kTile + wg * 64;
@@ -751,7 +755,7 @@ struct Args {
   long long ks_b, ks_s, ks_h;
   long long vs_b, vs_s, vs_h;
   long long os_b, os_s, os_h;
-  int S, H, Kv, causal, window;
+  int S, T, H, Kv, causal, window;     // S queries, T keys
   float scale, softcap;
   float* lse;                          // [B, H, S] or null
 };
@@ -761,7 +765,7 @@ __device__ __forceinline__ float score(const Args& a, float dot, int qpos,
                                        int kpos) {
   float x = dot * a.scale;
   if (a.softcap > 0.f) x = tanhf(x / a.softcap) * a.softcap;
-  bool ok = kpos < a.S;
+  bool ok = kpos < a.T;
   if (a.causal) ok = ok && kpos <= qpos;
   if (a.window > 0) ok = ok && qpos - kpos < a.window;
   return ok ? x : kNeg;
@@ -813,7 +817,7 @@ __global__ void __launch_bounds__(kF32Threads)
   for (int i = 0; i < DV / 4; ++i) acc[i] = 0.f;
 
   int kt_begin, kt_end;
-  key_range(a.S, a.causal, a.window, q0, kBlockQ, kBlockK, &kt_begin,
+  key_range(a.T, a.causal, a.window, q0, kBlockQ, kBlockK, &kt_begin,
             &kt_end);
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBlockK;
@@ -821,7 +825,7 @@ __global__ void __launch_bounds__(kF32Threads)
     for (int i = tid; i < kBlockK * C4; i += kF32Threads) {
       const int row = i / C4, c4 = i % C4;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + row < a.S)
+      if (k0 + row < a.T)
         kx = *reinterpret_cast<const float4*>(K + (k0 + row) * a.ks_s + c4 * 4);
       float* dst = &Ks[row * LD + c4 * 4];
       dst[0] = kx.x; dst[1] = kx.y; dst[2] = kx.z; dst[3] = kx.w;
@@ -829,7 +833,7 @@ __global__ void __launch_bounds__(kF32Threads)
     for (int i = tid; i < kBlockK * C4V; i += kF32Threads) {
       const int row = i / C4V, c4 = i % C4V;
       float4 vx = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + row < a.S)
+      if (k0 + row < a.T)
         vx = *reinterpret_cast<const float4*>(V + (k0 + row) * a.vs_s + c4 * 4);
       *reinterpret_cast<float4*>(&Vs[row * DV + c4 * 4]) = vx;
     }
@@ -972,8 +976,9 @@ int launch_wgmma(int B, int S, int H, const long long* tma, const void* q,
 
 }  // namespace
 
-// q [B, S, H, dh], k [B, S, Kv, dh], v [B, S, Kv, dv], o [B, S, H, dv],
-// all bf16 (is_bf16 = 1) or all f32, the head dim contiguous; strides (in
+// q [B, S, H, dh], k [B, T, Kv, dh], v [B, T, Kv, dv], o [B, S, H, dv],
+// all bf16 (is_bf16 = 1) or all f32, the head dim contiguous; T != S only
+// with causal = 0 and window = 0; strides (in
 // elements) in the order q (b, s, h), k, v, o.  lse is null or f32
 // [B, H, S], contiguous: each row's log-sum-exp.  For bf16, tma holds q's,
 // k's and v's tensor-map layouts (11 values each, see encode).  (dh, dv)
@@ -985,7 +990,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       const long long* strides,
                                       const long long* tma, int B, int S,
-                                      int H, int Kv, int dh, int dv,
+                                      int T, int H, int Kv, int dh, int dv,
                                       int is_bf16, int causal, int window,
                                       float softcap, void* stream) {
   const int pair = dh == 64 && dv == 64     ? 0
@@ -994,14 +999,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                    : dh == 120 && dv == 120 ? 3
                    : dh == 96 && dv == 96   ? 4
                                             : -1;
-  if (B < 1 || S < 1 || Kv < 1 || H % Kv != 0 || pair < 0) return -1;
+  if (B < 1 || S < 1 || T < 1 || Kv < 1 || H % Kv != 0 || pair < 0 ||
+      (T != S && (causal || window)))
+    return -1;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(dh)));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     Tile t;
     t.o = static_cast<__nv_bfloat16*>(o);
     t.os_b = strides[9]; t.os_s = strides[10]; t.os_h = strides[11];
-    t.B = B; t.S = S; t.H = H; t.Kv = Kv; t.causal = causal;
+    t.B = B; t.S = S; t.T = T; t.H = H; t.Kv = Kv; t.causal = causal;
     t.window = window; t.scale = scale; t.softcap = softcap;
     t.lse = static_cast<float*>(lse);
     return pair == 0   ? launch_wgmma<64, 64>(B, S, H, tma, q, k, v, t, st)
@@ -1016,7 +1023,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   a.ks_b = strides[3]; a.ks_s = strides[4]; a.ks_h = strides[5];
   a.vs_b = strides[6]; a.vs_s = strides[7]; a.vs_h = strides[8];
   a.os_b = strides[9]; a.os_s = strides[10]; a.os_h = strides[11];
-  a.S = S; a.H = H; a.Kv = Kv; a.causal = causal; a.window = window;
+  a.S = S; a.T = T; a.H = H; a.Kv = Kv; a.causal = causal;
+  a.window = window;
   a.scale = scale;
   a.softcap = softcap;
   a.lse = static_cast<float*>(lse);

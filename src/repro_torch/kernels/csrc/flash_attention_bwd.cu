@@ -20,8 +20,10 @@
 //   dq = ds . k,     dk = ds^T . q
 // In bf16, ds is rounded to bf16 before dq and dk (the tensor cores take
 // bf16 operands); scores, dp, D and every accumulator stay f32.  q
-// [B, S, H, dqk], k [B, S, Kv, dqk], v [B, S, Kv, dv] and o, do
-// [B, S, H, dv] are read through their strides (the head dim contiguous),
+// [B, S, H, dqk], k [B, T, Kv, dqk], v [B, T, Kv, dv] and o, do
+// [B, S, H, dv] are read through their strides (the head dim contiguous;
+// T, the keys, differs from S only without the causal mask and the
+// window, as in whisper's cross-attention),
 // query head h reading kv head h / (H / Kv); dk and dv of kv head j sum
 // over its G = H / Kv query heads.  dq, dk [.., dqk] and dv [.., dv] are
 // written contiguous in q's dtype.  (dqk, dv) is (64, 64), (128, 128),
@@ -31,7 +33,9 @@
 // S = Q . K^T contracts over dqk and dP = dO . V^T over dv; Q, K, dQ and
 // dK are ceil(dqk / 64) panels of 64 columns, V, dO and dV ceil(dv / 64).
 // Masks as the forward: causal kpos <= qpos, window qpos - kpos < window,
-// and keys at or past S never count.
+// and keys at or past T never count: a key row past T gets no gradient
+// (it is not stored), and a query row past S (zero-filled) adds nothing to
+// dk or dv (its p is masked to 0).
 //
 // Design: two launches, no float atomics, so two calls give the same bits.
 // The forward's lse replaces a statistics pass, so the scores are formed
@@ -122,12 +126,12 @@ struct Args {
   long long vs_b, vs_s, vs_h;
   long long os_b, os_s, os_h;
   long long gs_b, gs_s, gs_h;
-  int B, S, H, Kv, causal, window;
+  int B, S, T, H, Kv, causal, window;  // S queries, T keys
   float scale, softcap;
 };
 
 __device__ __forceinline__ bool allowed(const Args& a, int qpos, int kpos) {
-  bool ok = qpos < a.S && kpos < a.S;
+  bool ok = qpos < a.S && kpos < a.T;
   if (a.causal) ok = ok && kpos <= qpos;
   if (a.window > 0) ok = ok && qpos - kpos < a.window;
   return ok;
@@ -135,7 +139,7 @@ __device__ __forceinline__ bool allowed(const Args& a, int qpos, int kpos) {
 
 // a 64 x 64 tile pair (queries from q0, keys from k0) that some mask cuts
 __device__ __forceinline__ bool tile_masked(const Args& a, int q0, int k0) {
-  return q0 + kRows > a.S || k0 + kRows > a.S ||
+  return q0 + kRows > a.S || k0 + kRows > a.T ||
          (a.causal && k0 + kRows - 1 > q0) ||
          (a.window > 0 && q0 + kRows - 1 - k0 >= a.window);
 }
@@ -144,7 +148,7 @@ __device__ __forceinline__ bool tile_masked(const Args& a, int q0, int k0) {
 // that key tile k0 is kept by
 __device__ __forceinline__ void key_tiles(const Args& a, int q0, int* begin,
                                           int* end) {
-  int e = (a.S + kRows - 1) / kRows;
+  int e = (a.T + kRows - 1) / kRows;
   if (a.causal) e = min(e, (q0 + kRows - 1) / kRows + 1);
   *end = e;
   *begin = a.window > 0 ? max(0, q0 - a.window + 1) / kRows : 0;
@@ -462,8 +466,8 @@ __global__ void __launch_bounds__(128, (DQK + 63) / 64 == 1   ? 3
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   load_tile<DQK>(sq, Q, a.qs_s, q0, a.S, tid, 128);
   load_tile<DV>(sg, G, a.gs_s, q0, a.S, tid, 128);
-  load_tile<DQK>(sk, K, a.ks_s, kt_begin * kRows, a.S, tid, 128);
-  load_tile<DV>(sv, V, a.vs_s, kt_begin * kRows, a.S, tid, 128);
+  load_tile<DQK>(sk, K, a.ks_s, kt_begin * kRows, a.T, tid, 128);
+  load_tile<DV>(sv, V, a.vs_s, kt_begin * kRows, a.T, tid, 128);
   cp_async_commit();
 
   // D = rowsum(do * o) in f32, two threads a row, while the tiles load:
@@ -522,9 +526,9 @@ __global__ void __launch_bounds__(128, (DQK + 63) / 64 == 1   ? 3
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int st = (kt - kt_begin) & 1, k0 = kt * kRows;
     if (kt + 1 < kt_end) {           // the next K, V tiles into the other stage
-      load_tile<DQK>(sk + (st ^ 1) * QB, K, a.ks_s, k0 + kRows, a.S, tid,
+      load_tile<DQK>(sk + (st ^ 1) * QB, K, a.ks_s, k0 + kRows, a.T, tid,
                      128);
-      load_tile<DV>(sv + (st ^ 1) * VB, V, a.vs_s, k0 + kRows, a.S, tid,
+      load_tile<DV>(sv + (st ^ 1) * VB, V, a.vs_s, k0 + kRows, a.T, tid,
                     128);
       cp_async_commit();
       cp_async_wait<1>();
@@ -653,8 +657,8 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
     cp_async4(smem_u32(stats + st * 2 * kRows + lt), src, ok ? 4 : 0);
   };
 
-  load_tile<DQK>(sk, K, a.ks_s, k0, a.S, threadIdx.x, blockDim.x);
-  load_tile<DV>(sv, V, a.vs_s, k0, a.S, threadIdx.x, blockDim.x);
+  load_tile<DQK>(sk, K, a.ks_s, k0, a.T, threadIdx.x, blockDim.x);
+  load_tile<DV>(sv, V, a.vs_s, k0, a.T, threadIdx.x, blockDim.x);
   cp_async_commit();
   // D comes from launch 1: wait for it to finish (and its writes)
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -757,11 +761,11 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
       for (int r = 0; r < 32; ++r)
         dv[p][r] += src[((PQ + p) * 32 + r) * 128 + lt];
   }
-  const long long row = static_cast<long long>(b) * a.S * a.Kv + kvh;
+  const long long row = static_cast<long long>(b) * a.T * a.Kv + kvh;
   store_rows<PQ, DQK>(static_cast<bf16*>(a.dk) + row * DQK + 2 * t,
-                      static_cast<long long>(a.Kv) * DQK, kpos0, a.S, dk);
+                      static_cast<long long>(a.Kv) * DQK, kpos0, a.T, dk);
   store_rows<PV, DV>(static_cast<bf16*>(a.dv) + row * DV + 2 * t,
-                     static_cast<long long>(a.Kv) * DV, kpos0, a.S, dv);
+                     static_cast<long long>(a.Kv) * DV, kpos0, a.T, dv);
 }
 
 // ----------------------------------------------------------------- f32
@@ -916,8 +920,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kRows;
     __syncthreads();
-    load_f32<DQK>(Ks, K, a.ks_s, k0, a.S);
-    load_f32<DV>(Vs, V, a.vs_s, k0, a.S);
+    load_f32<DQK>(Ks, K, a.ks_s, k0, a.T);
+    load_f32<DV>(Vs, V, a.vs_s, k0, a.T);
     __syncthreads();
     float s[4][4], dp[4][4];
     tile_dot<DQK>(Qs, Ks, ty, tx, s);
@@ -972,8 +976,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const float* K = static_cast<const float*>(a.k) + b * a.ks_b + kvh * a.ks_h;
   const float* V = static_cast<const float*>(a.v) + b * a.vs_b + kvh * a.vs_h;
-  load_f32<DQK>(Ks, K, a.ks_s, k0, a.S);
-  load_f32<DV>(Vs, V, a.vs_s, k0, a.S);
+  load_f32<DQK>(Ks, K, a.ks_s, k0, a.T);
+  load_f32<DV>(Vs, V, a.vs_s, k0, a.T);
 
   int qt_begin, qt_end;
   query_tiles(a, k0, &qt_begin, &qt_end);
@@ -1035,8 +1039,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int kpos = k0 + ty + 16 * r;
-    if (kpos >= a.S) continue;
-    const long long row = (static_cast<long long>(b) * a.S + kpos) * a.Kv +
+    if (kpos >= a.T) continue;
+    const long long row = (static_cast<long long>(b) * a.T + kpos) * a.Kv +
                           kvh;
 #pragma unroll
     for (int c = 0; c < cols16<DQK>(); ++c)
@@ -1060,7 +1064,8 @@ int launch(Kernel kernel, dim3 grid, int threads, int smem,
 template <int DQK, int DV>
 int run_bf16(const Args& a, cudaStream_t st) {
   using C = Bwd<DQK, DV>;
-  const int tiles = (a.S + kRows - 1) / kRows;
+  const int tiles = (a.S + kRows - 1) / kRows;     // query tiles
+  const int ktiles = (a.T + kRows - 1) / kRows;    // key tiles
   int err = launch(flash_bwd_dq_kernel<DQK, DV>, dim3(tiles * a.B * a.H),
                    128, C::kDqSmem, st, a);
   if (err != 0) return err;
@@ -1072,7 +1077,7 @@ int run_bf16(const Args& a, cudaStream_t st) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * a.B * a.Kv);
+  cfg.gridDim = dim3(ktiles * a.B * a.Kv);
   cfg.blockDim = dim3(128 * groups);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -1088,21 +1093,23 @@ int run_bf16(const Args& a, cudaStream_t st) {
 
 template <int DQK, int DV>
 int run_f32(const Args& a, cudaStream_t st) {
-  const int tiles = (a.S + kRows - 1) / kRows;
+  const int tiles = (a.S + kRows - 1) / kRows;     // query tiles
+  const int ktiles = (a.T + kRows - 1) / kRows;    // key tiles
   int err = launch(flash_bwd_dq_f32_kernel<DQK, DV>, dim3(tiles, a.H, a.B),
                    kThreads, dq_f32_smem<DQK, DV>(), st, a);
   if (err != 0) return err;
-  return launch(flash_bwd_dkdv_f32_kernel<DQK, DV>, dim3(tiles, a.Kv, a.B),
+  return launch(flash_bwd_dkdv_f32_kernel<DQK, DV>, dim3(ktiles, a.Kv, a.B),
                 kThreads, dkdv_f32_smem<DQK, DV>(), st, a);
 }
 
 }  // namespace
 
-// q [B, S, H, dh], k [B, S, Kv, dh], v [B, S, Kv, dv] and o, do
+// q [B, S, H, dh], k [B, T, Kv, dh], v [B, T, Kv, dv] and o, do
 // [B, S, H, dv], all bf16 (is_bf16 = 1) or all f32, the head dim
-// contiguous, rows 16-byte aligned; strides (in elements) in the order
-// q (b, s, h), k, v, o, do.  lse [B, H, S] f32 is the forward's
-// log-sum-exp.  dq [B, S, H, dh], dk [B, S, Kv, dh] and dv [B, S, Kv, dv]
+// contiguous, rows 16-byte aligned; T != S only with causal = 0 and
+// window = 0; strides (in elements) in the order q (b, s, h), k, v, o,
+// do.  lse [B, H, S] f32 is the forward's log-sum-exp.  dq [B, S, H, dh],
+// dk [B, T, Kv, dh] and dv [B, T, Kv, dv]
 // are contiguous in the same dtype; dsum is [B, H, S] f32 scratch.
 // (dh, dv) is (64, 64), (128, 128), (192, 128), (120, 120) or (96, 96); the
 // scale is dh^-0.5 of the true width; H % Kv == 0.  Returns -1 for a
@@ -1111,8 +1118,8 @@ int run_f32(const Args& a, cudaStream_t st) {
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
-    void* dsum, const long long* strides, int B, int S, int H, int Kv, int dh,
-    int dv_width, int is_bf16, int causal, int window, float softcap,
+    void* dsum, const long long* strides, int B, int S, int T, int H, int Kv,
+    int dh, int dv_width, int is_bf16, int causal, int window, float softcap,
     void* stream) {
   const int pair = dh == 64 && dv_width == 64     ? 0
                    : dh == 128 && dv_width == 128 ? 1
@@ -1120,8 +1127,8 @@ extern "C" int flash_attention_bwd_launch(
                    : dh == 120 && dv_width == 120 ? 3
                    : dh == 96 && dv_width == 96   ? 4
                                                   : -1;
-  if (B < 1 || S < 1 || Kv < 1 || H % Kv != 0 || pair < 0 || window < 0 ||
-      H > 65535 || B > 65535)
+  if (B < 1 || S < 1 || T < 1 || Kv < 1 || H % Kv != 0 || pair < 0 ||
+      window < 0 || H > 65535 || B > 65535 || (T != S && (causal || window)))
     return -1;
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.g = dout;
@@ -1133,7 +1140,8 @@ extern "C" int flash_attention_bwd_launch(
   a.vs_b = strides[6]; a.vs_s = strides[7]; a.vs_h = strides[8];
   a.os_b = strides[9]; a.os_s = strides[10]; a.os_h = strides[11];
   a.gs_b = strides[12]; a.gs_s = strides[13]; a.gs_h = strides[14];
-  a.B = B; a.S = S; a.H = H; a.Kv = Kv; a.causal = causal; a.window = window;
+  a.B = B; a.S = S; a.T = T; a.H = H; a.Kv = Kv; a.causal = causal;
+  a.window = window;
   a.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(dh)));
   a.softcap = softcap;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -4,8 +4,12 @@ Port of ``repro.kernels.flash_attention.flash_attention_pallas``, which is
 also the kernel form of the model's prefill attention
 (``repro.models.attention.blocked_attention``):
 ``o = softmax(mask(softcap(q . k^T * dh^-0.5))) . v`` for q ``[B, S, H, dh]``,
-k ``[B, S, Kv, dh]`` and v ``[B, S, Kv, dv]`` -> ``[B, S, H, dv]``, query
-head h reading kv head ``h // (H / Kv)`` (grouped-query attention).  v may
+k ``[B, T, Kv, dh]`` and v ``[B, T, Kv, dv]`` -> ``[B, S, H, dv]``, query
+head h reading kv head ``h // (H / Kv)`` (grouped-query attention).  The
+keys may be of another length T than the queries only without the causal
+mask and the window, as whisper's cross-attention has them (448 or 1
+decoder queries against 1500 encoder keys); a causal or windowed call
+with T != S raises ``ValueError``: no caller makes one.  v may
 have its own head width, as DeepSeek's MLA prefill has (q / k 192, v 128);
 the scale stays ``dh ** -0.5`` of q's width, as the reference's
 ``blocked_attention`` has it.  Scores and the running (m, l, acc) state are
@@ -13,7 +17,7 @@ f32, masked scores are ``NEG``, p is rounded to v's dtype before the PV
 product, and the output is ``acc / max(l, 1e-30)`` in q's dtype.
 
 Masks: causal ``kpos <= qpos``, window ``qpos - kpos < window``, and keys
-past S never count.  The TPU kernel pads S to its tile with zeros and,
+past T never count.  The TPU kernel pads S to its tile with zeros and,
 without the causal mask, lets those padded keys into the softmax; the port
 masks them, as ``ref.flash_attention_ref`` and ``blocked_attention`` do.
 With ``return_lse=True`` both implementations also return each row's
@@ -76,40 +80,45 @@ bwd_launches = 0             # calls of flash_attention_bwd_cuda (2 kernels)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "flash_attention_launch": ([_P] * 7 + [_I] * 9 + [ctypes.c_float, _P],
+    "flash_attention_launch": ([_P] * 7 + [_I] * 10 + [ctypes.c_float, _P],
                                _I),
 }
 _BWD_SIGNATURES = {
-    "flash_attention_bwd_launch": ([_P] * 11 + [_I] * 9
+    "flash_attention_bwd_launch": ([_P] * 11 + [_I] * 10
                                    + [ctypes.c_float, _P], _I),
 }
 
 
-def _shapes(q, k, v):
-    """(B, S, H, Kv, dh, dv) of q [B, S, H, dh], k [B, S, Kv, dh] and v
-    [B, S, Kv, dv]."""
+def _shapes(q, k, v, causal, window):
+    """(B, S, T, H, Kv, dh, dv) of q [B, S, H, dh], k [B, T, Kv, dh] and v
+    [B, T, Kv, dv]; T != S only for a call without the causal mask and
+    the window."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be 4-D "
-                         "([B, S, H, dh], [B, S, Kv, dh], [B, S, Kv, dv])")
+                         "([B, S, H, dh], [B, T, Kv, dh], [B, T, Kv, dv])")
     B, S, H, dh = q.shape
-    Kv, dv = k.shape[2], v.shape[3]
-    if tuple(k.shape) != (B, S, Kv, dh) or tuple(v.shape) != (B, S, Kv, dv):
+    T, Kv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if (tuple(k.shape) != (B, T, Kv, dh) or tuple(v.shape) != (B, T, Kv, dv)
+            or T < 1):
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} must be [B, S, Kv, dh] and "
-                         f"[B, S, Kv, dv] for q {tuple(q.shape)}")
+                         f"{tuple(v.shape)} must be [B, T, Kv, dh] and "
+                         f"[B, T, Kv, dv], T >= 1, for q {tuple(q.shape)}")
+    if T != S and (causal or window):
+        raise ValueError(f"flash_attention: {T} keys for {S} queries must be "
+                         "attended without the causal mask and the window")
     if Kv < 1 or H % Kv:
         raise ValueError(f"flash_attention: {H} query heads are not a "
                          f"multiple of {Kv} kv heads")
-    return B, S, H, Kv, dh, dv
+    return B, S, T, H, Kv, dh, dv
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
                           softcap: float = 0.0, return_lse: bool = False):
-    """q [B, S, H, dh]; k [B, S, Kv, dh]; v [B, S, Kv, dv] -> [B, S, H, dv]
+    """q [B, S, H, dh]; k [B, T, Kv, dh]; v [B, T, Kv, dv] -> [B, S, H, dv]
     (q's dtype); with ``return_lse``, ``(o, lse)``, lse = m + log(l) of
     the online state, f32 [B, H, S]."""
-    B, S, H, Kv, dh, dv = _shapes(q, k, v)
+    B, S, T, H, Kv, dh, dv = _shapes(q, k, v, causal, window)
     G = H // Kv
     scale = dh ** -0.5
     qg = q.reshape(B, S, Kv, G, dh).float()
@@ -118,13 +127,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = torch.zeros((B, Kv, G, S, dv), dtype=torch.float32,
                       device=q.device)
     qpos = torch.arange(S, device=q.device)[:, None]
-    for k0 in range(0, S, BLOCK_K):
+    for k0 in range(0, T, BLOCK_K):
         kt, vt = k[:, k0:k0 + BLOCK_K], v[:, k0:k0 + BLOCK_K]
         s = torch.einsum("bqkgd,btkd->bkgqt", qg, kt.float()) * scale
         if softcap:
             s = torch.tanh(s / softcap) * softcap
         kpos = torch.arange(k0, k0 + kt.shape[1], device=q.device)[None, :]
-        mask = kpos < S
+        mask = kpos < T
         if causal:
             mask = mask & (kpos <= qpos)
         if window:
@@ -216,14 +225,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for it."""
     global launches
     dev = q.device
+    B, S, T, H, Kv, dh, dv = _shapes(q, k, v, causal, window)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
-    B, S, H, Kv, dh, dv = _shapes(q, k, v)
     if q.dtype not in DTYPES or (dh, dv) not in HEAD_PAIRS:
         raise ValueError(f"flash_attention: unsupported dtype {q.dtype} or "
                          f"head widths (q/k {dh}, v {dv}) (kernel takes "
                          f"{DTYPES}, {HEAD_PAIRS})")
-    if B * S * H * dh >= 2 ** 31 or int(window) < 0:
+    if B * max(S, T) * H * dh >= 2 ** 31 or int(window) < 0:
         raise ValueError(f"flash_attention: unsupported B={B} S={S} H={H} "
                          f"window={window}")
     out = torch.empty((B, S, H, dv), dtype=q.dtype, device=dev)
@@ -242,8 +251,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), strides, tma, B, S, H,
-            Kv, dh, dv, int(q.dtype == torch.bfloat16), int(causal),
+            None if lse is None else lse.data_ptr(), strides, tma, B, S, T,
+            H, Kv, dh, dv, int(q.dtype == torch.bfloat16), int(causal),
             int(window), float(softcap),
             torch.cuda.current_stream(dev).cuda_stream)
     if err in (-2, -3):
@@ -258,12 +267,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------- gradient
-def _bwd_masks(S: int, causal: bool, window: int, device) -> torch.Tensor:
-    """[S, S] bool: query row i keeps key j (keys past S never exist
-    here: the plain gradient works on the unpadded [S, S] block)."""
+def _bwd_masks(S: int, causal: bool, window: int, device,
+               T: int | None = None) -> torch.Tensor:
+    """[S, T] bool (T = S by default): query row i keeps key j (keys past
+    T never exist here: the plain gradient works on the unpadded [S, T]
+    block)."""
+    T = S if T is None else T
     qpos = torch.arange(S, device=device)[:, None]
-    kpos = torch.arange(S, device=device)[None, :]
-    keep = torch.ones((S, S), dtype=torch.bool, device=device)
+    kpos = torch.arange(T, device=device)[None, :]
+    keep = torch.ones((S, T), dtype=torch.bool, device=device)
     if causal:
         keep = keep & (kpos <= qpos)
     if window:
@@ -277,10 +289,10 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               causal: bool = True, window: int = 0,
                               softcap: float = 0.0):
     """The gradient of ``flash_attention_plain`` written out: q [B, S, H,
-    dh], k [B, S, Kv, dh], v [B, S, Kv, dv], o and do [B, S, H, dv] and the
-    forward's lse [B, H, S] -> (dq, dk, dv) in q's dtype, dq and dk at
-    width dh and dv at width dv; the scale is ``dh ** -0.5``, as the
-    forward's.
+    dh], k [B, T, Kv, dh], v [B, T, Kv, dv], o and do [B, S, H, dv] and the
+    forward's lse [B, H, S] -> (dq, dk, dv) in q's dtype, dq [B, S, H, dh],
+    dk [B, T, Kv, dh] and dv [B, T, Kv, dv]; the scale is ``dh ** -0.5``,
+    as the forward's.
 
     With ``s = softcap(q . k^T * scale)``, ``p = exp(s - lse)`` on the kept
     keys (0 elsewhere) and ``D = rowsum(do * o)``: ``dv = round(p)^T . do``
@@ -290,7 +302,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     operands; a no-op in f32), ``dq = ds . k`` and ``dk = ds^T . q``; dk
     and dv of kv head j sum over its G query heads.  Every product
     accumulates in f32 from the operands' own values."""
-    B, S, H, Kv, dh, dv_ = _shapes(q, k, v)
+    B, S, T, H, Kv, dh, dv_ = _shapes(q, k, v, causal, window)
     G = H // Kv
     scale = dh ** -0.5
     qf = q.float().reshape(B, S, Kv, G, dh)
@@ -302,7 +314,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
         t = torch.tanh(s / softcap)
         s = t * softcap
         capfac = 1.0 - t * t
-    keep = _bwd_masks(S, causal, window, q.device)
+    keep = _bwd_masks(S, causal, window, q.device, T)
     lse = lse.float().reshape(B, Kv, G, S)[..., None]
     p = torch.where(keep, torch.exp(s - lse), 0.0)
     dv = torch.einsum("bkgqt,bqkgd->btkd", p.to(v.dtype).float(), gf)
@@ -329,7 +341,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dq, dk, dv come back contiguous."""
     global bwd_launches
     dev = q.device
-    B, S, H, Kv, dh, dv_ = _shapes(q, k, v)
+    B, S, T, H, Kv, dh, dv_ = _shapes(q, k, v, causal, window)
     if q.dtype not in DTYPES or (dh, dv_) not in HEAD_PAIRS:
         raise ValueError(f"flash_attention_bwd: unsupported dtype {q.dtype} "
                          f"or head widths (q/k {dh}, v {dv_}) (kernel takes "
@@ -341,16 +353,16 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         if tuple(t.shape) != (B, S, H, dv_):
             raise ValueError(f"flash_attention_bwd: {name} "
                              f"{tuple(t.shape)} != {(B, S, H, dv_)}")
-    if B * S * H * dh >= 2 ** 31 or int(window) < 0:
+    if B * max(S, T) * H * dh >= 2 ** 31 or int(window) < 0:
         raise ValueError(f"flash_attention_bwd: unsupported B={B} S={S} "
-                         f"H={H} window={window}")
+                         f"T={T} H={H} window={window}")
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check_layout(name, t, dev, q.dtype)
     build.check_arg("flash_attention_bwd", "lse", lse, (torch.float32,),
                     (B, H, S), dev)
     dq = torch.empty((B, S, H, dh), dtype=q.dtype, device=dev)
-    dk = torch.empty((B, S, Kv, dh), dtype=q.dtype, device=dev)
-    dv = torch.empty((B, S, Kv, dv_), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, T, Kv, dh), dtype=q.dtype, device=dev)
+    dv = torch.empty((B, T, Kv, dv_), dtype=q.dtype, device=dev)
     dsum = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 15)(*(s for t in (q, k, v, o, do)
                                          for s in t.stride()[:3]))
@@ -359,7 +371,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dsum.data_ptr(), strides, B, S, H, Kv, dh, dv_,
+            dv.data_ptr(), dsum.data_ptr(), strides, B, S, T, H, Kv, dh, dv_,
             int(q.dtype == torch.bfloat16), int(causal), int(window),
             float(softcap),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -376,7 +388,8 @@ class FlashAttention(torch.autograd.Function):
     the hand-written kernel on CUDA tensors and the plain version on CPU
     tensors.  It saves q, k, v, o and the forward's lse (f32 [B, H, S]);
     the backward forms p from the lse.  v may have its own head width (MLA's
-    192 / 128): dv comes back at it."""
+    192 / 128): dv comes back at it; k and v may have T keys (non-causal):
+    dk and dv come back at T."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, softcap: float):

@@ -70,8 +70,10 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0) -> torch.Tensor:
     """Grouped-query attention in the model's layout: q [B, S, H, dh],
-    k [B, S, Kv, dh], v [B, S, Kv, dv] (any strides with a contiguous head
-    dim) -> [B, S, H, dv]; query head h reads kv head h // (H / Kv).  On
+    k [B, T, Kv, dh], v [B, T, Kv, dv] (any strides with a contiguous head
+    dim; T != S only with ``causal=False`` and no window, as a
+    cross-attention has it) -> [B, S, H, dv]; query head h reads kv head
+    h // (H / Kv).  On
     the card (dh, dv) is one of ``flash_attention.HEAD_PAIRS``: (64, 64),
     (128, 128), (192, 128), (120, 120) or (96, 96), for the forward and
     the gradient kernel alike.

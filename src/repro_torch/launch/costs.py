@@ -16,7 +16,10 @@ reads and writes the f32 master and both moments; activations count the
 residual stream and each block's input and output in bf16; KV-cache reads
 dominate decode.  ``roofline_terms`` defaults to one H100 SXM's data sheet
 (``H100_SXM``); the reference's hardware dicts use the same keys and can be
-passed as ``hw``.  The encoder-decoder branch waits for whisper-small.
+passed as ``hw``.  The encoder-decoder's cells (whisper-small) take the
+reference's own branch, ``_encdec_costs``: a train cell encodes its
+``seq_len`` frames and decodes 448 tokens, a prefill cell runs the encoder
+alone, a decode cell one decoder step against ``enc_seq`` cross keys.
 """
 from __future__ import annotations
 
@@ -202,12 +205,13 @@ def _layer_fwd_flops(cfg, mixer, mlp, B, S, T, *, decode):
 # ---------------------------------------------------------------------------
 
 def step_costs(cfg: cm.ArchConfig, cell: ShapeCell) -> CellCosts:
-    if cfg.encdec:
-        return _encdec_costs(cfg, cell)
     B, S = cell.global_batch, cell.seq_len
     n, n_active = param_counts(cfg)
     d = cfg.d_model
     bk = {}
+
+    if cfg.encdec:
+        return _encdec_costs(cfg, cell, n, n_active)
 
     decode = cell.kind == "decode"
     Bs, Ss = (B, 1) if decode else (B, S)
@@ -288,10 +292,50 @@ def _cache_bytes(cfg: cm.ArchConfig, B, T) -> float:
     return total
 
 
-def _encdec_costs(cfg, cell) -> CellCosts:
-    """The encoder-decoder's costs come with its model (whisper-small)."""
-    raise NotImplementedError(f"{cfg.name}: encoder-decoder costs are "
-                              f"{cm.NOT_PORTED}")
+def _encdec_costs(cfg, cell, n, n_active) -> CellCosts:
+    B, S = cell.global_batch, cell.seq_len
+    d, H, dh, ff = cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff
+    bk = {}
+
+    def enc_layer(S_):
+        return _attn_flops(cfg, B, S_, S_) + _mlp_flops(cfg, B, S_, ff)
+
+    def dec_layer(S_, T_enc):
+        self_ = _attn_flops(cfg, B, S_, S_)
+        cross = _mm(B * S_, H * dh, d) + _mm(B * T_enc, 2 * H * dh, d) + \
+            2 * (2.0 * B * H * S_ * T_enc * dh) + _mm(B * S_, d, H * dh)
+        return self_ + cross + _mlp_flops(cfg, B, S_, ff)
+
+    if cell.kind == "train":
+        Sd = 448
+        fwd = cfg.n_enc_layers * enc_layer(S) + cfg.n_layers * dec_layer(Sd, S)
+        head = _mm(B * Sd, cfg.vocab_size, d)
+        mult = 4.0 if cfg.remat else 3.0
+        flops = mult * fwd + 3.0 * head
+        model_flops = 6.0 * n * (B * (S + Sd))
+        hbm = 2.0 * n + 4.0 * n + 24.0 * n + \
+            2.0 * B * (S + Sd) * d * (cfg.n_enc_layers + cfg.n_layers) * 6
+    elif cell.kind == "prefill":
+        fwd = cfg.n_enc_layers * enc_layer(S)
+        flops = fwd
+        model_flops = 2.0 * n * (B * S)
+        hbm = 2.0 * n + 2.0 * B * S * d * cfg.n_enc_layers * 6
+    else:
+        T_enc = cfg.enc_seq
+        self_ = _attn_flops(cfg, B, 1, S)
+        cross = _mm(B, H * dh, d) + 2.0 * B * H * T_enc * dh * 2 + \
+            _mm(B, d, H * dh)
+        fwd = cfg.n_layers * (self_ + cross + _mlp_flops(cfg, B, 1, ff))
+        head = _mm(B, cfg.vocab_size, d)
+        flops = fwd + head
+        model_flops = 2.0 * n * B
+        kv = cfg.n_layers * (2.0 * B * S * H * dh * 2 +
+                             2.0 * B * T_enc * H * dh * 2)
+        hbm = 2.0 * n + kv
+        bk["hbm_cache"] = kv
+    bk["layers_fwd"] = fwd
+    return CellCosts(flops=flops, hbm_bytes=hbm, model_flops=model_flops,
+                     n_params=n, n_active=n_active, breakdown=bk)
 
 
 # ---------------------------------------------------------------------------

@@ -21,9 +21,10 @@ def loss_and_grads(loss_fn, params, batch: dict, accum: int = 1):
     """``(loss, metrics, grads)`` of ``loss_fn(params, batch) -> (loss,
     metrics)``.  Grads are a tree like the parameters; a leaf the loss
     does not use (``vis_proj`` under a tokens-only batch) gets zeros of
-    its own dtype, as ``jax.grad`` gives it.  With ``accum > 1`` the batch
-    (``tokens`` and, where present, ``extra_embeds``) splits into
-    ``accum`` microbatches along its leading axis: the grads are their f32
+    its own dtype, as ``jax.grad`` gives it.  With ``accum > 1`` every
+    leaf of the batch (``tokens``, and ``extra_embeds`` or ``frames``
+    where present) splits into ``accum`` microbatches along its leading
+    axis: the grads are their f32
     sum divided by ``accum``, the loss is the mean, and the metrics are
     the last microbatch's."""
     tree = cm.as_tree(params)

@@ -1,8 +1,8 @@
 """Shared building blocks of the port's language model.
 
-Port of the parts of ``repro.models.common`` that the decoder paths read
-(dense attention, DeepSeek's MLA + MoE, and the recurrent Mamba and RWKV-6
-mixers): the architecture config with its MLA, Mamba, RWKV and MoE
+Port of the parts of ``repro.models.common`` that the model paths read
+(dense attention, DeepSeek's MLA + MoE, the recurrent Mamba and RWKV-6
+mixers, and whisper's encoder-decoder): the architecture config with its MLA, Mamba, RWKV and MoE
 sub-configs, the numerics (``rms_norm``, ``softcap``,
 ``act_fn``, rotary embeddings), parameter initialisation by naming
 rule and ``count_params``.  Parameters are nested dicts (lists for the
@@ -31,9 +31,6 @@ MIXER_RWKV6 = "rwkv6"             # RWKV-6 "Finch" time mixing
 
 MLP_DENSE = "dense"
 MLP_MOE = "moe"
-
-NOT_PORTED = "not ported yet: ROADMAP.md section 2 item 4 lists it"
-
 
 @dataclass(frozen=True)
 class MLAConfig:
@@ -83,7 +80,7 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """The fields of ``repro.models.common.ArchConfig`` that the decoder
+    """The fields of ``repro.models.common.ArchConfig`` that the model
     paths read.  ``dtype`` is a ``torch.dtype``.  ``kv_cache_dtype`` is
     "bf16" (the cache in the model dtype) or "int8" (int8 values and an f32
     scale per token and kv head).  ``mla`` is DeepSeek's sub-config,
@@ -92,11 +89,14 @@ class ArchConfig:
     groups.  ``moe_weight_shard``, ``act_shard`` and ``rwkv_tm_shard`` (the
     mesh's expert, activation and RWKV time-mix shardings) are accepted and
     have no effect, as ``donate=`` has none: the port runs on one device.
-    ``frontend`` is None or "vision" (precomputed patch embeddings,
+    ``frontend`` is None, "vision" (precomputed patch embeddings,
     ``n_frontend_tokens`` an image, put in front of the text through
-    ``vis_proj``); the audio frontend, the encoder-decoder's fields and the
-    other JAX execution knobs (scan, the jnp attention's q-chunk) are not
-    ported.
+    ``vis_proj``) or "audio" (whisper's stub: precomputed frame embeddings
+    fed to the encoder).  ``encdec`` marks the encoder-decoder: then
+    ``n_layers`` is the decoder's depth, ``n_enc_layers`` the encoder's, and
+    ``enc_seq`` the encoder length that sizes a serving cache's cross k /
+    v (the encoder itself runs at its frames' length).  The other JAX
+    execution knobs (scan, the jnp attention's q-chunk) are not ported.
     ``remat`` checkpoints each body period's activations
     (``torch.utils.checkpoint``) as the reference's ``jax.checkpoint``
     does; ``grad_accum`` splits a train step's batch into microbatches."""
@@ -130,9 +130,12 @@ class ArchConfig:
     rwkv: RWKVConfig | None = None
     moe: MoEConfig | None = None
 
+    # encoder-decoder (whisper): n_layers is the decoder depth
     encdec: bool = False
+    n_enc_layers: int = 0
+    enc_seq: int = 1500                   # stub conv frontend output frames
 
-    # modality frontend stub: None | "vision"
+    # modality frontend stub: None | "audio" | "vision"
     frontend: str | None = None
     n_frontend_tokens: int = 0            # vision: patch tokens per image
 

@@ -6,11 +6,12 @@ the reference's float expressions in the reference's order, so every
 figure is held exactly: ``param_counts``, every ``CellCosts`` field and
 every ``breakdown`` entry, for each config the port registers, full and
 smoke, at every cell of ``SHAPES`` and at ``SMOKE_CELL``; ``roofline_terms``
-given the reference's own hardware dict.  The port's default hardware is
-an H100 SXM's data sheet, and its encoder-decoder branch raises until
-whisper-small is ported.
+given the reference's own hardware dict, the encoder-decoder
+(whisper-small) among them.  The port's default hardware is an H100 SXM's
+data sheet.
 """
 import dataclasses
+import itertools
 
 import pytest
 import torch
@@ -34,7 +35,7 @@ def _cells():
 
 
 def test_cells_and_configs_cover_the_port():
-    assert len(NAMES) == 10
+    assert NAMES == jbase.list_configs() and len(NAMES) == 11
     for (jc, tc) in _cells():
         assert dataclasses.astuple(jc) == dataclasses.astuple(tc)
 
@@ -83,9 +84,22 @@ def test_roofline_defaults_to_the_h100_data_sheet():
 
 
 def test_encoder_decoder_costs_are_not_ported():
-    cfg = tbase.get_config("semanticxr-captioner-110m").replace(encdec=True)
-    with pytest.raises(NotImplementedError, match=tcm.NOT_PORTED):
-        tcosts.step_costs(cfg, tbase.SHAPES["train_4k"])
+    """The encoder-decoder branch is ported: whisper-small's costs, full
+    and smoke, equal the reference's exactly at every cell of ``SHAPES``
+    and at ``SMOKE_CELL`` (train: frames + 448 decoder tokens; prefill:
+    the encoder; decode: one step against ``enc_seq`` cross keys), with
+    ``remat`` off as well as on."""
+    for name, remat in itertools.product(
+            ("whisper-small", "whisper-small-smoke"), (True, False)):
+        jcfg = jbase.get_config(name).replace(remat=remat)
+        tcfg = tbase.get_config(name).replace(remat=remat)
+        for jcell, tcell in _cells():
+            want = jcosts.step_costs(jcfg, jcell)
+            got = tcosts.step_costs(tcfg, tcell)
+            assert dataclasses.astuple(got) == dataclasses.astuple(want), (
+                name, remat, tcell.name)
+            assert "layers_fwd" in got.breakdown
+            assert ("hbm_cache" in got.breakdown) == (tcell.kind == "decode")
 
 
 def test_count_params_counts_every_leaf():

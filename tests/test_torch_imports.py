@@ -100,6 +100,14 @@ def test_cost_model_is_scanned_and_imports_alone():
     _scanned_and_import_alone(("launch/costs.py",))
 
 
+ENCDEC_MODULES = ("models/encdec.py", "configs/whisper_small.py",
+                  "models/api.py", "convert.py")
+
+
+def test_encdec_modules_are_scanned_and_import_alone():
+    _scanned_and_import_alone(ENCDEC_MODULES)
+
+
 def _entry_points():
     from repro_torch.core import (CloudService, DeviceClient, Knobs,
                                   MappingServer, init_local_map, init_store)

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro.configs.base import get_config as jget_config
+from repro.configs.base import list_configs as jlist_configs
 from repro.data import tokens as jtokens
 from repro.models import api as japi
 from repro.models import attention as jattn
@@ -83,21 +84,21 @@ def _kv_from_jax(c, layer=None):
 
 # ------------------------------------------------------------- configs, data
 def test_configs_match_the_reference():
-    assert list_configs() == ["deepseek-v2-236b", "deepseek-v3-671b",
-                              "gemma2-27b", "h2o-danube-3-4b",
-                              "jamba-v0.1-52b", "minitron-4b",
-                              "phi-3-vision-4.2b", "rwkv6-3b",
-                              "semanticxr-captioner-110m", "yi-9b"]
-    for name in ("semanticxr-captioner-110m", SMOKE):
+    """The port registers the reference's whole registry, whisper-small
+    included; the captioner's fields and whisper's (its encoder's depth and
+    ``enc_seq`` too) equal the reference's, full and smoke."""
+    assert list_configs() == jlist_configs()
+    assert "whisper-small" in list_configs()
+    for name in ("semanticxr-captioner-110m", SMOKE, "whisper-small",
+                 "whisper-small-smoke"):
         j, t = jget_config(name), get_config(name)
         for f in ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
                   "d_head", "d_ff", "vocab_size", "rope_theta",
                   "tie_embeddings", "norm_eps", "act", "sliding_window",
-                  "mixers", "mlps", "n_periods", "period"):
+                  "mixers", "mlps", "n_periods", "period", "encdec",
+                  "n_enc_layers", "enc_seq", "frontend"):
             assert getattr(t, f) == getattr(j, f), (name, f)
         assert t.dtype == torch.bfloat16 and j.dtype == jnp.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("whisper-small")
 
 
 def test_caption_batches_match_the_reference():
@@ -201,17 +202,44 @@ def test_block_apply_matches(dtype):
     assert tout.cache is None
 
 
+class _RefSpec:
+    """A reference parameter spec (shape, dtype name) that a stacked layer
+    index slices, so ``convert._from_reference`` lays the reference's
+    specs out as the port's tree without allocating them."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = tuple(shape), str(dtype).split(".")[-1]
+
+    def __getitem__(self, i):
+        return _RefSpec(self.shape[1:], self.dtype)
+
+
 def test_unported_families_raise_naming_the_roadmap():
-    """The encoder-decoder (whisper-small) is the family still unported:
-    its config and an ``encdec`` model_api raise naming the roadmap.  An
-    unknown mixer or MLP kind raises ``ValueError``, as the reference's
-    blocks do."""
+    """No family is left unported: every config registered in
+    ``repro.configs``, full and smoke, builds in the port, and its
+    ``param_specs`` hold the reference's parameters leaf for leaf, each
+    stacked reference leaf as its layers' leaves, in shape and dtype
+    (specs only, nothing allocated).  An unknown name raises ``KeyError``,
+    as the reference's registry does, and names no roadmap.  An unknown
+    mixer or MLP kind raises ``ValueError``, as the reference's blocks
+    do."""
     cfg = get_config(SMOKE)
-    for name in ("whisper-small", "whisper-small-smoke"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_config(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.model_api(cfg.replace(encdec=True))
+    for name in jlist_configs():
+        for full in (name, name + "-smoke"):
+            jcfg, tcfg = jget_config(full), get_config(full)
+            want = convert._from_reference(
+                tcfg, jax.tree.map(lambda x: _RefSpec(x.shape, x.dtype),
+                                   japi.model_api(jcfg).param_specs()),
+                lambda _, x: x)
+            got = dict(tcm.leaves(tapi.model_api(tcfg).param_specs()))
+            want = dict(tcm.leaves(want))
+            assert sorted(got) == sorted(want), full
+            for path, sp in got.items():
+                assert (sp.shape, str(sp.dtype).split(".")[-1]) == (
+                    want[path].shape, want[path].dtype), (full, path)
+    with pytest.raises(KeyError) as err:
+        get_config("whisper-large")
+    assert "ROADMAP" not in str(err.value)
     for kinds in (("cross_attn", tcm.MLP_DENSE), (tcm.MIXER_FULL, "glu")):
         with pytest.raises(ValueError):
             tblk.block_param_specs(cfg, *kinds)
