@@ -393,6 +393,28 @@
     steps at 1 x (1500 frames + 64 tokens), card vs CPU port within
     TRAIN_REPLAY_TOL.
 
+25. The mesh, the sharding rules and the dry run: (a) ``mesh_phase``:
+    ``make_production_mesh`` of 256 and of 512 devices must raise on this
+    machine (the message printed), ``make_host_mesh()`` is 1 x 1 on
+    cuda:0; (b) ``dryrun_phase``: ``launch.dryrun.main --all`` on the
+    16 x 16 and the 2 x 16 x 16 planning meshes into a temporary
+    directory, a line a cell (per-device argument, output and alias
+    bytes, analytic FLOPs, the bound without collectives), every cell
+    planned but the reference's long_500k skips; (c)
+    ``whisper_mesh_phase``: whisper-small whole through
+    ``launch.steps.build_step`` on the host mesh at each kind's SHAPES
+    cell with the batch cut to one device's share of the 16 x 16 mesh's
+    data axis (prefill 2 x 32768 frames, decode 8 x 32768 cache slots,
+    train 16 x (4096 frames + 448 tokens) under remat), the sequence cut
+    only where ``mesh_reckon`` passes DENSE_PEAK_LIMIT (each cut printed,
+    ``whisper_mesh_cuts``): 3 prefill runs, 8 greedy decode steps after a
+    prefill of ``enc_seq`` frames, 3 AdamW steps; each the same bits as the
+    mesh-free ``model_api`` / ``build_train_step`` calls on the same
+    inputs, the placed tensors' bytes equal to the arguments' per-device
+    bytes, the peak within ``mesh_reckon``, 36 flash launches a prefill,
+    12 a decode step, 72 forward and 36 gradient launches a train step,
+    and the p50 step times beside the card's name and power limit.
+
 ``nearest_dist`` has no caller on any system path: its phase drives its
 entry point, ``ops.nearest_dist``, at a chamfer and a centroid shape.
 
@@ -833,6 +855,19 @@ WHISPER_SERVE = dict(batch=32, frames=1500, new_tokens=64)
 WHISPER_REPLAY = dict(frames=1500, new_tokens=8)
 WHISPER_TRAIN = dict(batch=16, frames=1500, tokens=448, steps=20)
 WHISPER_TRAIN_REPLAY = dict(n_layers=2, frames=1500, tokens=64, steps=3)
+# step 25: the mesh, the sharding rules, the dry run.  (a) the production
+# meshes raise on one card, the host mesh is 1 x 1 on cuda:0; (b) the dry
+# run plans every ASSIGNED x SHAPES cell on both planning meshes; (c)
+# whisper-small whole through launch.steps.build_step on the host mesh at
+# each kind's SHAPES cell, the global batch cut to one device's share of the
+# 16 x 16 mesh's data axis (train_4k 16, prefill_32k 2, decode_32k 8): the
+# prefill step run MESH_RUNS["prefill"] times, MESH_RUNS["decode"] greedy
+# decode steps after a prefill of enc_seq frames has filled the cache's
+# cross k / v, MESH_RUNS["train"] AdamW steps; each held bit for bit to the
+# mesh-free path on the same inputs.  A sequence is cut (halved) only where
+# its reckoned peak passes DENSE_PEAK_LIMIT.
+MESH_SHARE = 16
+MESH_RUNS = dict(prefill=3, decode=8, train=3)
 
 
 def check(cond, what: str) -> None:
@@ -6411,6 +6446,383 @@ def whisper_train_replay(torch, dev, *, n_layers, frames, tokens, steps,
     return out
 
 
+# ----------------------------------------------------------------- step 25
+def mesh_phase(torch) -> object:
+    """(a) ``make_production_mesh`` (256 and 512 devices) must raise on this
+    machine, naming the count it needs; ``make_host_mesh()`` is 1 x 1 on
+    cuda:0.  Returns the host mesh."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    out = {"cuda_devices": torch.cuda.device_count()}
+    for multi in (False, True):
+        try:
+            mesh_mod.make_production_mesh(multi_pod=multi)
+        except RuntimeError as e:
+            out["pod2" if multi else "pod1"] = str(e)
+        else:
+            check(False, f"make_production_mesh(multi_pod={multi}) returned "
+                  f"on {torch.cuda.device_count()} card(s)")
+    host = mesh_mod.make_host_mesh()
+    out["host"] = {"shape": dict(host.shape),
+                   "devices": [str(d) for d in host.devices.flat]}
+    check(dict(host.shape) == {"data": 1, "model": 1}
+          and list(host.devices.flat) == [torch.device("cuda", 0)],
+          f"the host mesh is 1 x 1 on cuda:0: {out['host']}")
+    emit("mesh_phase", out)
+    return host
+
+
+def dryrun_phase() -> dict:
+    """(b) ``launch.dryrun.main --all`` on both planning meshes into a
+    temporary directory (its own line a cell: per-device argument, output
+    and alias bytes, analytic FLOPs, the bound without collectives): every
+    ASSIGNED x SHAPES cell planned, or skipped where the reference skips
+    it (long_500k on a full-attention config)."""
+    import tempfile
+
+    from repro_torch.configs import ASSIGNED
+    from repro_torch.configs.base import SHAPES, cell_is_runnable
+    from repro_torch.launch import dryrun
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for multi in (False, True):
+            flag = ["--multi-pod"] if multi else []
+            t0 = time.perf_counter()
+            try:
+                dryrun.main(["--all", "--out", tmp] + flag)
+            except SystemExit as e:
+                check(False, f"dry run --all {flag}: exit {e.code}")
+            sec = time.perf_counter() - t0
+            d = Path(tmp) / ("pod2" if multi else "pod1")
+            recs = {(a, sh): json.loads((d / f"{a}__{sh}.json").read_text())
+                    for a in ASSIGNED for sh in SHAPES}
+            planned = {k: r for k, r in recs.items() if not r.get("skipped")}
+            check(set(planned) == {(a, sh) for a, sh in recs
+                                   if cell_is_runnable(a, sh)},
+                  f"dry run {flag}: planned {len(planned)} cells")
+            for k, r in planned.items():
+                check(r["memory"]["argument_bytes_per_dev"] > 0
+                      and r["analytic"]["flops"] > 0
+                      and r["roofline"]["bound_s"] > 0,
+                      f"dry run {flag} {k}: {r['memory']}")
+            big = max(planned, key=lambda k: planned[k]["memory"][
+                "argument_bytes_per_dev"])
+            out["pod2" if multi else "pod1"] = {
+                "chips": 512 if multi else 256, "cells": len(recs),
+                "planned": len(planned),
+                "skipped": len(recs) - len(planned), "seconds": sec,
+                "largest_arguments": {
+                    "cell": "__".join(big), "bytes_per_dev": planned[big][
+                        "memory"]["argument_bytes_per_dev"]}}
+    emit("dryrun_phase", out)
+    return out
+
+
+def mesh_cell(kind: str, host):
+    """whisper-small's dry-run config and its ``kind`` cell cut to one
+    device's share of the data axis, the sequence halved while the
+    reckoned peak passes DENSE_PEAK_LIMIT: (cfg, cell, cut)."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+
+    name = {"train": "train_4k", "prefill": "prefill_32k",
+            "decode": "decode_32k"}[kind]
+    full = SHAPES[name]
+    cfg = dryrun.cell_config(WHISPER, name, host)
+    B, S = full.global_batch // MESH_SHARE, full.seq_len
+    while mesh_reckon(cfg, kind, B, S)["total_bytes"] > DENSE_PEAK_LIMIT:
+        S //= 2
+    cell = dataclasses.replace(full, global_batch=B, seq_len=S)
+    cut = {"cell": name, "global_batch": full.global_batch, "batch": B,
+           "seq_len": full.seq_len, "seq": S, "seq_cut": S != full.seq_len,
+           "reckoned": mesh_reckon(cfg, kind, B, S)}
+    return cfg, cell, cut
+
+
+def mesh_reckon(cfg, kind: str, B: int, S: int) -> dict:
+    """An upper bound of a host-mesh step's peak, reckoned before its run:
+    its arguments' bytes (the specs' own per-device bytes on the 1 x 1
+    mesh) and its transients.  Prefill: ``whisper_serve_reckon``'s cross k
+    / v, encoder output and one encoder layer at the frames' length.
+    Decode: one layer's self cache cast to f32 three times over (k, v and
+    an einsum's copy), six f32 score rows, the kept logits and the greedy
+    pick's temporaries.  Train: ``whisper_train_reckon`` (the state, the
+    batch and the backward pass)."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_host_mesh
+
+    name = {"train": "train_4k", "prefill": "prefill_32k",
+            "decode": "decode_32k"}[kind]
+    cell = dataclasses.replace(SHAPES[name], global_batch=B, seq_len=S)
+    _, args = steps_mod.build_step(cfg, make_host_mesh("cpu"), cell)
+    arg_b = sum(steps_mod.bytes_per_device(a) for a in args)
+    if kind == "train":
+        rk = whisper_train_reckon(cfg, B, S, 448)
+        return {"arguments_bytes": arg_b, **rk}
+    V, H, Kv, dh = cfg.vocab_size, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    es = cfg.dtype.itemsize
+    if kind == "prefill":
+        rk = whisper_serve_reckon(cfg, B, S, S)
+        out = {k: rk[k] for k in ("cross_bytes", "encoder_out_bytes",
+                                  "encoder_layer_bytes")}
+        out["logits_bytes"] = B * V * 4
+    else:
+        out = {"cache_f32_bytes": 3 * B * S * Kv * dh * 4,
+               "scores_bytes": 6 * B * H * S * 4,
+               "logits_bytes": MESH_RUNS["decode"] * B * V * es
+               + B * V * 24}
+    out["total_bytes"] = arg_b + sum(out.values())
+    out["arguments_bytes"] = arg_b
+    return out
+
+
+def placed_bytes(steps_mod, *trees) -> int:
+    return sum(t.nbytes for t in steps_mod.arg_tensors(trees))
+
+
+def mesh_prefill(torch, dev, host, runs: int) -> dict:
+    """(c) prefill_32k: seeded frames through the host-mesh prefill step
+    ``runs`` times, then ``model_api.prefill`` once: logits and cross k /
+    v the same bits; 36 flash launches a step run."""
+    import gc
+
+    from repro_torch.configs.base import make_inputs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models.api import model_api
+
+    cfg, cell, cut = mesh_cell("prefill", host)
+    step, args = steps_mod.build_step(cfg, host, cell)
+    api = model_api(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    model, init = card_model(torch, dev, cfg)
+    batch = make_inputs(cfg, cell, torch.Generator(device=dev).manual_seed(
+        2510), device=dev)
+    caches = api.init_cache(cell.global_batch, cell.seq_len, device=dev)
+    arg_b = sum(steps_mod.bytes_per_device(a) for a in args)
+    placed = placed_bytes(steps_mod, model, batch, caches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ms, got = [], None
+    for _ in range(runs):
+        got = None
+        t0 = time.perf_counter()
+        logits, st = step(model, batch, caches)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        got = [logits, st.cross_k, st.cross_v]
+        del logits, st
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = ops.launch_counts()
+    logits, st = api.prefill(model, batch, caches)
+    same = same_bits(torch, got, [logits, st.cross_k, st.cross_v])
+    nonfinite = int((~torch.isfinite(got[0])).sum())
+    L = cfg.n_layers
+    check(placed == arg_b, f"prefill: placed {placed} bytes, args {arg_b}")
+    check(same, "prefill: the host-mesh step = model_api.prefill bit for bit")
+    check(launches["flash_attention"] == runs * 3 * L,
+          f"prefill: flash launches {launches['flash_attention']}")
+    check(nonfinite == 0, f"prefill: {nonfinite} logits not finite")
+    check(peak <= cut["reckoned"]["total_bytes"],
+          f"prefill: peak {peak} within {cut['reckoned']['total_bytes']}")
+    row = {"cut": cut, "batch": cell.global_batch, "frames": cell.seq_len,
+           "args_bytes": arg_b, "placed_bytes": placed, "step_ms": ms,
+           "step_ms_p50": float(np.percentile(ms, 50)),
+           "frames_per_s": cell.global_batch * cell.seq_len
+           / float(np.percentile(ms, 50)) * 1e3,
+           "launches": launches, "same_bits_as_mesh_free": same,
+           "peak_bytes": peak, "weights_bytes": init["weights_bytes"],
+           "peak_share_of_reckoning": peak / cut["reckoned"]["total_bytes"]}
+    del model, batch, caches, got, logits, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_decode(torch, dev, host, steps: int) -> dict:
+    """(c) decode_32k: a 32768-slot self cache whose cross k / v a prefill
+    of ``enc_seq`` seeded frames filled, then ``steps`` greedy host-mesh
+    decode steps at pos 1 + t, and the same from a fresh self cache
+    through ``model_api.decode``: every step's logits and the final self
+    caches the same bits; 12 flash launches a step (the cross-attention)."""
+    import gc
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models.api import model_api
+    from repro_torch.models.lm import greedy_token
+
+    cfg, cell, cut = mesh_cell("decode", host)
+    step, args = steps_mod.build_step(cfg, host, cell)
+    api = model_api(cfg)
+    B, T = cell.global_batch, cell.seq_len
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    model, init = card_model(torch, dev, cfg)
+    caches = api.init_cache(B, T, device=dev)
+    frames = torch.randn((B, cfg.enc_seq, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             2511))
+    logits, st = api.prefill(model, {"frames": frames}, caches)
+    caches.cross_k.copy_(st.cross_k)
+    caches.cross_v.copy_(st.cross_v)
+    tok0 = greedy_token(logits)
+    del st, frames, logits
+    arg_b = sum(steps_mod.bytes_per_device(a) for a in args[:3])
+    placed = placed_bytes(steps_mod, model, tok0, caches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+
+    def run(fn, c):
+        tok, outs, ms = tok0, [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            logits, c = fn(model, tok, c, 1 + i)
+            tok = greedy_token(logits)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(logits)
+        return outs, c, ms
+
+    got, caches, ms = run(step, caches)
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = ops.launch_counts()
+    fresh = api.init_cache(B, T, device=dev)._replace(
+        cross_k=caches.cross_k, cross_v=caches.cross_v)
+    want, fresh, _ = run(api.decode, fresh)
+    flat = lambda c: [t for kv in c.self_kv for t in kv if t is not None]  # noqa
+    same = same_bits(torch, got + flat(caches), want + flat(fresh))
+    lengths = sorted({int(kv.length) for kv in caches.self_kv})
+    L = cfg.n_layers
+    check(placed == arg_b, f"decode: placed {placed} bytes, args {arg_b}")
+    check(same, "decode: the host-mesh steps = model_api.decode bit for bit")
+    check(lengths == [steps], f"decode: self cache lengths {lengths}")
+    check(launches["flash_attention"] == steps * L,
+          f"decode: flash launches {launches['flash_attention']}")
+    check(peak <= cut["reckoned"]["total_bytes"],
+          f"decode: peak {peak} within {cut['reckoned']['total_bytes']}")
+    row = {"cut": cut, "batch": B, "cache_slots": T, "steps": steps,
+           "args_bytes": arg_b, "placed_bytes": placed,
+           "pos_note": "pos is a host int: its 4-byte spec is not placed",
+           "step_ms": ms, "step_ms_p50": float(np.percentile(ms, 50)),
+           "tokens_per_s": B / float(np.percentile(ms, 50)) * 1e3,
+           "launches": launches, "same_bits_as_mesh_free": same,
+           "peak_bytes": peak, "weights_bytes": init["weights_bytes"],
+           "peak_share_of_reckoning": peak / cut["reckoned"]["total_bytes"]}
+    del model, caches, fresh, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_train(torch, dev, host, steps: int) -> dict:
+    """(c) train_4k: ``steps`` AdamW steps of the host-mesh train step on
+    seeded batches (``make_inputs``: frames and 448 caption tokens), then
+    the same from the same seeded weights through the mesh-free
+    ``build_train_step``: every metric, parameter, master and moment the
+    same bits; under remat 72 flash forward and 36 gradient launches a
+    step (the encoder's 12 layers, the decoder's self- and
+    cross-attention, each forward recomputed)."""
+    import gc
+
+    from repro_torch.configs.base import make_inputs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import common as cm
+    from repro_torch.optim import adamw
+
+    cfg, cell, cut = mesh_cell("train", host)
+    step, args = steps_mod.build_step(cfg, host, cell)
+    ocfg = adamw.AdamWConfig()         # build_step's
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    arg_b = sum(steps_mod.bytes_per_device(a) for a in args)
+
+    def run(fn, measure):
+        model, init = card_model(torch, dev, cfg)
+        model.requires_grad_(True)
+        opt = adamw.init_opt_state(model, ocfg)
+        gen = torch.Generator(device=dev).manual_seed(2520)
+        placed, ms, mets = None, [], []
+        if measure:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+        for _ in range(steps):
+            b = make_inputs(cfg, cell, gen, device=dev)
+            if placed is None:
+                placed = placed_bytes(steps_mod, model, opt, b)
+            t0 = time.perf_counter()
+            model, opt, m = fn(model, opt, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            mets.append(m)
+            del b
+        return model, opt, mets, ms, placed, init
+
+    model, opt, mets, ms, placed, init = run(step, True)
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = ops.launch_counts()
+    model_b, opt_b, mets_b, _, _, _ = run(
+        steps_mod.build_train_step(cfg, ocfg), False)
+    tree = lambda m, o: ([p for _, p in cm.leaves(m.tree())]  # noqa
+                         + [o.step] + [t for x in (o.master, o.m, o.v)
+                                       for _, t in cm.leaves(x)])
+    same = same_bits(torch, [m[k] for m in mets for k in sorted(m)]
+                     + tree(model, opt),
+                     [m[k] for m in mets_b for k in sorted(m)]
+                     + tree(model_b, opt_b))
+    losses = [float(m["loss"]) for m in mets]
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    fwd = n_attn * (2 if cfg.remat else 1)
+    check(placed == arg_b, f"train: placed {placed} bytes, args {arg_b}")
+    check(same, "train: the host-mesh steps = build_train_step bit for bit")
+    check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
+    check(launches["flash_attention"] == steps * fwd
+          and launches["flash_attention_bwd"] == steps * n_attn,
+          f"train: flash launches {launches}")
+    check(peak <= cut["reckoned"]["total_bytes"],
+          f"train: peak {peak} within {cut['reckoned']['total_bytes']}")
+    row = {"cut": cut, "batch": cell.global_batch, "frames": cell.seq_len,
+           "tokens": 448, "remat": cfg.remat, "steps": steps,
+           "args_bytes": arg_b, "placed_bytes": placed, "step_ms": ms,
+           "step_ms_p50": float(np.percentile(ms, 50)), "losses": losses,
+           "frames_tokens_per_s": cell.global_batch * (cell.seq_len + 448)
+           / float(np.percentile(ms, 50)) * 1e3,
+           "launches": launches, "same_bits_as_mesh_free": same,
+           "peak_bytes": peak, "weights_bytes": init["weights_bytes"],
+           "peak_share_of_reckoning": peak / cut["reckoned"]["total_bytes"]}
+    del model, opt, model_b, opt_b, mets, mets_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def whisper_mesh_phase(torch, dev, host, smi: str) -> dict:
+    """(c) whisper-small's prefill, decode and train steps through
+    ``build_step`` on the host mesh (``mesh_prefill``, ``mesh_decode``,
+    ``mesh_train``), with the card's name and power limit beside the
+    p50 step times."""
+    cuts = {k: mesh_cell(k, host)[2] for k in ("prefill", "decode", "train")}
+    emit("whisper_mesh_cuts", cuts)
+    out = {"config": WHISPER, "card": smi,
+           "prefill": mesh_prefill(torch, dev, host, MESH_RUNS["prefill"]),
+           "decode": mesh_decode(torch, dev, host, MESH_RUNS["decode"]),
+           "train": mesh_train(torch, dev, host, MESH_RUNS["train"])}
+    out["step_ms_p50"] = {k: out[k]["step_ms_p50"]
+                          for k in ("prefill", "decode", "train")}
+    emit("whisper_mesh_phase", out)
+    return out
+
+
 def kernel_resources(build) -> dict:
     """{source: {kernel: registers, static shared memory, spills}} from
     ptxas's ``-v`` report in each build log (dynamic shared memory is set
@@ -6624,6 +7036,10 @@ def main() -> int:
                           dev, **WHISPER_TRAIN)
     timed("whisper_train_replay", whisper_train_replay, torch, dev,
           **WHISPER_TRAIN_REPLAY)
+    host = timed("mesh_phase", mesh_phase, torch)
+    timed("dryrun_phase", dryrun_phase)
+    whisper_mesh = timed("whisper_mesh_phase", whisper_mesh_phase, torch,
+                         dev, host, smi)
     emit("phase_seconds", phase_s)
     print(smi, flush=True)          # again, inside the tail of a long log
 
@@ -6675,7 +7091,15 @@ def main() -> int:
                             "prefill, 12 a decode step, 2 x (prefill + 64 "
                             "steps))",
              "train_launches": whisper_train["launches"]["flash_attention"],
-             "training_shapes": whisper_fwd}},
+             "training_shapes": whisper_fwd,
+             "mesh_steps": {
+                 kind: whisper_mesh[kind]["launches"]["flash_attention"]
+                 for kind in ("prefill", "decode", "train")},
+             "mesh_steps_launched_on": "step 25 whisper-small's steps "
+                                       "through launch.steps.build_step on "
+                                       "the 1 x 1 host mesh (36 a prefill, "
+                                       "12 a decode step, 72 a train step "
+                                       "under remat)"}},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:93",
@@ -6707,7 +7131,12 @@ def main() -> int:
              "launches": whisper_train["launches"]["flash_attention_bwd"],
              "launched_on": "step 24 whisper-small training path (36 a "
                             "step: 12 encoder, 12 decoder self, 12 cross)",
-             "training_shapes": whisper_bwd},
+             "training_shapes": whisper_bwd,
+             "mesh_train_launches":
+                 whisper_mesh["train"]["launches"]["flash_attention_bwd"],
+             "mesh_train_launched_on": "step 25 whisper-small's train step "
+                                       "through launch.steps.build_step on "
+                                       "the 1 x 1 host mesh (36 a step)"},
          "dh96_instance": {
              "instance": "(dqk, dv) = (96, 96): flash_bwd_dq_kernel<96,96> "
                          "and flash_bwd_dkdv_kernel<96,96> (bf16, on the "

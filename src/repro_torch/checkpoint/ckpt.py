@@ -14,8 +14,10 @@ Durability: a checkpoint is written into a temp dir, fsynced, then renamed
 into place, and ``latest_step`` is replaced atomically after the rename,
 so it only ever names a complete checkpoint; a crash mid-write leaves a
 ``.tmp_step_*`` dir that nothing reads.  ``restore(..., device=)`` puts
-the logical tensors on any device: the port's counterpart of the
-reference's elastic restore onto another mesh.
+the logical tensors on any device, and ``restore(..., shardings=)`` on the
+device of each leaf's ``NamedSharding``'s mesh: the port's counterpart of
+the reference's elastic restore onto another mesh, for a one-device
+mesh.
 """
 from __future__ import annotations
 
@@ -131,12 +133,30 @@ def latest_step(ckpt_dir: str | Path) -> int | None:
     return int(p.read_text().strip())
 
 
-def restore(ckpt_dir: str | Path, step: int, like, *, device="cuda"):
+def _sharding_device(sharding) -> torch.device:
+    """The one device of a ``NamedSharding``'s mesh; a mesh of more devices
+    (or a planning mesh, which has none) raises: the port places a whole
+    tensor, it does not split one."""
+    mesh = sharding.mesh
+    if getattr(mesh, "devices", None) is None or mesh.size != 1:
+        raise ValueError(f"restore places leaves on a one-device mesh, not "
+                         f"on {dict(mesh.shape)}")
+    return resolve_device(mesh.devices.flat[0])
+
+
+def restore(ckpt_dir: str | Path, step: int, like, *, device="cuda",
+            shardings=None):
     """``like``: a tree of tensors or numpy arrays giving the structure,
     shapes and dtypes.  Returns the same structure of tensors on
-    ``device``, each in its ``like`` leaf's dtype."""
-    dev = resolve_device(device)
+    ``device``, each in its ``like`` leaf's dtype.  ``shardings``, a tree
+    like ``like`` of ``distributed.sharding.NamedSharding``s, puts each
+    leaf on its sharding's mesh device instead (``device`` unread)."""
     d = Path(ckpt_dir) / f"step_{step}"
+    if shardings is None:
+        dev = resolve_device(device)
+        devs = None
+    else:
+        devs = {name: _sharding_device(s) for name, s in _flatten(shardings)}
     manifest = json.loads((d / "manifest.json").read_text())
     dtypes = {leaf["name"]: leaf["dtype"] for leaf in manifest["leaves"]}
     values = {}
@@ -156,5 +176,6 @@ def restore(ckpt_dir: str | Path, step: int, like, *, device="cuda"):
             else:       # the torch dtype of the numpy leaf's dtype
                 want = torch.from_numpy(np.zeros(0, np.asarray(leaf).dtype)
                                         ).dtype
-            values[name] = t.to(device=dev, dtype=want)
+            values[name] = t.to(device=dev if devs is None else devs[name],
+                                dtype=want)
     return _unflatten(like, values)

@@ -5,11 +5,13 @@ per-family forward FLOP terms, ``step_costs``, ``_cache_bytes`` and
 ``roofline_terms``, with the same float expressions in the same order, so
 every figure equals the reference's exactly.  The model mirrors the
 reference's implementation, not an idealized formula: the attention term
-costs the reference's blocked jnp sweep over every tile (its
-``prune_tiles`` is off in every registered config, and the port's config
-has no such field), the MoE pays its capacity-factor padding, naive MLA
-decode re-expands K / V each step.  The port's own hand-written kernels
-are bounded elsewhere (``chip_smoke.py``'s ``attn_cost`` / ``bwd_cost``).
+costs the reference's blocked jnp sweep over every tile, or under
+``cfg.prune_tiles`` (the dry run's ``--prune-tiles``) only the tiles of
+the causal or window band (``_visited_tiles_frac``, at the reference's
+default q-chunk ``ATTN_CHUNK``), the MoE pays its capacity-factor
+padding, naive MLA decode re-expands K / V each step.  The port's own
+hand-written kernels are bounded elsewhere (``chip_smoke.py``'s
+``attn_cost`` / ``bwd_cost``).
 
 Memory-traffic model: parameters are streamed once a step; the optimizer
 reads and writes the f32 master and both moments; activations count the
@@ -35,6 +37,9 @@ from repro_torch.models.moe import expert_capacity
 H100_SXM = dict(peak_flops=989e12, hbm_bw=3.35e12, ici_bw=450e9)
 # token groups the MoE's capacity is reckoned over
 MOE_GROUPS = 32
+# the reference's jnp attention's q-chunk (``ArchConfig.attn_chunk``'s
+# default, which every registered config keeps)
+ATTN_CHUNK = 1024
 
 
 def _mm(m, n, k):
@@ -74,14 +79,30 @@ def param_counts(cfg: cm.ArchConfig) -> tuple[int, int]:
 # per-layer forward FLOPs (mirrors the reference's models/*.py)
 # ---------------------------------------------------------------------------
 
-def _attn_flops(cfg, B, S, T):
+def _visited_tiles_frac(cfg, S, T, window) -> float:
+    """Fraction of the S*T tile grid the blocked attention touches."""
+    if not cfg.prune_tiles or S == 1:
+        return 1.0
+    Cq = min(ATTN_CHUNK, S)
+    Ck = min(1024, T)
+    nq, nk = -(-S // Cq), -(-T // Ck)
+    total = visited = 0
+    for i in range(nq):
+        hi = min((((i + 1) * Cq) + Ck - 1) // Ck, nk)
+        lo = 0 if not window else max((i * Cq - window + 1) // Ck, 0)
+        visited += hi - lo
+        total += nk
+    return visited / max(total, 1)
+
+
+def _attn_flops(cfg, B, S, T, *, window=0):
     H, K, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
     proj = _mm(B * S, H * dh, d) + 2 * _mm(B * S, K * dh, d) \
         + _mm(B * S, d, H * dh)
-    # blocked attention: the full S*T tile sweep (the reference prunes
-    # masked tiles only under its prune_tiles option, which no registered
-    # config turns on and the port's config does not carry)
-    core = 2 * (2.0 * B * H * S * T * dh)
+    # blocked attention: the full S*T tile sweep, or under prune_tiles only
+    # the causal / window band
+    core = 2 * (2.0 * B * H * S * T * dh) * _visited_tiles_frac(cfg, S, T,
+                                                                window)
     return proj + core
 
 
@@ -178,7 +199,8 @@ def _layer_fwd_flops(cfg, mixer, mlp, B, S, T, *, decode):
         if mixer == cm.MIXER_SWA and decode:
             f = _attn_flops(cfg, B, S, min(T, cfg.sliding_window))
         else:
-            f = _attn_flops(cfg, B, S, T)
+            win = cfg.sliding_window if mixer == cm.MIXER_SWA else 0
+            f = _attn_flops(cfg, B, S, T, window=win)
     elif mixer == cm.MIXER_MLA:
         f = _mla_flops(cfg, B, S, T, decode=decode)
         if not decode:

@@ -10,6 +10,10 @@ Port of ``repro.models.api``:
     api.decode(params, tokens, caches, pos)     -> (logits [B, V], caches)
     api.init_cache(batch, max_len, device=...)  -> a KVCache / MLACache /
                                                    MambaCache / RWKVCache a layer
+    api.stacked_param_specs()                   -> param_specs, the
+                                                   reference's stacked layout
+    api.cache_specs(batch, max_len)             -> init_cache's specs, the
+                                                   reference's stacked layout
 ``batch`` holds ``tokens`` [B, S] and, for a vision model, may hold
 ``extra_embeds`` [B, n, d] (the frontend's n patch embeddings, put in
 front of the tokens).  For the encoder-decoder (whisper) ``batch`` holds
@@ -45,6 +49,8 @@ class ModelAPI:
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
     init_cache: Callable[..., Any]
+    stacked_param_specs: Callable[[], Any]
+    cache_specs: Callable[[int, int], Any]
 
 
 def _seeded_init(cfg: cm.ArchConfig, model_cls, init_params):
@@ -75,6 +81,9 @@ def model_api(cfg: cm.ArchConfig) -> ModelAPI:
                                           pos=pos),
             init_cache=lambda batch, max_len, *, device="cuda":
                 ed_mod.init_encdec_cache(cfg, batch, max_len, device=device),
+            stacked_param_specs=lambda: ed_mod.encdec_param_specs_stacked(cfg),
+            cache_specs=lambda batch, max_len: ed_mod.encdec_cache_specs(
+                cfg, batch, max_len),
         )
 
     def _forward(params, batch):
@@ -95,4 +104,7 @@ def model_api(cfg: cm.ArchConfig) -> ModelAPI:
             params, tokens, cfg, caches, pos=pos),
         init_cache=lambda batch, max_len, *, device="cuda":
             lm_mod.init_lm_cache(cfg, batch, max_len, device=device),
+        stacked_param_specs=lambda: lm_mod.lm_param_specs_stacked(cfg),
+        cache_specs=lambda batch, max_len: lm_mod.lm_cache_specs(
+            cfg, batch, max_len),
     )

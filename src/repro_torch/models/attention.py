@@ -93,6 +93,22 @@ class KVCache(NamedTuple):
     v_scale: torch.Tensor | None = None
 
 
+def kv_cache_specs(cfg: cm.ArchConfig, batch: int, max_len: int, *,
+                   window: bool = False) -> KVCache:
+    """``init_kv_cache``'s shapes and dtypes as ``cm.Spec``: the model
+    dtype, or int8 values with f32 scales [B, T, Kv, 1] (None without)."""
+    T = min(max_len, cfg.sliding_window) if window else max_len
+    shape = (batch, T, cfg.n_kv_heads, cfg.d_head)
+    if cfg.kv_cache_dtype == "int8":
+        sc = cm.spec((batch, T, cfg.n_kv_heads, 1), torch.float32)
+        return KVCache(k=cm.spec(shape, torch.int8),
+                       v=cm.spec(shape, torch.int8),
+                       length=cm.spec((), torch.int32), k_scale=sc,
+                       v_scale=sc)
+    return KVCache(k=cm.spec(shape, cfg.dtype), v=cm.spec(shape, cfg.dtype),
+                   length=cm.spec((), torch.int32))
+
+
 def init_kv_cache(cfg: cm.ArchConfig, batch: int, max_len: int, *,
                   device, window: bool = False) -> KVCache:
     """Zeros for ``max_len`` positions; ``window``: a sliding-window

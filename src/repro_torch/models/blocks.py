@@ -52,6 +52,20 @@ def block_param_specs(cfg: cm.ArchConfig, mixer_kind: str, mlp_kind: str,
             "mlp": mlp}
 
 
+def block_cache_specs(cfg: cm.ArchConfig, mixer_kind: str, batch: int,
+                      max_len: int):
+    """``init_block_cache``'s shapes and dtypes as ``cm.Spec``."""
+    _check_kinds(mixer_kind, cm.MLP_DENSE)
+    if mixer_kind == cm.MIXER_MLA:
+        return mla_mod.mla_cache_specs(cfg, batch, max_len)
+    if mixer_kind == cm.MIXER_MAMBA:
+        return mamba_mod.mamba_cache_specs(cfg, batch)
+    if mixer_kind == cm.MIXER_RWKV6:
+        return rwkv_mod.rwkv_cache_specs(cfg, batch)
+    return attn.kv_cache_specs(cfg, batch, max_len,
+                               window=mixer_kind == cm.MIXER_SWA)
+
+
 def init_block_cache(cfg: cm.ArchConfig, mixer_kind: str, batch: int,
                      max_len: int, *, device):
     """Zeros: a ``KVCache`` for an attention mixer, an ``MLACache`` for

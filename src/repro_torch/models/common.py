@@ -86,9 +86,13 @@ class ArchConfig:
     scale per token and kv head).  ``mla`` is DeepSeek's sub-config,
     ``moe`` DeepSeek's and jamba's, ``mamba`` and ``rwkv`` the recurrent
     mixers'; ``moe_groups`` is the least number of MoE dispatch
-    groups.  ``moe_weight_shard``, ``act_shard`` and ``rwkv_tm_shard`` (the
-    mesh's expert, activation and RWKV time-mix shardings) are accepted and
-    have no effect, as ``donate=`` has none: the port runs on one device.
+    groups.  ``moe_weight_shard`` and ``rwkv_tm_shard`` choose the mesh's
+    expert and RWKV time-mix shardings: the sharding rules
+    (``distributed/sharding.py``) read them, no model code does.
+    ``act_shard`` is set only by the dry run's ``seq_parallel`` rewrite, and
+    nothing reads it.  ``prune_tiles`` (skip fully masked attention tiles)
+    is read by the cost model alone: the port's flash kernel skips such
+    tiles anyway.
     ``frontend`` is None, "vision" (precomputed patch embeddings,
     ``n_frontend_tokens`` an image, put in front of the text through
     ``vis_proj``) or "audio" (whisper's stub: precomputed frame embeddings
@@ -147,9 +151,10 @@ class ArchConfig:
     remat: bool = False                   # activation checkpointing per period
     grad_accum: int = 1                   # microbatches per train step
     moe_groups: int = 1                   # MoE dispatch groups (at least)
-    moe_weight_shard: str = "2d"          # no effect: one device
-    act_shard: tuple | None = None        # no effect: one device
-    rwkv_tm_shard: str = "model"          # no effect: one device
+    moe_weight_shard: str = "2d"          # "2d" | "ep": the expert rule
+    act_shard: tuple | None = None        # dry run's seq_parallel; unread
+    rwkv_tm_shard: str = "model"          # "model" | "replicated"
+    prune_tiles: bool = False             # the cost model's tile count
 
     def __post_init__(self):
         if self.d_head == 0:
@@ -253,6 +258,21 @@ class Spec(NamedTuple):
 
 def spec(shape, dtype) -> Spec:
     return Spec(tuple(int(s) for s in shape), dtype)
+
+
+def stack_specs(tree, n: int):
+    """A tree of ``Spec`` (dicts, lists, NamedTuples such as a cache, None
+    for an absent field) with ``n`` put in front of every leaf's shape: the
+    reference's stacked layout of ``n`` layers."""
+    if tree is None:
+        return None
+    if isinstance(tree, Spec):
+        return spec((n,) + tree.shape, tree.dtype)
+    if isinstance(tree, dict):
+        return {k: stack_specs(v, n) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [stack_specs(v, n) for v in tree]
+    return type(tree)(*(stack_specs(v, n) for v in tree))
 
 
 def count_params(specs) -> int:

@@ -63,6 +63,16 @@ def encdec_param_specs(cfg: cm.ArchConfig) -> dict:
     }
 
 
+def encdec_param_specs_stacked(cfg: cm.ArchConfig) -> dict:
+    """``encdec_param_specs`` in the reference's layout: each side's layers
+    stacked ``[n, ...]`` under ``enc_body`` / ``dec_body``, the tree the
+    mesh's sharding rules read."""
+    specs = encdec_param_specs(cfg)
+    enc, dec = specs.pop("enc_layers"), specs.pop("dec_layers")
+    return {**specs, "enc_body": cm.stack_specs(enc[0], len(enc)),
+            "dec_body": cm.stack_specs(dec[0], len(dec))}
+
+
 def init_encdec_params(cfg: cm.ArchConfig, gen: torch.Generator) -> dict:
     """Seeded parameters by the reference's naming rules (a stacked
     reference leaf [n, d, f] has the fan-in d of a layer's [d, f])."""
@@ -191,6 +201,18 @@ class EncDecCache(NamedTuple):
     self_kv: list | None       # a KVCache a decoder layer (None: no cache)
     cross_k: torch.Tensor      # [L, B, S_enc, H, dh]
     cross_v: torch.Tensor
+
+
+def encdec_cache_specs(cfg: cm.ArchConfig, batch: int,
+                       max_len: int) -> EncDecCache:
+    """``init_encdec_cache``'s shapes and dtypes as ``cm.Spec`` in the
+    reference's layout: the decoder layers' self caches stacked into one
+    ``KVCache`` of [L, ...] leaves."""
+    L = cfg.n_layers
+    xs = cm.spec((L, batch, cfg.enc_seq, cfg.n_heads, cfg.d_head), cfg.dtype)
+    return EncDecCache(
+        self_kv=cm.stack_specs(attn.kv_cache_specs(cfg, batch, max_len), L),
+        cross_k=xs, cross_v=xs)
 
 
 def init_encdec_cache(cfg: cm.ArchConfig, batch: int, max_len: int, *,

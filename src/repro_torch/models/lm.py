@@ -46,6 +46,36 @@ def lm_param_specs(cfg: cm.ArchConfig) -> dict:
     return specs
 
 
+def lm_param_specs_stacked(cfg: cm.ArchConfig) -> dict:
+    """``lm_param_specs`` in the reference's layout: the dense prefix as a
+    list and each period slot's body layers stacked ``[n_periods, ...]``
+    under ``body``, the tree the mesh's sharding rules read."""
+    specs = lm_param_specs(cfg)
+    layers = specs.pop("layers")
+    npre = cfg.n_dense_prefix
+    if npre:
+        specs["prefix"] = layers[:npre]
+    specs["body"] = [cm.stack_specs(layers[npre + s], cfg.n_periods)
+                     for s in range(cfg.period)]
+    return specs
+
+
+def lm_cache_specs(cfg: cm.ArchConfig, batch: int, max_len: int) -> dict:
+    """``init_lm_cache``'s shapes and dtypes as ``cm.Spec`` in the
+    reference's layout: the dense prefix's caches as a list, each period
+    slot's body caches stacked ``[n_periods, ...]`` under ``body``."""
+    caches = {}
+    if cfg.n_dense_prefix:
+        caches["prefix"] = [blk.block_cache_specs(cfg, cfg.mixers[0], batch,
+                                                  max_len)
+                            for _ in range(cfg.n_dense_prefix)]
+    caches["body"] = [
+        cm.stack_specs(blk.block_cache_specs(cfg, cfg.block_kinds(s)[0],
+                                             batch, max_len), cfg.n_periods)
+        for s in range(cfg.period)]
+    return caches
+
+
 def init_lm_params(cfg: cm.ArchConfig, gen: torch.Generator) -> dict:
     """Seeded parameters by the reference's naming rules.  The reference
     draws each body leaf stacked ``[n_periods, ...]``, so a 1-D body leaf

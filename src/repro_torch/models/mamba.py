@@ -66,6 +66,12 @@ class MambaCache(NamedTuple):
     ssm: torch.Tensor    # [B, d_inner, d_state] f32
 
 
+def mamba_cache_specs(cfg: cm.ArchConfig, batch: int) -> MambaCache:
+    d_in, _, d_state, d_conv = _dims(cfg)
+    return MambaCache(conv=cm.spec((batch, d_conv - 1, d_in), cfg.dtype),
+                      ssm=cm.spec((batch, d_in, d_state), torch.float32))
+
+
 def init_mamba_cache(cfg: cm.ArchConfig, batch: int, *,
                      device) -> MambaCache:
     d_in, _, d_state, d_conv = _dims(cfg)

@@ -60,6 +60,14 @@ class MLACache(NamedTuple):
     length: torch.Tensor     # [] int32 — entries written so far
 
 
+def mla_cache_specs(cfg: cm.ArchConfig, batch: int, max_len: int) -> MLACache:
+    m = cfg.mla
+    return MLACache(
+        c_kv=cm.spec((batch, max_len, m.kv_lora_rank), cfg.dtype),
+        k_rope=cm.spec((batch, max_len, m.qk_rope_head_dim), cfg.dtype),
+        length=cm.spec((), torch.int32))
+
+
 def init_mla_cache(cfg: cm.ArchConfig, batch: int, max_len: int, *,
                    device) -> MLACache:
     m = cfg.mla

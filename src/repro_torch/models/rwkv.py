@@ -78,6 +78,14 @@ class RWKVCache(NamedTuple):
     state: torch.Tensor      # [B, h, dk, dv] f32 wkv state
 
 
+def rwkv_cache_specs(cfg: cm.ArchConfig, batch: int) -> RWKVCache:
+    d = cfg.d_model
+    h, dh = _dims(cfg)
+    return RWKVCache(tm_prev=cm.spec((batch, d), cfg.dtype),
+                     cm_prev=cm.spec((batch, d), cfg.dtype),
+                     state=cm.spec((batch, h, dh, dh), torch.float32))
+
+
 def init_rwkv_cache(cfg: cm.ArchConfig, batch: int, *,
                     device) -> RWKVCache:
     d = cfg.d_model

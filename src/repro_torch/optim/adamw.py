@@ -41,6 +41,15 @@ class OptState(NamedTuple):
     v: Any
 
 
+def opt_state_specs(param_specs, ocfg: AdamWConfig) -> OptState:
+    """``init_opt_state``'s shapes and dtypes as ``cm.Spec`` over a tree of
+    parameter specs in either layout: f32 master and moments, an int32
+    scalar step."""
+    f32 = cm.map_tree(lambda _, s: cm.spec(s.shape, torch.float32),
+                      param_specs)
+    return OptState(step=cm.spec((), torch.int32), master=f32, m=f32, v=f32)
+
+
 def init_opt_state(params, ocfg: AdamWConfig) -> OptState:
     """Master copy in f32 and zero moments, on the parameters' device."""
     tree = cm.as_tree(params)

@@ -273,8 +273,9 @@ class ZoneShardedStore:
         return int(sum(int(z.active.sum()) for z in self.zones))
 
     def place_on(self, mesh) -> None:
-        """Place shard z on mesh device z % ndev (``mesh`` a sequence of
-        devices; a no-op where they already live there)."""
+        """Place shard z on mesh device z % ndev (``mesh`` a
+        ``launch.mesh.Mesh`` or a sequence of devices; a no-op where they
+        already live there)."""
         from repro_torch.distributed.sharding import zone_shard_devices
         devs = zone_shard_devices(mesh, len(self.zones))
         self.zones = [ObjectStore(*(None if x is None else x.to(d)

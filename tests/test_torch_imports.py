@@ -108,6 +108,14 @@ def test_encdec_modules_are_scanned_and_import_alone():
     _scanned_and_import_alone(ENCDEC_MODULES)
 
 
+MESH_MODULES = ("launch/mesh.py", "launch/dryrun.py", "launch/steps.py",
+                "distributed/sharding.py")
+
+
+def test_mesh_and_dryrun_modules_are_scanned_and_import_alone():
+    _scanned_and_import_alone(MESH_MODULES)
+
+
 def _entry_points():
     from repro_torch.core import (CloudService, DeviceClient, Knobs,
                                   MappingServer, init_local_map, init_store)
@@ -127,6 +135,7 @@ def _entry_points():
     from repro_torch.checkpoint import ckpt
     from repro_torch.convert import clip_params_from_numpy
     from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.perception.clip import ClipConfig, init_clip_params
     kn = Knobs(server_capacity=8, client_capacity=4,
                max_object_points_server=8, max_object_points_client=4)
@@ -189,6 +198,7 @@ def _entry_points():
         "init_clip_params": lambda: init_clip_params(ClipConfig()),
         "clip_params_from_numpy": lambda: clip_params_from_numpy({}),
         "ckpt.restore": lambda: ckpt.restore("absent", 1, {}),
+        "make_host_mesh": lambda: make_host_mesh(),
         "launch.train.main": lambda: train.main(
             ["--arch", "semanticxr-captioner-110m-smoke", "--steps", "1"]),
         "launch.train.main(jamba)": lambda: train.main(
