@@ -17,6 +17,7 @@ constraint; under ``cfg.remat`` each body period runs under
 ``torch.utils.checkpoint`` as the reference's period runs under
 ``jax.checkpoint``.  ``LM`` holds the parameters as an ``nn.Module`` on one
 device, frozen for serving; ``LM.requires_grad_(True)`` trains them.
+``decode_step`` runs under the ``repro_torch.obs`` span ``lm.decode_step``.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
 from repro_torch.models import common as cm
+from repro_torch.obs.trace import span
 
 
 def lm_param_specs(cfg: cm.ArchConfig) -> dict:
@@ -262,12 +264,14 @@ def decode_step(params, tokens: torch.Tensor, cfg: cm.ArchConfig,
                 caches: list, *, pos: int):
     """One decode step. tokens: [B,1]; pos: absolute position.
     Returns (logits [B,V], caches written in place)."""
-    x = _embed(params, tokens, cfg)
-    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
-    x, _, new_caches = _run_blocks(params, x, cfg, positions=positions,
-                                   caches=caches)
-    x = cm.rms_norm(x, params["final_scale"], cfg.norm_eps)
-    return _head(params, x, cfg)[:, 0], new_caches
+    with span("lm.decode_step", "model"):
+        x = _embed(params, tokens, cfg)
+        positions = torch.full((1, 1), pos, dtype=torch.int32,
+                               device=x.device)
+        x, _, new_caches = _run_blocks(params, x, cfg, positions=positions,
+                                       caches=caches)
+        x = cm.rms_norm(x, params["final_scale"], cfg.norm_eps)
+        return _head(params, x, cfg)[:, 0], new_caches
 
 
 def greedy_token(logits: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,9 @@ for its backward, so under ``cfg.remat`` (grad on, no cache) each chunk
 runs under ``torch.utils.checkpoint``: the backward recomputes it from
 its inputs and the carried state, the same forward with the same bits,
 and the scan keeps about 0.2 such arrays a token.
+
+The chunked scan (a prefill, a prefill-fill or training; not a decode
+step) runs under the ``repro_torch.obs`` span ``mamba.scan``.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import common as cm
+from repro_torch.obs.trace import span
 
 
 def _dims(cfg: cm.ArchConfig):
@@ -167,9 +171,10 @@ def mamba_mixer(params, x: torch.Tensor, cfg: cm.ArchConfig, *,
     if cache is None or S > 1:
         h = (torch.zeros((B, d_in, d_state), dtype=torch.float32,
                          device=x.device) if cache is None else cache.ssm)
-        h, y = _scan(h, u, B_, C_, dt, A, min(cfg.mamba.chunk, S),
-                     recompute=(cfg.remat and cache is None
-                                and torch.is_grad_enabled()))
+        with span("mamba.scan", "model"):
+            h, y = _scan(h, u, B_, C_, dt, A, min(cfg.mamba.chunk, S),
+                         recompute=(cfg.remat and cache is None
+                                    and torch.is_grad_enabled()))
     else:
         lam = torch.exp(dt[:, 0, :, None] * A)
         h = lam * cache.ssm + (dt * u)[:, 0, :, None] * B_[:, 0, None, :]

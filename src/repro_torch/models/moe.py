@@ -30,6 +30,16 @@ one-hot and carry none).  A dropped copy writes the padding row and reads
 zeros, so it carries no gradient; every other slot is written and read
 once, so the backward adds in a fixed order and two steps give the same
 bits on the card.
+
+Each call runs under three spans of ``repro_torch.obs`` (category
+``model``): ``moe.dispatch`` (the route with its aux loss, then each
+group's rank and scatter), ``moe.experts`` (each group's three batched
+products) and ``moe.combine`` (each group's gather, weighting and k-sum,
+then the concatenation of groups).  With a metrics registry installed it
+counts, under ``phase`` "decode" (S == 1) or "prefill",
+``moe_copies_total`` (T * k), ``moe_expert_rows_total`` (the E * C rows
+each group's products compute) and ``moe_copies_kept_total`` (copies
+within capacity, a device value: no host read).
 """
 from __future__ import annotations
 
@@ -40,6 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import common as cm
+from repro_torch.obs.metrics import get_registry
+from repro_torch.obs.trace import span
 
 
 def moe_param_specs(cfg: cm.ArchConfig) -> dict:
@@ -83,43 +95,53 @@ def _route(params, x2d: torch.Tensor, cfg: cm.ArchConfig):
 
 
 def _group_dispatch(xg: torch.Tensor, wg_: torch.Tensor, idxg: torch.Tensor,
-                    params, cfg: cm.ArchConfig, C: int):
+                    params, cfg: cm.ArchConfig, C: int, *,
+                    phase: str = "prefill"):
     """One group. xg: [Tg, d]; wg_ / idxg: [Tg, k] -> (y [Tg, d], the
-    group's dropped fraction)."""
+    group's dropped fraction).  With a registry installed, its copies
+    within capacity count under ``phase``."""
     mo = cfg.moe
     E, k = mo.n_experts, mo.top_k
     Tg, d = xg.shape
     Tk = Tg * k
     dev = xg.device
-    flat_e = idxg.reshape(Tk)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)
-    starts = torch.cumsum(counts, 0) - counts
-    rank_sorted = torch.arange(Tk, device=dev) - starts[sorted_e]
-    rank = torch.empty_like(rank_sorted)
-    rank[order] = rank_sorted
-    keep = rank < C
-    slot = torch.where(keep, flat_e * C + rank, E * C)   # E*C = padding row
-    # each token's k copies as an expand (not xg[tok]): its gradient sums
-    # the copies in a fixed order, where an indexed read's accumulates
-    # through an index_put_ that CUDA does not keep in order
-    buf = torch.zeros((E * C + 1, d), dtype=xg.dtype, device=dev)
-    buf[slot] = xg[:, None].expand(Tg, k, d).reshape(Tk, d)
-    buf = buf[:E * C].reshape(E, C, d)
+    with span("moe.dispatch", "model"):
+        flat_e = idxg.reshape(Tk)
+        order = torch.argsort(flat_e, stable=True)
+        sorted_e = flat_e[order]
+        counts = torch.bincount(flat_e, minlength=E)
+        starts = torch.cumsum(counts, 0) - counts
+        rank_sorted = torch.arange(Tk, device=dev) - starts[sorted_e]
+        rank = torch.empty_like(rank_sorted)
+        rank[order] = rank_sorted
+        keep = rank < C
+        slot = torch.where(keep, flat_e * C + rank, E * C)  # padding row
+        # each token's k copies as an expand (not xg[tok]): its gradient
+        # sums the copies in a fixed order, where an indexed read's
+        # accumulates through an index_put_ that CUDA does not keep in order
+        buf = torch.zeros((E * C + 1, d), dtype=xg.dtype, device=dev)
+        buf[slot] = xg[:, None].expand(Tg, k, d).reshape(Tk, d)
+        buf = buf[:E * C].reshape(E, C, d)
 
-    act = cm.act_fn(cfg.act)
-    h = act(torch.bmm(buf, params["we_g"])) * torch.bmm(buf, params["we_u"])
-    out_buf = F.pad(torch.bmm(h, params["we_d"]).reshape(E * C, d),
-                    (0, 0, 0, 1))                         # row E*C reads 0
+    with span("moe.experts", "model"):
+        act = cm.act_fn(cfg.act)
+        h = act(torch.bmm(buf, params["we_g"])) * torch.bmm(buf,
+                                                            params["we_u"])
+        out_buf = F.pad(torch.bmm(h, params["we_d"]).reshape(E * C, d),
+                        (0, 0, 0, 1))                     # row E*C reads 0
 
-    gathered = out_buf[slot]                              # [Tk, d]
-    contrib = (gathered * (wg_.reshape(Tk, 1) * keep[:, None]).to(
-        gathered.dtype)).reshape(Tg, k, d)
-    y = contrib[:, 0]
-    for j in range(1, k):
-        y = y + contrib[:, j]
-    return y, 1.0 - keep.float().mean()
+    with span("moe.combine", "model"):
+        gathered = out_buf[slot]                          # [Tk, d]
+        contrib = (gathered * (wg_.reshape(Tk, 1) * keep[:, None]).to(
+            gathered.dtype)).reshape(Tg, k, d)
+        y = contrib[:, 0]
+        for j in range(1, k):
+            y = y + contrib[:, j]
+        dropped = 1.0 - keep.float().mean()
+    reg = get_registry()
+    if reg is not None:
+        reg.counter("moe_copies_kept_total").inc(keep.sum(), phase=phase)
+    return y, dropped
 
 
 def moe_apply(params, x: torch.Tensor, cfg: cm.ArchConfig, *,
@@ -131,27 +153,33 @@ def moe_apply(params, x: torch.Tensor, cfg: cm.ArchConfig, *,
     B, S, d = x.shape
     T = B * S
     x2d = x.reshape(T, d)
-    w, idx, probs = _route(params, x2d, cfg)
-
-    # Switch load-balance aux loss over the full batch
     E = mo.n_experts
-    me = probs.mean(dim=0)                                       # [E]
-    ce = F.one_hot(idx[:, 0], E).float().mean(dim=0)
-    aux = E * torch.sum(me * ce)
+    with span("moe.dispatch", "model"):
+        w, idx, probs = _route(params, x2d, cfg)
+        # Switch load-balance aux loss over the full batch
+        me = probs.mean(dim=0)                                   # [E]
+        ce = F.one_hot(idx[:, 0], E).float().mean(dim=0)
+        aux = E * torch.sum(me * ce)
 
     g = n_groups
     while T % g:
         g -= 1
     Tg = T // g
     C = expert_capacity(Tg, cfg)
+    phase = "decode" if S == 1 else "prefill"
+    reg = get_registry()
+    if reg is not None:
+        reg.counter("moe_copies_total").inc(T * mo.top_k, phase=phase)
+        reg.counter("moe_expert_rows_total").inc(g * E * C, phase=phase)
     ys, dropped = [], []
     for i in range(g):
         sl = slice(i * Tg, (i + 1) * Tg)
         y_i, drop_i = _group_dispatch(x2d[sl], w[sl], idx[sl], params, cfg,
-                                      C)
+                                      C, phase=phase)
         ys.append(y_i)
         dropped.append(drop_i)
-    y = torch.cat(ys).reshape(B, S, d)
+    with span("moe.combine", "model"):
+        y = torch.cat(ys).reshape(B, S, d)
 
     if mo.n_shared:
         act = cm.act_fn(cfg.act)

@@ -18,7 +18,9 @@ chunks are not recomputed one by one.
 Parameter names keep the reference's slash (``mix_base/mix_mu``,
 ``cmix_k/mix_mu``): each is one key, one leaf.  ``rwkv_time_mix`` returns
 the new (state, last input) and ``rwkv_channel_mix`` its last input; the
-block writes the three into its ``RWKVCache`` in place.
+block writes the three into its ``RWKVCache`` in place.  The chunk loop
+(every call but a decode step) runs under the ``repro_torch.obs`` span
+``rwkv.wkv``.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import common as cm
+from repro_torch.obs.trace import span
 
 # token-shift targets for time mixing
 _TM_SLOTS = 5   # r, k, v, w, g
@@ -165,21 +168,22 @@ def rwkv_time_mix(params, x: torch.Tensor, cfg: cm.ArchConfig, *,
     u = params["bonus_u"]
 
     if cache is None or S > 1:
-        Cn = min(cfg.rwkv.chunk, S)
-        pad = (-S) % Cn
-        if pad:     # padded steps: k = 0 and decay 1 leave the state alone
-            r, k, v, lw = (F.pad(t, (0, 0, 0, 0, 0, pad))
-                           for t in (r, k, v, lw))
-        state = (torch.zeros((B, h, dh, dh), dtype=torch.float32,
-                             device=x.device) if cache is None
-                 else cache.state)
-        ys = []
-        for c0 in range(0, S + pad, Cn):
-            c = slice(c0, c0 + Cn)
-            state, yc = _wkv_chunk(state, r[:, c], k[:, c], v[:, c],
-                                   lw[:, c], u)
-            ys.append(yc)
-        y = torch.cat(ys, dim=1)[:, :S]
+        with span("rwkv.wkv", "model"):
+            Cn = min(cfg.rwkv.chunk, S)
+            pad = (-S) % Cn
+            if pad:  # padded steps: k = 0 and decay 1 leave the state alone
+                r, k, v, lw = (F.pad(t, (0, 0, 0, 0, 0, pad))
+                               for t in (r, k, v, lw))
+            state = (torch.zeros((B, h, dh, dh), dtype=torch.float32,
+                                 device=x.device) if cache is None
+                     else cache.state)
+            ys = []
+            for c0 in range(0, S + pad, Cn):
+                c = slice(c0, c0 + Cn)
+                state, yc = _wkv_chunk(state, r[:, c], k[:, c], v[:, c],
+                                       lw[:, c], u)
+                ys.append(yc)
+            y = torch.cat(ys, dim=1)[:, :S]
         new_prev = x[:, -1]
     else:
         S0 = cache.state

@@ -67,9 +67,19 @@ def _label_str(key: tuple) -> str:
 
 
 # ---------------------------------------------------------------------------
+def _number(v):
+    """A counter's value as a Python number: a 0-d tensor is read here."""
+    return v.item() if hasattr(v, "item") else v
+
+
 @dataclass
 class Counter:
-    """Monotonic counter, one value per label set."""
+    """Monotonic counter, one value per label set.
+
+    ``inc`` also takes a 0-d tensor, which it adds on the tensor's device
+    with no host read, so a count the device holds (copies an MoE kept)
+    costs no sync where it is made; ``value``, ``total`` and the exports
+    read it as a Python number, after the caller's own synchronize."""
     name: str
     help: str = ""
     values: dict = field(default_factory=dict)    # label key -> number
@@ -79,10 +89,10 @@ class Counter:
         self.values[k] = self.values.get(k, 0) + v
 
     def value(self, **labels):
-        return self.values.get(_label_key(labels), 0)
+        return _number(self.values.get(_label_key(labels), 0))
 
     def total(self):
-        return sum(self.values.values())
+        return sum(_number(v) for v in self.values.values())
 
 
 @dataclass
@@ -209,7 +219,7 @@ class MetricsRegistry:
         as {n, mean, p50, p95, p99} summaries per label set."""
         out = {"counters": {}, "gauges": {}, "histograms": {}}
         for name, c in sorted(self.counters.items()):
-            out["counters"][name] = {_label_str(k) or "_": v
+            out["counters"][name] = {_label_str(k) or "_": _number(v)
                                      for k, v in sorted(c.values.items())}
         for name, g in sorted(self.gauges.items()):
             out["gauges"][name] = {_label_str(k) or "_": v
@@ -233,7 +243,7 @@ class MetricsRegistry:
                 lines.append(f"# HELP {name} {c.help}")
             lines.append(f"# TYPE {name} counter")
             for k, v in sorted(c.values.items()):
-                lines.append(f"{name}{_label_str(k)} {v}")
+                lines.append(f"{name}{_label_str(k)} {_number(v)}")
         for name, g in sorted(self.gauges.items()):
             if g.help:
                 lines.append(f"# HELP {name} {g.help}")

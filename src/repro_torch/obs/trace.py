@@ -15,6 +15,12 @@ Design constraints (the reasons this file is small and boring):
   but only into the tracer's own buffer — never into any value the
   instrumented code returns: a fleet run with tracing on ships the same
   packets as one with tracing off (tests/test_torch_obs.py).
+* **On the profiler's clock.**  While ``torch.profiler`` records, an
+  open span also holds a profiler range of its name (``record_function``),
+  so the exported trace carries it as a ``user_annotation`` event on the
+  kernels' clock, and a reader can put the device work it launched, and
+  the idle gaps inside it, to the span.  Off the profiler, and with no
+  tracer installed, no range is opened.
 * **Fenced on request.**  CUDA work is queued asynchronously, so a span
   can *fence*: hand the result (a tensor or a tuple / list / NamedTuple
   of them) to ``Span.fence`` and — on a ``Tracer(fenced=True)`` — the
@@ -94,8 +100,13 @@ class Span:
     tid: int = 0
     args: dict = None
     _fence: object = None
+    _range: object = None
 
     def __enter__(self):
+        import torch
+        if torch.autograd._profiler_enabled():
+            self._range = torch.autograd.profiler.record_function(self.name)
+            self._range.__enter__()
         self.tid = self.tracer._depth
         self.tracer._depth += 1
         self.t0 = time.perf_counter()
@@ -121,6 +132,8 @@ class Span:
         tr._depth -= 1
         tr.events.append((self.name, self.cat, self.t0, t1, self.tid,
                           self.args))
+        if self._range is not None:
+            self._range.__exit__(*exc)
         return False
 
 
