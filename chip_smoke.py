@@ -326,7 +326,15 @@
     chunk 16, a ragged 45-token prompt and 8 greedy steps: card = CPU port
     (tokens, logits within 1e-4 of the largest, expert ids at every MoE
     call), and every decode step against a whole-sequence prefill on the
-    card (the recurrent state's handoff from prefill to decode).
+    card (the recurrent state's handoff from prefill to decode); (a')
+    ``wkv6_checks``, before (b): the wkv6 kernel against ``wkv6_plain``
+    at WKV6_CASES (rwkv6-3b.prefill_4k's 16 x 4096 x 40 heads from zeros,
+    a ragged 29-step cached prefill, one step, a tile and one step),
+    within WKV6_TOL, each beside the plain version in float64, the same
+    bits twice, timed beside its byte bound and the plain version; (c)
+    also holds rwkv6-3b to one wkv6 launch a layer a prefill and none
+    decoding, and step 23 its training to none (the chunk loop under
+    autograd).
 
 23. The recurrent families trained: (a) ``recurrent_train_cuts``: each
     training peak reckoned before its run (``recurrent_train_reckon``: 16
@@ -465,6 +473,19 @@ TOPK_ANY_K = (("k=2000 at the SQ shape", (1, 4096, 512, 2000), None, 10),
               ("N*E >= 2^31", (2, 1 << 20, 2048, 10), None, 3),
               ("Q*N >= 2^31", (2048, 1 << 20, 16, 10), 128, 3))
 ND_TOL = 1e-4            # nearest_dist: |a|^2 + |b|^2 - 2ab in another order
+# wkv6 against wkv6_plain, relative to the largest |entry| of y or of the
+# end state: the two sum in different orders.  The kernel steps the
+# recurrence, a rounding in every state entry every step; the plain version
+# carries the state across chunks only and forms each chunk's decays as
+# exp of differences of cumulative log-decays.  At rwkv6-3b's prefill
+# shape on an H100 the kernel lies 2.3e-6 (y) and 2.8e-6 (state) from the
+# plain version in float64, the plain version 5.4e-7 and 2.5e-7: the limit
+# leaves seven times the kernel's reading
+WKV6_TOL = 2e-5
+# (B, S, h, nonzero state0): rwkv6-3b.prefill_4k's shape from zeros (the
+# timed case), a ragged cached prefill, one step, a tile and one step
+WKV6_CASES = ((16, 4096, 40, False), (16, 29, 40, True), (2, 1, 3, True),
+              (3, 17, 5, True))
 LOGIT_TOL = 1e-4         # step 8: f32 logits, 12 layers in another order
 PROFILE_KEYFRAMES = 4    # keyframes timed by stage, then as many profiled
 PROFILE_DECODE = 8       # decode steps under the profiler (step 7)
@@ -5535,6 +5556,80 @@ def recurrent_reckon(cfg, batch: int, prompt: int, max_len: int) -> dict:
     return out
 
 
+# ------------------------------------------------------- wkv6 (step 22)
+def wkv6_inputs(torch, B, S, H, state, seed, dev):
+    """r, k, v normal, lw = -exp(dec) with dec spread as rwkv6-3b's
+    ``decay_base`` init spreads it (decays 0.7 to 0.998 a step), u normal,
+    state0 normal or zeros: [B, S, H, 64] f32 and so on, drawn on the
+    card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (B, S, H, 64)
+    r, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+    spread = -6.0 + 5.0 * torch.linspace(0, 1, 64, device=dev) ** 0.7
+    lw = -torch.exp(spread + 0.3 * torch.randn(shape, generator=g,
+                                              device=dev))
+    u = torch.randn((H, 64), generator=g, device=dev)
+    s0 = (torch.randn((B, H, 64, 64), generator=g, device=dev) if state
+          else torch.zeros((B, H, 64, 64), device=dev))
+    return r, k, v, lw, u, s0
+
+
+def wkv6_cost(B, S, H):
+    """(bytes, f32 flops) of one call: r, k, v, lw read and y written once,
+    the state read and written; per head a token 64 x 64 FMAs for y, and a
+    multiply and an FMA for each state entry."""
+    n = B * S * H * 64
+    return 5 * n * 4 + 2 * B * H * 64 * 64 * 4, B * S * H * 64 * 64 * 5
+
+
+def wkv6_checks(torch, clock, dev, cases=WKV6_CASES, chunk=64):
+    """The wkv6 kernel against wkv6_plain (the chunk loop, in chunks of
+    ``chunk`` as rwkv6-3b runs it) at WKV6_CASES: y and the end state
+    within WKV6_TOL of the largest entry, each also against the plain
+    version in float64; one launch a call, the same bits twice; the first
+    case timed beside its bound and the plain version (as called)."""
+    from repro_torch.kernels import wkv6
+
+    row = None
+    for i, (B, S, H, state) in enumerate(cases):
+        args = wkv6_inputs(torch, B, S, H, state, 700 + i, dev)
+        n0 = wkv6.launches
+        got = wkv6.wkv6_cuda(*args)
+        check(wkv6.launches == n0 + 1, "wkv6: one launch a call")
+        want = wkv6.wkv6_plain(*args, chunk)
+        exact = wkv6.wkv6_plain(*(a.double() for a in args), chunk)
+        torch.cuda.synchronize()
+        out = {"shape": [B, S, H, 64], "nonzero_state": state}
+        for name, g, w, x in zip(("y", "state"), got, want, exact):
+            scale = float(w.abs().max())
+            err = float((g - w).abs().max()) / scale
+            out[f"{name}_rel_err"] = err
+            out[f"{name}_rel_err_f64"] = float((g.double() - x).abs().max()
+                                               / x.abs().max())
+            out[f"{name}_plain_rel_err_f64"] = float(
+                (w.double() - x).abs().max() / x.abs().max())
+            out[f"{name}_largest"] = scale
+            check(err <= WKV6_TOL, f"wkv6 {name} err {err} at {out['shape']}")
+        check(all(bool(torch.isfinite(t).all()) for t in got),
+              "wkv6 outputs finite")
+        check(same_bits(torch, got, wkv6.wkv6_cuda(*args)),
+              f"wkv6: two calls give the same bits at {out['shape']}")
+        emit("wkv6_check", out)
+        if i == 0:
+            del exact
+            b_ms, b_by = bound(*wkv6_cost(B, S, H))
+            row = {**out, "ms": clock.ms(lambda: wkv6.wkv6_cuda(*args)),
+                   "plain_ms": clock.call_ms(
+                       lambda: wkv6.wkv6_plain(*args, chunk), reps=3),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": None, "library": "none: PyTorch has no "
+                   "wkv operator"}
+            emit("wkv6_time", row)
+        del args, got, want
+        torch.cuda.empty_cache()
+    return row
+
+
 def recurrent_serve_phase(torch, dev, name, *, batch, prompt, new_tokens,
                           profile_prompt=None):
     """(b)-(c) ``name`` at full width, bf16, weights seeded on the card:
@@ -5604,6 +5699,10 @@ def recurrent_serve_phase(torch, dev, name, *, batch, prompt, new_tokens,
           f"{name}: serving peak {m['max_memory_allocated_bytes']} within "
           f"its reckoning {m['serve_peak_reckoned_bytes']}")
     check_served(name, m, n_attn, max_len)
+    n_rwkv = sum(mk == cm.MIXER_RWKV6 for mk, _ in kinds)
+    check(m["launches"]["wkv6"] == 2 * n_rwkv,
+          f"{name}: one wkv6 launch an RWKV layer a prefill, none decoding: "
+          f"{m['launches']['wkv6']} for {n_rwkv} layers, 2 prefills")
     if spy is not None:
         check(len(spy.ids) == n_moe * (2 + new_tokens),
               f"{name}: one MoE call a MoE layer a pass")
@@ -5634,6 +5733,7 @@ def recurrent_serve_phase(torch, dev, name, *, batch, prompt, new_tokens,
                                               / PROFILE_DECODE)
     out["profile"] = prof
     out["flash_launches"] = m["launches"]["flash_attention"]
+    out["wkv6_launches"] = m["launches"]["wkv6"]
     emit("recurrent_profile", {"config": name, **prof})
     emit("recurrent_serve_phase", out)
     del model
@@ -7001,6 +7101,7 @@ def main() -> int:
     jamba_fwd, = timed("jamba_attention_checks", dense_attention_checks,
                        torch, clock, dev, cases=JAMBA_ATTN_CASES,
                        timed=JAMBA_TIMED, tag="jamba_attention", seed=250)
+    wkv6_row = timed("wkv6_checks", wkv6_checks, torch, clock, dev)
     recurrent = {name: timed(f"recurrent_serve_{name}",
                              recurrent_serve_phase, torch, dev, name, **kw)
                  for name, kw in RECURRENT_SERVE}
@@ -7021,6 +7122,8 @@ def main() -> int:
                  for name, kw in RECURRENT_TRAIN}
     check(rec_train[RWKV6]["launches"]["flash_attention"] == 0,
           f"{RWKV6} training: no flash launch")
+    check(rec_train[RWKV6]["launches"]["wkv6"] == 0,
+          f"{RWKV6} training: the chunk loop under autograd, no wkv6 launch")
     timed("recurrent_train_replay", recurrent_train_replay, torch, dev,
           **RECURRENT_TRAIN_REPLAY)
     timed("recurrent_kill_resume", recurrent_kill_resume, torch, dev,
@@ -7245,6 +7348,13 @@ def main() -> int:
          "launches": nd_path["launches"]["nearest_dist"],
          "launched_on": "its own phase: ops.nearest_dist is its whole path "
                         "(no system path calls it)", **nd_row},
+        {"name": "wkv6", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+         "replaces": "none (the JAX package's wkv is jnp: "
+                     "src/repro/models/rwkv.py _wkv_chunk under lax.scan)",
+         "launches": recurrent[RWKV6]["wkv6_launches"],
+         "launched_on": "step 22 rwkv6-3b serving path (one a layer a "
+                        "prefill, 2 prefills)", **wkv6_row},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

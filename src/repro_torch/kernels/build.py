@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("lift_compact", "query_topk", "flash_attention",
-           "flash_attention_bwd", "pairwise")
+           "flash_attention_bwd", "pairwise", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -15,6 +15,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lift_compact as _lc
 from repro_torch.kernels import pairwise as _pw
 from repro_torch.kernels import query_topk as _qt
+from repro_torch.kernels import wkv6 as _wkv
 
 
 def query_topk_bias(qs: torch.Tensor, embeds: torch.Tensor,
@@ -101,12 +102,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[0].transpose(0, 1).contiguous()
 
 
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         lw: torch.Tensor, u: torch.Tensor, state0: torch.Tensor,
+         chunk: int):
+    """RWKV-6's wkv over a sequence: r, k, v, lw (the log-decay) [B, S, h,
+    dh] f32, u [h, dh], state0 [B, h, dh, dh] f32 -> (y [B, S, h, dh], the
+    end state).  A CPU tensor runs the chunk loop in chunks of ``chunk``;
+    a CUDA tensor launches the kernel (dh = 64), which has no backward:
+    ``models/rwkv.py`` calls ``wkv6_plain`` itself under grad."""
+    if r.device.type == "cpu":
+        return _wkv.wkv6_plain(r, k, v, lw, u, state0, chunk)
+    return _wkv.wkv6_cuda(r, k, v, lw, u, state0)
+
+
 def launch_counts() -> dict:
     """{kernel name: CUDA launches since the last reset}."""
     return {"lift_compact": _lc.launches, "query_topk_bias": _qt.launches,
             "flash_attention": _fa.launches,
             "flash_attention_bwd": _fa.bwd_launches,
-            "nearest_dist": _pw.launches}
+            "nearest_dist": _pw.launches, "wkv6": _wkv.launches}
 
 
 def reset_launch_counts() -> None:
@@ -115,3 +129,4 @@ def reset_launch_counts() -> None:
     _fa.launches = 0
     _fa.bwd_launches = 0
     _pw.launches = 0
+    _wkv.launches = 0

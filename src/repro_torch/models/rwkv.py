@@ -2,25 +2,28 @@
 
 Port of ``repro.models.rwkv``.  The per-head recurrence
    S_t = diag(w_t) S_{t-1} + k_t^T v_t,   y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
-runs in the reference's chunked linear-attention (GLA) form: a loop over
-time chunks carries the [B, h, dk, dv] f32 state, and inside a chunk every
-decay is exp(L_a - L_b) with a >= b (L the cumulative log-decay, which
-only falls), so every exponent is <= 0; the pairs j >= t are masked to
--inf before the exponent.
+runs over a whole sequence (every call but a decode step) in
+``kernels/wkv6.py``: where no input needs a gradient, through
+``kernels.ops.wkv6`` (on the card the ``wkv6`` kernel, which keeps each
+head's f32 state on chip; on the CPU the chunk loop); under grad, through
+``wkv6_plain``, the reference's chunked linear-attention form, whose loop
+autograd differentiates (the kernel has no backward).  The choice reads
+only the inputs' ``requires_grad``: serving qualifies, since ``LM`` freezes
+its parameters.
 
-Training differentiates the chunk loop with autograd; the -inf mask
-before the exponent carries a zero gradient.  Under ``cfg.remat`` the
-period (one layer) is recomputed whole: its chunks' scores keep about two
-f32 [chunk, d_model] arrays a token for the backward, which one layer at
-a time can afford (rwkv6-3b at 1 x 4096), so unlike Mamba's scan the
-chunks are not recomputed one by one.
+Under ``cfg.remat`` the period (one layer) is recomputed whole: the chunk
+loop's scores keep about two f32 [chunk, d_model] arrays a token for the
+backward, which one layer at a time can afford (rwkv6-3b at 1 x 4096), so
+unlike Mamba's scan the chunks are not recomputed one by one.
 
 Parameter names keep the reference's slash (``mix_base/mix_mu``,
 ``cmix_k/mix_mu``): each is one key, one leaf.  ``rwkv_time_mix`` returns
 the new (state, last input) and ``rwkv_channel_mix`` its last input; the
-block writes the three into its ``RWKVCache`` in place.  The chunk loop
-(every call but a decode step) runs under the ``repro_torch.obs`` span
-``rwkv.wkv``.
+block writes the three into its ``RWKVCache`` in place.  The sequence wkv
+runs under the ``repro_torch.obs`` span ``rwkv.wkv`` whichever path takes
+it, and with a metrics registry installed each call counts one
+``rwkv_wkv_calls_total`` under ``path`` "kernel" (the kernel launched) or
+"chunks".
 """
 from __future__ import annotations
 
@@ -29,7 +32,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
+from repro_torch.kernels import wkv6 as wkv
 from repro_torch.models import common as cm
+from repro_torch.obs.metrics import get_registry
 from repro_torch.obs.trace import span
 
 # token-shift targets for time mixing
@@ -124,29 +130,6 @@ def _bonus(r, u, k, v):
     return (r * u * k).sum(dim=-1, keepdim=True) * v
 
 
-def _wkv_chunk(S, r, k, v, lw, u):
-    """One chunk of the wkv recurrence. S: [B,h,dk,dv] f32; r, k, v, lw:
-    [B,C,h,dh] (lw the log-decay, <= 0); u: [h,dh].  Returns (S at the
-    chunk's end, y [B,C,h,dv])."""
-    C = r.shape[1]
-    L = torch.cumsum(lw, dim=1)                            # [B,C,h,dk]
-    Lm1 = L - lw                                           # L_{t-1}
-    r_s = r * torch.exp(Lm1)
-    # diff[t,j,i] = L_{t-1,i} - L_{j,i} (<= 0 for j < t); -inf elsewhere
-    diff = Lm1[:, :, None] - L[:, None]                    # [B,C,C,h,dk]
-    causal = torch.ones((C, C), dtype=torch.bool, device=r.device).tril(-1)
-    diff = diff.masked_fill(~causal[None, :, :, None, None], float("-inf"))
-    scores = (r[:, :, None] * k[:, None] * torch.exp(diff)).sum(dim=-1)
-    y = torch.einsum("btjh,bjhd->bthd", scores, v)
-    y = y + _bonus(r, u, k, v)
-    y = y + torch.einsum("bthi,bhid->bthd", r_s, S)
-    # S_C = exp(L_C) S_0 + sum_j (k_j exp(L_C - L_j)) v_j
-    LC = L[:, -1]                                          # [B,h,dk]
-    S_new = torch.exp(LC)[..., None] * S + torch.einsum(
-        "bjhi,bjhd->bhid", k * torch.exp(LC[:, None] - L), v)
-    return S_new, y
-
-
 def rwkv_time_mix(params, x: torch.Tensor, cfg: cm.ArchConfig, *,
                   cache: RWKVCache | None = None):
     """x: [B,S,d].  Returns (out [B,S,d], (the new wkv state, the last
@@ -169,21 +152,21 @@ def rwkv_time_mix(params, x: torch.Tensor, cfg: cm.ArchConfig, *,
 
     if cache is None or S > 1:
         with span("rwkv.wkv", "model"):
-            Cn = min(cfg.rwkv.chunk, S)
-            pad = (-S) % Cn
-            if pad:  # padded steps: k = 0 and decay 1 leave the state alone
-                r, k, v, lw = (F.pad(t, (0, 0, 0, 0, 0, pad))
-                               for t in (r, k, v, lw))
-            state = (torch.zeros((B, h, dh, dh), dtype=torch.float32,
-                                 device=x.device) if cache is None
-                     else cache.state)
-            ys = []
-            for c0 in range(0, S + pad, Cn):
-                c = slice(c0, c0 + Cn)
-                state, yc = _wkv_chunk(state, r[:, c], k[:, c], v[:, c],
-                                       lw[:, c], u)
-                ys.append(yc)
-            y = torch.cat(ys, dim=1)[:, :S]
+            state0 = (torch.zeros((B, h, dh, dh), dtype=torch.float32,
+                                  device=x.device) if cache is None
+                      else cache.state)
+            if torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (r, k, v, lw, u, state0)):
+                y, state = wkv.wkv6_plain(r, k, v, lw, u, state0,
+                                          cfg.rwkv.chunk)
+                path = "chunks"
+            else:
+                n0 = wkv.launches
+                y, state = ops.wkv6(r, k, v, lw, u, state0, cfg.rwkv.chunk)
+                path = "kernel" if wkv.launches > n0 else "chunks"
+        reg = get_registry()
+        if reg is not None:
+            reg.counter("rwkv_wkv_calls_total").inc(1, path=path)
         new_prev = x[:, -1]
     else:
         S0 = cache.state

@@ -39,7 +39,7 @@ from repro_torch.kernels import pairwise as tpw
 from repro_torch.kernels import query_topk as tqt
 
 NO_LAUNCHES = {"lift_compact": 0, "query_topk_bias": 0, "flash_attention": 0,
-               "flash_attention_bwd": 0, "nearest_dist": 0}
+               "flash_attention_bwd": 0, "nearest_dist": 0, "wkv6": 0}
 
 LIFT_SHAPES = [   # d, h, w, stride, budget, cap, block_t (tests/test_kernels)
     (4, 24, 32, 1, 64, 4096, 256),
